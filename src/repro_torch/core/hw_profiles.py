@@ -1,4 +1,5 @@
-"""Hardware profiles: the paper's eight MemPool configurations plus TPU targets.
+"""Hardware profiles: the paper's eight MemPool configurations plus TPU and
+GPU targets.
 
 The MemPool profiles are calibrated with the *primitive* rows of Table II of the
 paper (effective frequency, total power, footprint, combined die area, wire
@@ -10,6 +11,10 @@ derived rows in the benchmarks — that round trip is the reproduction.
 TPU profiles carry the constants used for the roofline analysis
 (:mod:`benchmarks.roofline`): peak bf16 FLOP/s, HBM bandwidth, ICI link
 bandwidth, and the VMEM capacity that plays the role of MemPool's L1 SPM.
+
+GPU profiles carry the same roofline fields under the same names
+(``peak_flops_bf16``, ``hbm_bw``, ``hbm_bytes``) plus the shared memory one
+thread block may claim, which plays the role of MemPool's L1 SPM on the card.
 """
 
 from __future__ import annotations
@@ -135,3 +140,34 @@ TPU_PROFILES = {p.name: p for p in (TPU_V5E, TPU_V5P)}
 
 def get_tpu_profile(name: str = "tpu-v5e") -> TpuProfile:
     return TPU_PROFILES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuProfile:
+    """Roofline constants for one GPU (dense rates, no sparsity)."""
+
+    name: str
+    peak_flops_bf16: float     # FLOP/s, tensor cores
+    peak_flops_f32: float      # FLOP/s, outside the tensor cores
+    hbm_bw: float              # bytes/s
+    hbm_bytes: int             # capacity, bytes
+    smem_per_block: int        # shared memory one thread block may claim
+    n_sms: int                 # streaming multiprocessors
+    l2_bytes: int
+
+
+#: NVIDIA H100 SXM (data sheet and Hopper white paper): the port's card.
+#: ``smem_per_block`` is the 227 KB of the SM's 256 KB that one block can
+#: opt into as dynamic shared memory.
+H100_SXM = GpuProfile(
+    name="h100",
+    peak_flops_bf16=989e12,
+    peak_flops_f32=67e12,
+    hbm_bw=3.35e12,
+    hbm_bytes=80 * 10 ** 9,
+    smem_per_block=232448,
+    n_sms=132,
+    l2_bytes=50 * MiB,
+)
+
+GPU_PROFILES = {p.name: p for p in (H100_SXM,)}

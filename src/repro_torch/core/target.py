@@ -1,4 +1,4 @@
-"""HardwareTarget — one memory-hierarchy abstraction over MemPool and TPU.
+"""HardwareTarget — one memory-hierarchy abstraction over MemPool, TPU, GPU.
 
 The paper's thesis is that scratchpad capacity, tiling and interconnect
 hierarchy must be chosen *together*. That co-design needs a single seam that
@@ -8,7 +8,8 @@ is that seam (see DESIGN.md §HardwareTarget):
 
   * :class:`MemoryHierarchy` — named levels with capacity / bandwidth /
     latency. MemPool's tile/group/cluster SPM view maps onto the TPU's
-    VMEM / HBM / ICI / DCI ladder; both are instances of the same type.
+    VMEM / HBM / ICI / DCI ladder and onto the GPU's shared memory / L2 /
+    HBM; all are instances of the same type.
   * :class:`CapacityPartition` — the planner's contract with a scratchpad
     level: a budget (capacity x fraction) split between *streamed* operands
     (multiplied by ``n_buffers`` for the DMA double-buffer pipeline, with a
@@ -37,10 +38,11 @@ import threading
 from typing import Dict, Iterator, Optional, Tuple, Union
 
 from repro_torch import runtime_flags
-from repro_torch.core.hw_profiles import (MEMPOOL_PROFILES, TPU_PROFILES, TPU_V5E,
-                                    MemPoolProfile, TpuProfile)
+from repro_torch.core.hw_profiles import (GPU_PROFILES, MEMPOOL_PROFILES,
+                                          TPU_PROFILES, TPU_V5E, GpuProfile,
+                                          MemPoolProfile, TpuProfile)
 
-Profile = Union[TpuProfile, MemPoolProfile]
+Profile = Union[TpuProfile, MemPoolProfile, GpuProfile]
 
 
 # ---------------------------------------------------------------------------
@@ -225,11 +227,12 @@ class HardwareTarget:
 
     ``scratchpad_level`` names the hierarchy level whose capacity the tile
     planner partitions: VMEM on TPU, the full shared-L1 cluster SPM on
-    MemPool (the paper's t-rule fills the whole pool).
+    MemPool (the paper's t-rule fills the whole pool), one block's shared
+    memory on a GPU.
     """
 
     name: str
-    kind: str                          # "tpu" | "mempool"
+    kind: str                          # "tpu" | "mempool" | "gpu"
     hierarchy: MemoryHierarchy
     profile: Profile
     scratchpad_level: str
@@ -298,6 +301,32 @@ def mempool_target(profile: MemPoolProfile) -> HardwareTarget:
         profile=profile, scratchpad_level="cluster",
         tile_align=MEMPOOL_TILE_ALIGN, word_bytes=profile.word_bytes,
         db_margin=MEMPOOL_DB_MARGIN)
+
+
+#: GPU block-edge alignment. 32 is the coarsest edge at which the plans for
+#: scratchpad fractions 0.125 / 0.25 / 0.5 / 0.75 of an H100 block's shared
+#: memory are four distinct tiles that all fit, for bf16 and for f32 (at 64
+#: the 0.125 plan no longer fits). It is also a warp's width.
+GPU_TILE_ALIGN = 32
+
+
+def gpu_target(profile: GpuProfile) -> HardwareTarget:
+    """smem / L2 / HBM — the GPU instance. The scratchpad is the shared
+    memory one thread block may claim; L2 is shared by every SM.
+
+    Latencies are public-order-of-magnitude estimates; planning uses only
+    capacities and bandwidths.
+    """
+    hierarchy = MemoryHierarchy(levels=(
+        MemoryLevel("smem", profile.smem_per_block, None, 30e-9, "s", 1),
+        MemoryLevel("l2", profile.l2_bytes, None, 200e-9, "s",
+                    shared_by=profile.n_sms),
+        MemoryLevel("hbm", profile.hbm_bytes, profile.hbm_bw, 500e-9, "s",
+                    shared_by=profile.n_sms),
+    ))
+    return HardwareTarget(
+        name=profile.name, kind="gpu", hierarchy=hierarchy, profile=profile,
+        scratchpad_level="smem", tile_align=GPU_TILE_ALIGN, word_bytes=2)
 
 
 # ---------------------------------------------------------------------------
@@ -373,4 +402,6 @@ for _p in TPU_PROFILES.values():
     register_target(tpu_target(_p))
 for _p in MEMPOOL_PROFILES.values():
     register_target(mempool_target(_p))
+for _p in GPU_PROFILES.values():
+    register_target(gpu_target(_p))
 del _p

@@ -14,18 +14,21 @@ Every planner below checks candidate working sets against a
 current :class:`~repro_torch.core.target.HardwareTarget`'s scratchpad level
 (DESIGN.md §CapacityPartition). Callers normally go through the cached entry
 points in :mod:`repro_torch.core.planner`; the ``profile=`` escape hatch partitions
-an explicit :class:`TpuProfile` for sweeps and tests.
+an explicit :class:`TpuProfile` or :class:`GpuProfile` for sweeps and tests.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
-from repro_torch.core.hw_profiles import TpuProfile
+from repro_torch.core.hw_profiles import GpuProfile, TpuProfile
 from repro_torch.core.target import (CapacityPartition, MEMPOOL_DB_MARGIN,
-                               MEMPOOL_TILE_ALIGN, get_target)
+                                     MEMPOOL_TILE_ALIGN, get_target,
+                                     gpu_target)
+
+Profile = Union[TpuProfile, GpuProfile]
 
 # ---------------------------------------------------------------------------
 # The paper's tile-size rule (MemPool, §VI-A).
@@ -100,12 +103,15 @@ def _fit_pow2_below(x: int, cap: int) -> int:
 
 
 def _resolve_partition(partition: Optional[CapacityPartition],
-                       profile: Optional[TpuProfile],
+                       profile: Optional[Profile],
                        fraction: float, n_buffers: int) -> CapacityPartition:
     """Partition precedence: explicit partition > explicit profile > current
     target's scratchpad."""
     if partition is not None:
         return partition
+    if isinstance(profile, GpuProfile):
+        return gpu_target(profile).partition(fraction=fraction,
+                                             n_buffers=n_buffers)
     if profile is not None:
         return CapacityPartition(capacity_bytes=profile.vmem_bytes,
                                  fraction=fraction, n_buffers=n_buffers,
@@ -158,7 +164,7 @@ def pl_cdiv(a: int, b: int) -> int:
 
 def plan_matmul(m: int, k: int, n: int, *,
                 partition: Optional[CapacityPartition] = None,
-                profile: Optional[TpuProfile] = None,
+                profile: Optional[Profile] = None,
                 in_bytes: Optional[int] = None,
                 acc_bytes: int = 4,
                 n_buffers: int = 2,
@@ -234,7 +240,7 @@ class AttentionPlan:
 
 def plan_attention(seq_q: int, seq_kv: int, head_dim: int, *,
                    partition: Optional[CapacityPartition] = None,
-                   profile: Optional[TpuProfile] = None,
+                   profile: Optional[Profile] = None,
                    in_bytes: Optional[int] = None,
                    n_buffers: int = 2,
                    vmem_fraction: float = 0.5,
@@ -290,7 +296,7 @@ class ScanChunkPlan:
 
 def plan_scan_chunk(seq: int, d_inner: int, d_state: int, *,
                     partition: Optional[CapacityPartition] = None,
-                    profile: Optional[TpuProfile] = None,
+                    profile: Optional[Profile] = None,
                     in_bytes: Optional[int] = None,
                     n_buffers: int = 1,
                     vmem_fraction: float = 0.5,

@@ -44,6 +44,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "paged_attention_max_page_tokens": (_I, []),
         "paged_attention_error_string": (ctypes.c_char_p, [_I]),
     },
+    "matmul3d": {
+        "matmul3d_f32": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+        "matmul3d_bf16": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+        "matmul3d_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

@@ -1,12 +1,14 @@
 """Public entry points of the kernel package.
 
-The counterpart of ``src/repro/kernels/ops.py``. Models call these; they
+The counterpart of ``src/repro/kernels/ops.py``. Callers use these; they
 dispatch to the Hopper kernel or to the plain PyTorch oracle with the
 reference's rule: ``impl="auto"`` takes the kernel for CUDA tensors and the
 oracle for CPU tensors, ``impl="kernel"`` / ``impl="ref"`` pin one side.
 
-The matmul and selective-scan entries of the reference are not ported yet
-(ROADMAP B3, B4).
+Matmul plans come from the planner's cache for the current target, as in
+the reference; the Hopper kernel takes only plans that fit one block's
+shared memory, so on the card the current target must be a GPU target
+(``h100``). The selective-scan entry is not ported yet (ROADMAP B4).
 """
 
 from __future__ import annotations
@@ -14,10 +16,14 @@ from __future__ import annotations
 from typing import Literal, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core import tiling
+from repro_torch.core import planner, tiling
+from repro_torch.core.target import get_target
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.matmul3d import SMEM_BYTES, check_plan
+from repro_torch.kernels.matmul3d import matmul3d as _matmul
 
 Impl = Literal["auto", "kernel", "ref"]
 
@@ -28,6 +34,49 @@ def _use_kernel(impl: Impl, x: torch.Tensor) -> bool:
     if impl not in ("kernel", "ref"):
         raise ValueError(f"unknown impl {impl!r} (auto | kernel | ref)")
     return impl == "kernel"
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    widths = [0, 0] * x.dim()            # F.pad lists the last axis first
+    widths[2 * (x.dim() - 1 - axis) + 1] = pad
+    return F.pad(x, widths)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           plan: Optional[tiling.MatmulPlan] = None,
+           out_dtype: Optional[torch.dtype] = None,
+           impl: Impl = "auto") -> torch.Tensor:
+    """Capacity-aware tiled matmul; pads to block multiples then crops.
+
+    ``plan=None`` plans from the current target, which must then be a GPU
+    target; a given plan is checked against the kernel before it is
+    clamped to the problem, and one that does not fit raises.
+    """
+    if not _use_kernel(impl, a):
+        return ref.matmul_ref(a, b, out_dtype)
+    m, k = a.shape
+    n = b.shape[1]
+    if plan is None:
+        target = get_target()
+        if target.kind != "gpu":
+            raise ValueError(
+                f"ops.matmul plans from the current target {target.name}, "
+                f"whose scratchpad holds {target.scratchpad_bytes} B; the "
+                f"matmul3d kernel's tiles live in the {SMEM_BYTES} B of "
+                f"shared memory one H100 block may claim: select a GPU "
+                f"target (h100)")
+        eff = planner.matmul_kernel_plan(m, k, n, in_bytes=a.element_size(),
+                                         target=target)
+    else:
+        check_plan(plan, a.element_size())
+        eff = planner.clamp_matmul_plan(plan, m, k, n)
+    ap = _pad_to(_pad_to(a, 0, eff.bm), 1, eff.bk).contiguous()
+    bp = _pad_to(_pad_to(b, 0, eff.bk), 1, eff.bn).contiguous()
+    out = _matmul(ap, bp, plan=eff, out_dtype=out_dtype or a.dtype)
+    return out[:m, :n]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

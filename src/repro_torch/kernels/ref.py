@@ -1,8 +1,9 @@
-"""Plain PyTorch oracles for the attention kernels of this package.
+"""Plain PyTorch oracles for the kernels of this package.
 
 Mirrors ``src/repro/kernels/ref.py``: these are the ground truth the kernels
 are checked against and the implementations the model stack uses on the
-CPU. All math is f32; outputs come back in ``q``'s dtype.
+CPU. All math is f32; outputs come back in the input's dtype unless an
+``out_dtype`` is given.
 """
 
 from __future__ import annotations
@@ -12,6 +13,14 @@ from typing import Optional, Union
 import torch
 
 Offset = Union[int, torch.Tensor]
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A @ B with f32 accumulation, cast to ``out_dtype`` (default
+    ``a.dtype``)."""
+    out_dtype = out_dtype or a.dtype
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
 def _mask(sq: int, skv: int, q_offset: Offset, causal: bool,
@@ -103,3 +112,30 @@ def attention_ref_blockwise(q: torch.Tensor, k: torch.Tensor,
             m = m_n
         blocks.append(acc / torch.clamp(l, min=1e-30))
     return torch.cat(blocks, dim=2).to(q.dtype)
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None,
+                       return_state: bool = False):
+    """Mamba-1 selective scan oracle (discretized zero-order hold).
+
+    x, dt: (B, L, Di);  a: (Di, Ds);  b, c: (B, L, Ds);  d: (Di,)
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) outer B_t ;  y_t = h_t . C_t + D*x_t
+    A Python loop over L takes the place of the reference's ``lax.scan``.
+    """
+    bsz, length, di = x.shape
+    ds = a.shape[1]
+    xf, dtf, bf, cf, af = (t.float() for t in (x, dt, b, c, a))
+    h = (torch.zeros((bsz, di, ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(length):
+        decay = torch.exp(dtf[:, t, :, None] * af[None])
+        h = decay * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bis,bs->bi", h, cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bsz, 0, di))
+    y = (y + xf * d.float()[None, None, :]).to(x.dtype)
+    if return_state:
+        return y, h
+    return y
