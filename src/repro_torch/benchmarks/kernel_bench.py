@@ -7,14 +7,19 @@ reference's shapes.
     blocks; yardstick ``torch.matmul`` with TF32 off;
   * causal attention (bf16, D = 128, group 1) through the flash kernel;
     yardstick ``scaled_dot_product_attention``;
-  * the selective scan through its plain version (its kernel is ROADMAP
-    B4); no yardstick.
+  * the selective scan (f32) through the ``mamba_scan`` kernel at the
+    target's planned chunk; no yardstick (no PyTorch call computes a
+    selective scan). Its roofline counts each input and output byte once
+    against the ``B * L * Di * Ds`` exponentials at the special function
+    units' rate.
 
 Times are medians over CUDA events on the card. Each kernel row is held to
 its plain version and raises past its limit: matmul at
 ``tests/test_kernels.py``'s f32 2e-4, as max|d| / max|plain|; attention at
-atol = rtol = 2e-2 (bf16). With ``--device cpu`` the plain versions run on
-the CPU and no time is reported: a CPU time is not a device metric.
+atol = rtol = 2e-2 (bf16); the scan at atol = rtol = 2e-4 (f32, the
+tolerance of ``test_mamba_scan_sweep``). With ``--device cpu`` the plain
+versions run on the CPU and no time is reported: a CPU time is not a
+device metric.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_bench --target h100
 """
@@ -32,16 +37,17 @@ from repro_torch.benchmarks.common import (add_target_arg, fmt_table,
 from repro_torch.core import planner
 from repro_torch.core.target import HardwareTarget, get_target
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.mamba_scan import scan_work
 from repro_torch.models.api import resolve_device
 
 MATMUL_SHAPES = [(512, 512, 512), (1024, 2048, 1024), (2048, 2048, 2048)]
 ATTENTION_SHAPES = [(1, 8, 1024, 128), (1, 8, 4096, 128)]
 SCAN_SHAPES = [(1, 2048, 4096, 16), (1, 8192, 4096, 16)]
-SCAN_LABEL = "plain (kernel: ROADMAP B4)"
+SCAN_LABEL = "mamba_scan"
 N_TIMED = 5
-N_TIMED_SCAN = 2      # the plain scan is one Python step per position
 MATMUL_REL_TOL = 2e-4     # f32, max|d| / max|plain|
 ATTENTION_TOL = 2e-2      # bf16, atol = rtol
+SCAN_TOL = 2e-4           # f32, atol = rtol
 
 Timer = Optional[Callable[[Callable[[], object], int], float]]
 
@@ -115,16 +121,23 @@ def scan_row(target: HardwareTarget, b_: int, length: int, di: int, ds: int,
     c = _randn(gen, (b_, length, ds), device) * 0.1
     dd = torch.ones((di,), device=device)
     plan = planner.scan_kernel_plan(length, di, ds, target=target)
-    y = ref.selective_scan_ref(x, dt, a, bb, c, dd)
-    if not torch.isfinite(y).all():
-        raise RuntimeError(f"selective scan {x.shape}: non-finite output")
-    ms = _time(timer, lambda: ref.selective_scan_ref(x, dt, a, bb, c, dd),
-               N_TIMED_SCAN)
-    stream = b_ * length * (4 * di + 2 * ds) * 2
+    got = ops.selective_scan(x, dt, a, bb, c, dd, plan=plan)
+    want = ref.selective_scan_ref(x, dt, a, bb, c, dd)
+    err = (got - want).abs().max()
+    if not (torch.isfinite(got).all() and torch.allclose(
+            got, want, atol=SCAN_TOL, rtol=SCAN_TOL)):
+        raise RuntimeError(f"mamba_scan {tuple(x.shape)} chunk {plan.chunk}: "
+                           f"max|d| {float(err):.3e} beyond atol = rtol = "
+                           f"{SCAN_TOL}")
+    ms = _time(timer, lambda: ops.selective_scan(x, dt, a, bb, c, dd,
+                                                 plan=plan))
+    n_bytes, exps = scan_work(x, dt, a, bb, c, dd)
+    prof = target.profile
+    roof_s = max(n_bytes / prof.hbm_bw, exps / prof.special_ops)
     return dict(kind="mamba_scan", shape=[b_, length, di, ds],
-                route=SCAN_LABEL, plan=[plan.chunk], max_abs_err=None,
-                ms=ms, library_ms=None, hbm_bytes=stream, intensity=None,
-                roofline_ms=stream / target.profile.hbm_bw * 1e3)
+                route=SCAN_LABEL, plan=[plan.chunk], max_abs_err=float(err),
+                ms=ms, library_ms=None, hbm_bytes=n_bytes,
+                intensity=exps / n_bytes, roofline_ms=roof_s * 1e3)
 
 
 def _cell(x: Optional[float], fmt: str = "{:.4f}") -> str:

@@ -154,11 +154,16 @@ class GpuProfile:
     smem_per_block: int        # shared memory one thread block may claim
     n_sms: int                 # streaming multiprocessors
     l2_bytes: int
+    special_ops: float         # results/s of the special function units
+                               # (exp2, log2, rcp, rsqrt, sin, cos)
 
 
 #: NVIDIA H100 SXM (data sheet and Hopper white paper): the port's card.
 #: ``smem_per_block`` is the 227 KB of the SM's 256 KB that one block can
-#: opt into as dynamic shared memory.
+#: opt into as dynamic shared memory. ``special_ops``: 16 results a clock
+#: on each SM for compute capability 9.0 (CUDA C++ Programming Guide,
+#: throughput of native arithmetic instructions) at the 1980 MHz boost
+#: clock.
 H100_SXM = GpuProfile(
     name="h100",
     peak_flops_bf16=989e12,
@@ -168,6 +173,7 @@ H100_SXM = GpuProfile(
     smem_per_block=232448,
     n_sms=132,
     l2_bytes=50 * MiB,
+    special_ops=132 * 16 * 1.98e9,
 )
 
 GPU_PROFILES = {p.name: p for p in (H100_SXM,)}

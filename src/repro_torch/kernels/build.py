@@ -49,6 +49,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "matmul3d_bf16": (_I, [_P] * 3 + [_I] * 8 + [_P]),
         "matmul3d_error_string": (ctypes.c_char_p, [_I]),
     },
+    "mamba_scan": {
+        "mamba_scan": (_I, [_P] * 9 + [_I] * 6 + [_P]),
+        "mamba_scan_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

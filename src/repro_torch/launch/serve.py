@@ -14,7 +14,11 @@ The counterpart of ``src/repro/launch/serve.py``, on the card by default
 
 Weights are random, made on the device from a fixed seed. Hardware target
 selection (``--target`` or ``REPRO_TARGET``) sizes the slot and page
-budgets from that target's CapacityPartition, as in the reference.
+budgets from that target's CapacityPartition, as in the reference, and the
+kernels' plans: ``--arch falcon-mamba-7b`` on the card takes
+``--target h100``, whose scan chunks fit the kernel's shared memory. An
+attention-free model keeps no KV bytes, so its ``--layer0-bytes`` /
+``--layer1-bytes`` count pages.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Model facade: init / prefill / decode_step / slot_update_paged.
+"""Model facade: init / loss / prefill / decode_step / slot_update_paged.
 
-The counterpart of ``src/repro/models/api.py`` for ``family="dense"``.
+The counterpart of ``src/repro/models/api.py`` for ``family="dense"`` and
+``family="ssm"``.
 A :class:`Model` lives on one device: CUDA unless the caller passes
 ``device="cpu"``. With no card and no explicit CPU it raises — the port
 never drops to the CPU silently.
@@ -30,14 +31,22 @@ def resolve_device(device: Device = None) -> torch.device:
     return dev
 
 
+#: the mamba leaves the reference casts to bf16 inside every op
+#: (``src/repro/models/ssm.py``); ``a_log``, ``dt_bias`` and ``ssm_d`` stay f32
+_MAMBA_MATRICES = ("in_proj", "x_proj", "dt_proj", "out_proj", "conv_w",
+                   "conv_b")
+
+
 def _is_matrix(name: str) -> bool:
     """Leaves the reference casts to bf16 inside every op: projection
-    matrices (``w*``) and the embedding tables."""
-    return name.startswith("w") or name in ("embed", "unembed")
+    matrices (``w*``), the embedding tables and the mamba projections and
+    conv weights."""
+    return (name.startswith("w") or name in ("embed", "unembed")
+            or name in _MAMBA_MATRICES)
 
 
 class Model:
-    """Facade over the dense GQA substrate on one device.
+    """Facade over the dense GQA and Mamba-1 substrate on one device.
 
     The model owns a :class:`Mem3DPlanner` for the given hardware target
     (default: the process-wide current target), as in the reference.
@@ -85,6 +94,18 @@ class Model:
                     for k, v in tree.items()}
         return walk(params)
 
+    # ------------------------------------------------------------- loss
+    @torch.no_grad()
+    def loss(self, params, batch: Dict[str, torch.Tensor], *,
+             plans: Optional[KernelPlans] = None):
+        """Causal LM loss of one full-sequence forward (no caches), forward
+        only: ``batch`` holds ``tokens`` and ``labels`` (B, S), -1 =
+        ignore. Returns ``(total, {loss, aux, tokens})`` as the reference.
+        The backward pass comes with training (ROADMAP A11)."""
+        plans = plans or self.kernel_plans(batch["tokens"].shape[1])
+        return transformer.lm_loss(self.cfg, params, batch["tokens"],
+                                   batch["labels"], plans=plans)
+
     # ---------------------------------------------------------- serving
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_len: int,
                 *, plans: Optional[KernelPlans] = None,
@@ -127,23 +148,22 @@ class Model:
         The row's contiguous ``depth = P * page_tokens`` KV is cut into P
         pages and written at the physical pages ``block_row`` maps (the
         slot's block-table row; unmapped tail entries point at null page
-        0, so their junk lands where no sequence reads). ``slot`` is kept
-        for the reference's signature: a dense GQA stack has no per-slot
-        resident state.
+        0, so their junk lands where no sequence reads). Recurrent SSM
+        state is written to the slot's own row at ``slot``.
         """
-        del slot
         p_max = block_row.shape[0]
         rows = block_row.long()
-        for group in self.cfg.layer_groups():
-            for pos in range(len(group.pattern)):
-                key = f"pos{pos}"
-                pool_leaf = pool_state["caches"][group.name][key]
-                row_leaf = row_state["caches"][group.name][key]
-                for name, pool in pool_leaf.items():
-                    row = row_leaf[name]                # (r, 1, hkv, depth, hd)
-                    r, _, hkv, _, hd = row.shape
-                    cut = row[:, 0].reshape(r, hkv, p_max, page_tokens, hd)
-                    pool[:, rows] = torch.movedim(cut, 2, 1).to(pool.dtype)
+        for gname, key, is_paged in transformer.paged_cache_kinds(self.cfg):
+            pool_leaf = pool_state["caches"][gname][key]
+            row_leaf = row_state["caches"][gname][key]
+            for name, pool in pool_leaf.items():
+                row = row_leaf[name]
+                if not is_paged:                   # (r, 1, ...) -> slot
+                    pool[:, slot] = row[:, 0].to(pool.dtype)
+                    continue
+                r, _, hkv, _, hd = row.shape       # (r, 1, hkv, depth, hd)
+                cut = row[:, 0].reshape(r, hkv, p_max, page_tokens, hd)
+                pool[:, rows] = torch.movedim(cut, 2, 1).to(pool.dtype)
         return pool_state
 
 

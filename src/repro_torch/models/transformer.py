@@ -1,11 +1,14 @@
-"""Decoder-only LM: init / forward / prefill / decode.
+"""Decoder-only LM: init / forward / loss / prefill / decode.
 
 The counterpart of ``src/repro/models/transformer.py`` for dense GQA
-stacks. The layer stack is factorized into repeated superblocks
+stacks and attention-free Mamba-1 stacks (``family="ssm"``). The layer
+stack is factorized into repeated superblocks
 (:meth:`ModelConfig.layer_groups`) whose params are stacked on a leading
 axis; a Python loop over the repeats replaces the reference's
 ``lax.scan``. Caches are stacked the same way, and each layer reads and
-writes its slice in place (:mod:`repro_torch.models.attention`).
+writes its slice in place (:mod:`repro_torch.models.attention`,
+:mod:`repro_torch.models.ssm`). Attention layers keep K/V, paged or in a
+dense slab; mamba layers keep one recurrent row per sequence, never paged.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.core.planner import KernelPlans
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 from repro_torch.models.config import LayerKind, ModelConfig
 
 Params = Dict[str, Any]
@@ -24,10 +27,10 @@ Params = Dict[str, Any]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"A8 MoE, A9 SSM/hybrid, A10 enc-dec, A7 vlm)")
+            f"A8 MoE, A9 hybrid attention + mamba, A10 enc-dec, A7 vlm)")
     if cfg.use_mla or cfg.mrope or cfg.frontend_len or cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: MLA / M-RoPE / frontends / MoE are not ported yet "
@@ -44,6 +47,8 @@ def _init_layer(cfg: ModelConfig, kind: LayerKind, gen: torch.Generator,
         return {"scale": torch.ones((n, d), dtype=torch.float32,
                                     device=gen.device)}
 
+    if kind.attn == "mamba":     # an ssm stack's layers have no MLP
+        return {"ln1": norm(), "mamba": ssm.init_mamba(cfg, gen, n)}
     return {"ln1": norm(), "attn": attn_mod.init_gqa(cfg, gen, n),
             "ln2": norm(), "mlp": layers.init_mlp(gen, d, cfg.d_ff, n)}
 
@@ -72,6 +77,12 @@ def _apply_layer(cfg: ModelConfig, kind: LayerKind, p: Params,
                  x: torch.Tensor, *, positions, cache, cache_len,
                  plans: Optional[KernelPlans] = None, block_tables=None):
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind.attn == "mamba":
+        # recurrent state is a per-slot row, never paged: block tables only
+        # address the attention page pools
+        y, _ = ssm.mamba_block(p["mamba"], h, cfg=cfg, cache=cache,
+                               plan=plans.scan_chunk if plans else None)
+        return x + y
     y, _ = attn_mod.gqa_attention(
         p["attn"], h, cfg=cfg, kind=kind, positions=positions, cache=cache,
         cache_len=cache_len, plan=plans.attention if plans else None,
@@ -128,6 +139,40 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     return x, caches
 
 
+def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            labels: torch.Tensor, *, loss_chunk: int = 2048,
+            plans: Optional[KernelPlans] = None):
+    """Causal LM loss of a full-sequence forward. labels: (B, S) int, -1 =
+    ignore. As in the reference, the vocab projection and the softmax run
+    in sequence chunks (the largest power-of-two share of ``loss_chunk``
+    that divides S), with the padded vocab masked, so the (tokens x vocab)
+    logits never materialize whole. Returns (total, {loss, aux, tokens});
+    ``aux`` is 0 (no MoE layer is ported)."""
+    x, _ = forward(cfg, params, tokens, plans=plans)
+    b, s, _ = x.shape
+    chunk = min(loss_chunk, s)
+    while s % chunk:
+        chunk //= 2
+    neg = torch.finfo(torch.float32).min
+    col = torch.arange(cfg.padded_vocab, device=x.device)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        li = labels[:, i:i + chunk]
+        logits = layers.unembed_logits(params["tok"], x[:, i:i + chunk])
+        logits = torch.where(col < cfg.vocab_size, logits.float(), neg)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            li.clamp(min=0).long()[..., None])[..., 0]
+        valid = (li >= 0).float()
+        tot = tot + ((lse - gold) * valid).sum()
+        cnt = cnt + valid.sum()
+    loss = tot / torch.clamp(cnt, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss + cfg.router_aux_weight * aux, {"loss": loss, "aux": aux,
+                                                 "tokens": cnt}
+
+
 # -------------------------------------------------------------- caches
 
 def _stack(one: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
@@ -137,32 +182,40 @@ def _stack(one: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                 dtype=torch.bfloat16) -> Dict[str, Any]:
-    """Per-layer dense decode caches ``{group: {posN: {k, v}}}``, stacked
-    ``(n_repeat, B, Hkv, max_len, D)``."""
+    """Per-layer dense decode caches ``{group: {posN: {leaf: tensor}}}``,
+    stacked on the repeats: attention layers ``{k, v}`` of ``(n_repeat, B,
+    Hkv, max_len, D)``, mamba layers ``{conv, ssm}`` with one f32 row per
+    sequence."""
     return {group.name: {
-        f"pos{pos}": _stack(attn_mod.init_gqa_cache(cfg, batch, max_len,
-                                                    device, dtype),
-                            group.n_repeat)
-        for pos in range(len(group.pattern))}
+        f"pos{pos}": _stack(
+            ssm.init_mamba_cache(cfg, batch, device) if kind.attn == "mamba"
+            else attn_mod.init_gqa_cache(cfg, batch, max_len, device, dtype),
+            group.n_repeat)
+        for pos, kind in enumerate(group.pattern)}
         for group in cfg.layer_groups()}
 
 
-def init_paged_caches(cfg: ModelConfig, n_pages: int, page_tokens: int,
-                      device, dtype=torch.bfloat16) -> Dict[str, Any]:
+def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
+                      page_tokens: int, device,
+                      dtype=torch.bfloat16) -> Dict[str, Any]:
     """Paged pool caches: every attention layer owns a flat page pool
-    ``(n_repeat, n_pages, Hkv, page_tokens, D)`` (page 0 = null)."""
+    ``(n_repeat, n_pages, Hkv, page_tokens, D)`` (page 0 = null); recurrent
+    SSM state stays a resident row per slot (``batch`` rows; in the spill
+    tier, one seat per spill page), exactly as in :func:`init_caches`."""
     return {group.name: {
-        f"pos{pos}": _stack(attn_mod.init_gqa_pages(cfg, n_pages, page_tokens,
-                                                    device, dtype),
-                            group.n_repeat)
-        for pos in range(len(group.pattern))}
+        f"pos{pos}": _stack(
+            ssm.init_mamba_cache(cfg, batch, device) if kind.attn == "mamba"
+            else attn_mod.init_gqa_pages(cfg, n_pages, page_tokens, device,
+                                         dtype),
+            group.n_repeat)
+        for pos, kind in enumerate(group.pattern)}
         for group in cfg.layer_groups()}
 
 
 def paged_cache_kinds(cfg: ModelConfig):
     """Yield ``(group_name, pos_key, is_paged)`` for every cache entry —
-    the walk order spill/restore and page scatter share. Every entry of a
-    dense GQA stack is paged."""
+    the walk order spill/restore and page scatter share. ``is_paged`` is
+    False for recurrent (per-slot resident) entries."""
     for group in cfg.layer_groups():
         for pos, kind in enumerate(group.pattern):
             yield group.name, f"pos{pos}", kind.attn != "mamba"

@@ -3,15 +3,18 @@
 The counterpart of ``src/repro/serve/pool.py`` for the fp16 (bf16 storage)
 codec. The KV pool is one device-side address space: a flat layer-0 page
 pool addressed through per-slot block tables, and a layer-1 spill tier the
-scheduler preempts into when layer 0 runs out.
+scheduler preempts into when layer 0 runs out. Recurrent SSM state is not
+paged: layer 0 holds one row per slot and layer 1 one seat per spill page,
+and a spill or restore moves the row between the slot and its seat.
 
 Unlike the reference's functional arrays, the pools here are updated IN
 PLACE. That is safe because the engine executes a boundary's copies in the
 scheduler's plan order — spills first, then restores, then admissions —
-and every copy is a gather into fresh memory followed by a scatter: a
-spill copies its pages OUT of layer 0 (it never keeps a view of them), so
-a restore or an admission that reuses those layer-0 pages later in the
-same boundary cannot change what was spilled.
+and every copy is complete, in stream order, before the next one starts:
+a spill copies its pages and its slot's row OUT of layer 0 (it never keeps
+a view of them), so a restore or an admission that reuses those layer-0
+pages or that slot later in the same boundary cannot change what was
+spilled.
 """
 
 from __future__ import annotations
@@ -88,7 +91,9 @@ class PoolManager:
     def init_paged_pool(self, sch: sched_mod.Scheduler
                         ) -> Tuple[PoolState, Dict[str, Any]]:
         """Empty paged pool (all slots done/free) + the layer-1 spill
-        tier's device arrays."""
+        tier's device arrays: recurrent rows for ``n_slots`` slots in
+        layer 0 and one seat per spill page in layer 1 (a spilled sequence
+        holds at least one page, so seats cannot run out first)."""
         geom = sch.pages
         if geom is None:
             raise ValueError("init_paged_pool needs a paged scheduler")
@@ -100,9 +105,10 @@ class PoolManager:
         cfg, dev = self.model.cfg, self.device
         n_slots = sch.n_slots
         state = {"caches": transformer.init_paged_caches(
-            cfg, geom.n_pages, geom.page_tokens, dev)}
+            cfg, n_slots, geom.n_pages, geom.page_tokens, dev)}
         spill = transformer.init_paged_caches(
-            cfg, geom.n_spill_pages, geom.page_tokens, dev)
+            cfg, geom.n_spill_pages, geom.n_spill_pages, geom.page_tokens,
+            dev)
 
         def vec(value, dtype=torch.int32):
             return torch.full((n_slots,), value, dtype=dtype, device=dev)
@@ -115,16 +121,20 @@ class PoolManager:
         return pool, spill
 
     # -------------------------------------------------------- tier copies
-    def _copy_pages(self, src_caches, dst_caches, pages_src: torch.Tensor,
-                    pages_dst: torch.Tensor) -> None:
-        """dst[:, pages_dst] = src[:, pages_src] for every paged leaf. The
-        right side is a gather into fresh memory; padded entries route
-        through the null pages."""
+    def _tier_copy(self, src_caches, dst_caches, row_src: int, row_dst: int,
+                   pages_src: torch.Tensor, pages_dst: torch.Tensor) -> None:
+        """dst[:, pages_dst] = src[:, pages_src] for every paged leaf, and
+        dst[:, row_dst] = src[:, row_src] for every recurrent (per-slot)
+        leaf. Padded page entries route through the null pages."""
         from repro_torch.models import transformer
-        for gname, gkey, _ in transformer.paged_cache_kinds(self.model.cfg):
+        for gname, gkey, is_paged in transformer.paged_cache_kinds(
+                self.model.cfg):
             src_g, dst_g = src_caches[gname][gkey], dst_caches[gname][gkey]
             for name, dst in dst_g.items():
-                dst[:, pages_dst] = src_g[name][:, pages_src]
+                if is_paged:
+                    dst[:, pages_dst] = src_g[name][:, pages_src]
+                else:
+                    dst[:, row_dst] = src_g[name][:, row_src]
 
     def pad_pages(self, pages: Sequence[int], p_max: int) -> torch.Tensor:
         row = [0] * p_max
@@ -133,25 +143,27 @@ class PoolManager:
 
     def exec_spill(self, pool: PoolState, spill: Dict[str, Any],
                    act: sched_mod.SpillAction, p_max: int) -> Dict[str, Any]:
-        """Copy a preempted sequence's layer-0 pages into layer 1."""
-        self._copy_pages(pool.state["caches"], spill,
-                         self.pad_pages(act.src_pages, p_max).long(),
-                         self.pad_pages(act.dst_pages, p_max).long())
+        """Copy a preempted sequence's layer-0 pages into layer 1, and its
+        slot's recurrent row into its seat."""
+        self._tier_copy(pool.state["caches"], spill, act.slot, act.seat,
+                        self.pad_pages(act.src_pages, p_max).long(),
+                        self.pad_pages(act.dst_pages, p_max).long())
         return spill
 
     def exec_restore(self, pool: PoolState, spill: Dict[str, Any],
                      act: sched_mod.RestoreAction, p_max: int) -> PoolState:
-        """Copy a preempted sequence back into layer 0 and re-arm its slot.
+        """Copy a preempted sequence back into layer 0 (its pages, and its
+        seat's recurrent row into the slot) and re-arm its slot.
 
         The per-slot vectors come from the host mirror: the KV frontier is
         one behind the emitted count (the last token's K/V is written by
         its own upcoming decode step), so decode resumes bit-exactly where
         preemption cut it."""
         req = act.req
-        self._copy_pages(spill, pool.state["caches"],
-                         self.pad_pages(act.src_pages, p_max).long(),
-                         self.pad_pages(req.pages[:len(act.src_pages)],
-                                        p_max).long())
+        self._tier_copy(spill, pool.state["caches"], act.seat, act.slot,
+                        self.pad_pages(act.src_pages, p_max).long(),
+                        self.pad_pages(req.pages[:len(act.src_pages)],
+                                       p_max).long())
         slot = act.slot
         pool.cache_len[slot] = req.cache_len
         if req.status == sched_mod.PREFILLING:

@@ -21,7 +21,9 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.kernels import build
+from repro_torch.core.tiling import ScanChunkPlan
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.paged_attention import paged_flash_decode
 from repro_torch.launch import serve as cli
 from repro_torch.models import build_model
@@ -96,6 +98,11 @@ def test_wrappers_refuse_other_devices():
     cl = torch.empty((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         paged_flash_decode(q[:, :, :1], pages, pages, bt, cl)
+    x = torch.empty((1, 8, 32), device="meta")
+    a = torch.empty((32, 16), device="meta")
+    bc = torch.empty((1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        mamba_scan(x, x, a, bc, bc, a[:, 0], plan=ScanChunkPlan(8))
 
 
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,

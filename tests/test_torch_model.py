@@ -180,7 +180,8 @@ def test_paged_decode_matches_jax(pair, arch):
     forced = rng.randint(2, cfg.vocab_size, size=(steps, 2)).astype(np.int32)
     import repro.models.transformer as jt
     jpool = {"caches": jt.init_paged_caches(jm.cfg, 2, n_pages, pt)}
-    tpool = {"caches": transformer.init_paged_caches(cfg, n_pages, pt, "cpu")}
+    tpool = {"caches": transformer.init_paged_caches(cfg, 2, n_pages, pt,
+                                                     "cpu")}
     for slot, n in enumerate(lens):
         prompt = rng.randint(2, cfg.vocab_size, size=(1, n)).astype(np.int32)
         last = np.asarray([n - 1], np.int32)
@@ -206,7 +207,8 @@ def test_paged_decode_matches_jax(pair, arch):
 
 def test_unported_families_raise():
     """Other families name the ROADMAP item that brings them."""
-    for arch in ("falcon-mamba-7b", "deepseek-v2-236b", "qwen3-moe-30b-a3b"):
+    for arch in ("jamba-1.5-large-398b", "deepseek-v2-236b",
+                 "qwen3-moe-30b-a3b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_reduced(arch), device="cpu")
 

@@ -194,12 +194,13 @@ def test_kernel_bench_rows_on_cpu_at_small_shapes():
 
 @pytest.mark.parametrize("kind,scale,raises", [
     ("matmul", 1e-2, True), ("matmul", 1e-5, False),
-    ("attention", 1e-1, True), ("attention", 1e-2, False)])
+    ("attention", 1e-1, True), ("attention", 1e-2, False),
+    ("scan", 1e-3, True), ("scan", 1e-5, False)])
 def test_kernel_bench_rows_hold_the_kernel_to_its_limit(monkeypatch, kind,
                                                         scale, raises):
     """A stand-in kernel off by ``scale`` (of max|plain| for matmul, in
-    absolute terms for attention) in one element fails its row past the
-    limit and passes within it."""
+    absolute terms for attention and the scan) in one element fails its
+    row past the limit and passes within it."""
     def off(fn):
         def wrong(*args, **kw):
             out = fn(*args, **kw).clone()
@@ -208,13 +209,17 @@ def test_kernel_bench_rows_hold_the_kernel_to_its_limit(monkeypatch, kind,
             return out
         return wrong
 
-    name = "matmul" if kind == "matmul" else "attention"
+    name = {"matmul": "matmul", "attention": "attention",
+            "scan": "selective_scan"}[kind]
     monkeypatch.setattr(kernel_bench.ops, name,
                         off(getattr(kernel_bench.ops, name)))
     target, cpu = kernel_bench.get_target("h100"), torch.device("cpu")
-    build = (lambda: kernel_bench.matmul_row(target, 96, 64, 200, cpu)) \
-        if kind == "matmul" else \
-        (lambda: kernel_bench.attention_row(target, 1, 2, 64, 128, cpu))
+    build = {
+        "matmul": lambda: kernel_bench.matmul_row(target, 96, 64, 200, cpu),
+        "attention": lambda: kernel_bench.attention_row(target, 1, 2, 64,
+                                                        128, cpu),
+        "scan": lambda: kernel_bench.scan_row(target, 1, 16, 32, 4, cpu),
+    }[kind]
     if raises:
         with pytest.raises(RuntimeError, match="beyond"):
             build()
