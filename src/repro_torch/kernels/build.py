@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so one file takes seconds, not
-minutes), for ``sm_90a``. Libraries are cached under ``_build/`` beside
-this module by a hash of their source and flags, so a checkout builds each
-kernel once. Nothing here runs at import: :func:`library` builds on first
-use, and :func:`build_all` starts every nvcc at once and waits for all.
+minutes), for ``sm_90a``. The tensor-core kernels share ``csrc/hopper.cuh``
+(TMA, mbarriers, wgmma). Libraries are cached under ``_build/`` beside this
+module by a hash of their source, every ``csrc`` header it includes, and
+the flags, so a checkout builds each kernel once and an edit to a shared
+header rebuilds every library that includes it. Nothing here runs at
+import: :func:`library` builds on first use, and :func:`build_all` starts
+every nvcc at once and waits for all.
 
 A failed build raises with nvcc's stderr; there is no fallback.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -60,22 +64,53 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
-def _nvcc() -> str:
+def _cuda_tool(tool: str) -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
+    cand = os.path.join(home, "bin", tool)
     if os.path.exists(cand):
         return cand
-    found = shutil.which("nvcc")
+    found = shutil.which(tool)
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH); the port's kernels build from source")
+        raise RuntimeError(f"{tool} not found (set CUDA_HOME or put {tool} "
+                           f"on PATH); the port's kernels build from source")
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` file it includes with quotes,
+    transitively, in the order first reached."""
+    order: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in order:
+            continue
+        order.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return order
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The cached library of ``name``: keyed on its source, then its
+    headers, then the flags (a source with no header keys on its bytes and
+    the flags alone)."""
+    data = b"".join(path.read_bytes() for path in _sources(name))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def sass(name: str) -> str:
+    """The SASS of the built library of ``name`` (``cuobjdump
+    --dump-sass``), building it first if needed: what the card runs, so a
+    check can look for ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)."""
+    library(name)
+    return subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass",
+                           str(_target(name))], check=True,
+                          capture_output=True, text=True).stdout
 
 
 def build_log(name: str) -> str:
@@ -104,7 +139,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             if name in _LIBS or out.exists():
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
             jobs.append((name, out, tmp, proc))

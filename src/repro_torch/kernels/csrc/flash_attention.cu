@@ -1,65 +1,77 @@
-// Blockwise (flash) attention forward for Hopper, bf16 in / bf16 out.
+// Blockwise (flash) attention forward for Hopper tensor cores, bf16 in /
+// bf16 out.
 //
 // Replaces: src/repro/kernels/flash_attention.py:_attn_kernel (the Pallas
 // TPU kernel behind flash_attention / ops.attention). Same function: online
 // softmax over KV tiles with f32 running max, sum and accumulator; causal
 // and/or sliding-window masks shifted by q_offset; GQA by mapping query head
 // h to KV head h / group (no repeated K/V in memory); KV tiles wholly past
-// the causal diagonal or behind the window are never loaded; fully masked
-// rows come out as 0.
+// the causal diagonal or behind the window are never loaded; ragged Sq and
+// Skv; fully masked rows come out as 0.
 //
-// Bound on an H100: at the prefill shapes of the main path (Sq = prompt,
-// Skv = page-aligned cache depth, D = 128, causal) the work is ~4*Sq*Skv*D/2
-// FLOPs per head against ~(Sq + 2*Skv)*D*2 bytes per head, far above the
-// card's ~295 FLOP/byte ridge: the bound is the bf16 tensor-core rate.
-// This first version does its dot products with scalar f32 FMAs on CUDA
-// cores, so it runs well below that bound; wgmma tiles are later work.
-// What the design does about the bound: each CTA stages one K tile and one
-// V tile in shared memory and reuses them for all BQ = 64 query rows of its
-// tile, so device memory traffic is (Sq/BQ) passes over K/V at most, and
-// causal/window skipping cuts the FLOPs to the visible band.
+// Bound on an H100: at the main path's prefill shape (Sq 512 over Skv 576,
+// 16 query heads over 2 KV heads, D = 128, causal) the bytes (Q and O
+// dominate: 4.6 MB, 0.0014 ms at 3.35 TB/s) bound it just above the
+// operations (1.07 GFLOP over the causal band, 0.0011 ms at 989 TFLOP/s);
+// longer prompts cross the ~295 FLOP/byte ridge to the tensor-core rate.
+// The kernel is far from both, held by the latency of each CTA's serial
+// walk over its KV tiles (load, Q K^T, softmax, P V, one after another).
 //
-// Layout: q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v (B,Hkv,Skv,D) with arbitrary
-// batch/head/seq strides and unit stride on D; o is contiguous (B,Hq,Sq,D).
-// Sq and Skv need not be multiples of the tiles: ragged edges are masked.
-// Grid: (ceil(Sq/BQ), Hq, B); 256 threads; ~114 KB of dynamic shared memory.
+// Design: one CTA per (batch, query head, 64-row query tile): 1 x 16 heads x
+// Sq 512 gives 128 CTAs on 132 SMs (128-row tiles would give 64). A CTA is
+// one consumer warpgroup (64 query rows: wgmma's M) and one producer warp.
+// The producer brings the Q tile in once and streams 64-key K and V tiles
+// through a 2-stage ring, all by TMA (cp.async.bulk.tensor.4d over the
+// (D, S, H, B) view with the tensor's own strides, so the model's
+// transpose(1, 2) views are read in place), each stage paced by a full and
+// an empty mbarrier; reads past Sq or Skv fill zeros. Tiles sit in shared
+// memory as 128-byte-swizzled chunks of 64 columns (hopper.cuh). S = Q K^T
+// is wgmma m64n64k16 with Q and K K-major from shared memory; the softmax
+// runs on the accumulator registers (each row's max and sum reduced over
+// the four threads that share it; masks applied only on tiles that cross
+// the causal, window or Skv edge); P is rounded to bf16 in registers and is
+// wgmma's A operand for O += P V (m64n128k16, V MN-major from shared
+// memory); O stays in registers and is scaled by 1/l on the store. The
+// tiles are fixed constants: sizing them from the h100 planner is later
+// work. Shared memory: Q 16 KB + 2 x (K 16 KB + V 16 KB) = 80 KB.
+//
+// Layout: q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v (B,Hkv,Skv,D) with batch/head/
+// seq strides that are multiples of 8 elements (16 bytes, as TMA needs),
+// unit stride on D and 16-byte aligned bases (the wrapper copies anything
+// else); o is contiguous (B,Hq,Sq,D). Grid: (ceil(Sq/64), Hq, B).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int D = 128;        // head dim (q/k and v)
-constexpr int BQ = 64;        // query rows per CTA
+constexpr int BQ = 64;        // query rows per CTA (one warpgroup)
 constexpr int BK = 64;        // keys per KV tile
-constexpr int NT = 256;       // threads per CTA
-constexpr int DP = D + 1;     // padded row stride: conflict-free column reads
-constexpr int SP = BK + 1;    // padded score row stride
-
+constexpr int CW = 64;        // columns per 128B-swizzled chunk
+constexpr int STAGES = 2;     // K/V ring depth
+constexpr int WG = 128;       // threads per warpgroup
+constexpr int NT = WG + 32;   // consumer warpgroup + producer warp
+constexpr int TILE_BYTES = 64 * D * 2;  // one 64-row tile of Q, K or V
+constexpr int CHUNK_BYTES = 64 * CW * 2;
 constexpr size_t kSmemBytes =
-    sizeof(float) * (size_t(BQ) * DP + size_t(BK) * DP + size_t(BK) * D +
-                     size_t(BQ) * SP + 3 * BQ);
+    size_t(TILE_BYTES) * (1 + 2 * STAGES) + 8 * (1 + 2 * STAGES);
 
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o,
-                 int hq, int hkv, int sq, int skv,
-                 long long q_sb, long long q_sh, long long q_ss,
-                 long long k_sb, long long k_sh, long long k_ss,
-                 long long v_sb, long long v_sh, long long v_ss,
-                 float scale, int causal, int has_window, int window,
-                 int q_offset) {
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [BQ][DP]
-  float* ks = qs + BQ * DP;          // [BK][DP]
-  float* vs = ks + BK * DP;          // [BK][D]
-  float* ss = vs + BK * D;           // [BQ][SP] scores, then probabilities
-  float* m_s = ss + BQ * SP;         // [BQ] running max
-  float* l_s = m_s + BQ;             // [BQ] running sum
-  float* a_s = l_s + BQ;             // [BQ] this tile's rescale factor
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 __nv_bfloat16* __restrict__ o, int hq, int hkv, int sq,
+                 int skv, float scale_log2, int causal, int has_window,
+                 int window, int q_offset) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* q_s = smem;
+  unsigned char* k_s = q_s + TILE_BYTES;             // [STAGES] tiles
+  unsigned char* v_s = k_s + STAGES * TILE_BYTES;    // [STAGES] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + STAGES * TILE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -68,19 +80,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = h / (hq / hkv);
   const int nq = min(BQ, sq - q0);
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    qs[r * DP + c] = r < nq ? __bfloat162float(qb[(q0 + r) * q_ss + c]) : 0.f;
-  }
-  for (int r = tid; r < BQ; r += NT) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-
   // Visible key range of this query tile: [k_begin, k_end).
   const int q_lo = q0 + q_offset;
   const int q_hi = q0 + nq - 1 + q_offset;
@@ -88,124 +87,167 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   if (causal) k_end = min(k_end, q_hi + 1);
   if (has_window) k_begin = max(0, q_lo - window + 1);
   const int t_begin = k_begin / BK;
-  const int t_end = k_end > k_begin ? (k_end + BK - 1) / BK : t_begin;
+  const int n_tiles =
+      k_end > k_begin ? (k_end + BK - 1) / BK - t_begin : 0;
 
-  // Output accumulator: rows (tid/32) + 8*i, columns (tid%32) + 32*j.
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK;
-    const int nk = min(BK, skv - k0);
-    __syncthreads();  // the previous tile is done with ks / vs / ss
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const bool ok = r < nk;
-      ks[r * DP + c] = ok ? __bfloat162float(kb[(k0 + r) * k_ss + c]) : 0.f;
-      vs[r * D + c] = ok ? __bfloat162float(vb[(k0 + r) * v_ss + c]) : 0.f;
+  if (tid == 0) {
+    if (hopper::smem_addr(smem) & 1023) __trap();  // swizzle needs 1024 B
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], WG);
     }
-    __syncthreads();
-
-    {  // scores: rows tr + 16*i, columns tc + 16*j
-      const int tr = tid / 16, tc = tid % 16;
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = qs[(tr + 16 * i) * DP + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = ks[(tc + 16 * j) * DP + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = tr + 16 * i, c = tc + 16 * j;
-          const int qpos = q_lo + r, kpos = k0 + c;
-          bool ok = c < nk;
-          if (causal) ok = ok && kpos <= qpos;
-          if (has_window) ok = ok && kpos > qpos - window;
-          ss[r * SP + c] = ok ? s[i][j] * scale : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-
-    {  // online softmax: four threads per row, 16 columns each
-      const int r = tid / 4, part = tid % 4;
-      float* row = ss + r * SP + part * 16;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float sv = row[c];
-        const float p = sv > -INFINITY ? expf(sv - m_new) : 0.f;
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = m_prev > -INFINITY ? expf(m_prev - m_new) : 0.f;
-        a_s[r] = alpha;
-        m_s[r] = m_new;
-        l_s[r] = alpha * l_s[r] + sum;
-      }
-    }
-    __syncthreads();
-
-    {  // acc = acc * alpha + P @ V
-      const int tr = tid / 32, tc = tid % 32;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float al = a_s[tr + 8 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= al;
-      }
-#pragma unroll 4
-      for (int c = 0; c < BK; ++c) {
-        float pv[8], vv[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) pv[i] = ss[(tr + 8 * i) * SP + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = vs[c * D + tc + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-      }
-    }
+    hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  const int tr = tid / 32, tc = tid % 32;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = tr + 8 * i;
-    if (r >= nq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    __nv_bfloat16* orow = o + ((size_t(b) * hq + h) * sq + q0 + r) * D;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) orow[tc + 32 * j] = __float2bfloat16(acc[i][j] / l);
+  if (tid >= WG) {  // the producer warp: one lane issues every load
+    if (tid == WG) {
+      hopper::mbar_expect_tx(q_full, TILE_BYTES);
+      for (int ch = 0; ch < D / CW; ++ch)
+        hopper::tma_load_4d(q_s + ch * CHUNK_BYTES, &map_q, q_full, ch * CW,
+                            q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES, k0 = (t_begin + i) * BK;
+        if (i >= STAGES) hopper::mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        hopper::mbar_expect_tx(&full[s], 2 * TILE_BYTES);
+        for (int ch = 0; ch < D / CW; ++ch) {
+          hopper::tma_load_4d(k_s + s * TILE_BYTES + ch * CHUNK_BYTES, &map_k,
+                              &full[s], ch * CW, k0, hk, b);
+          hopper::tma_load_4d(v_s + s * TILE_BYTES + ch * CHUNK_BYTES, &map_v,
+                              &full[s], ch * CW, k0, hk, b);
+        }
+      }
+    }
+    return;
   }
+
+  // The consumer warpgroup. wgmma's accumulator layout: register 4 j + 2 r
+  // + e holds row 16 warp + lane / 4 + 8 r, column 8 j + 2 (lane % 4) + e.
+  const int warp = tid / 32, lane = tid % 32;
+  const int row_in = 16 * warp + lane / 4, col_in = 2 * (lane % 4);
+  float acc_o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of each row's sum
+
+  hopper::mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES, k0 = (t_begin + i) * BK;
+    const unsigned char* ks = k_s + s * TILE_BYTES;
+    const unsigned char* vs = v_s + s * TILE_BYTES;
+    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+
+    float sc[BK / 2];  // S = Q K^T, 64 x 64
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+    hopper::reg_fence<BK / 2>(sc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk * 16 / CW) * CHUNK_BYTES + (kk * 16 % CW) * 2;
+      hopper::Wgmma<BK>::ss<0>(sc, hopper::desc(q_s + off, CW, 16),
+                               hopper::desc(ks + off, CW, 16), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::reg_fence<BK / 2>(sc);
+
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > q_lo) ||
+                      (has_window && k0 <= q0 + BQ - 1 + q_offset - window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      const int r = (j / 2) % 2;
+      float x = sc[j] * scale_log2;
+      if (edge) {
+        const int kpos = k0 + 8 * (j / 4) + col_in + j % 2;
+        const int qpos = q_lo + row_in + 8 * r;
+        bool ok = kpos < skv;
+        if (causal) ok = ok && kpos <= qpos;
+        if (has_window) ok = ok && kpos > qpos - window;
+        x = ok ? x : -INFINITY;
+      }
+      sc[j] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float alpha[2], base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row masked so far
+      alpha[r] = exp2f(m_run[r] - base[r]);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+    uint32_t pa[BK / 16][4];  // P as wgmma's A fragments, bf16 pairs
+#pragma unroll
+    for (int j = 0; j < BK / 2; j += 2) {
+      const int r = (j / 2) % 2;
+      const float p0 = exp2f(sc[j] - base[r]);
+      const float p1 = exp2f(sc[j + 1] - base[r]);
+      l_run[r] += p0 + p1;
+      const __nv_bfloat162 pk = __floats2bfloat162_rn(p0, p1);
+      // column group j / 4 of 8 keys: k-step (j / 4) / 2, registers
+      // 0 / 1 (rows r) for its first half, 2 / 3 for its second
+      pa[j / 8][((j / 4) % 2) * 2 + r] =
+          *reinterpret_cast<const uint32_t*>(&pk);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc_o[j] *= alpha[(j / 2) % 2];
+
+    hopper::reg_fence<D / 2>(acc_o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hopper::Wgmma<D>::rs(acc_o, pa[kk],
+                           hopper::desc(vs + kk * 16 * CW * 2, CW,
+                                        CHUNK_BYTES), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::reg_fence<D / 2>(acc_o);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = l > 0.f ? 1.f / l : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_in + 8 * r;
+    if (row >= nq) continue;
+    __nv_bfloat16* orow = o + ((size_t(b) * hq + h) * sq + q0 + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col_in) =
+          __floats2bfloat162_rn(acc_o[4 * j + 2 * r] * inv[r],
+                                acc_o[4 * j + 2 * r + 1] * inv[r]);
+  }
+}
+
+// The (D, S, H, B) map of a (B, H, S, D) tensor read in 64-row boxes of one
+// 128-byte chunk; strides in elements.
+cudaError_t make_map(CUtensorMap* map, const void* base, int batch, int heads,
+                     int seq, long long sb, long long sh, long long ss) {
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(seq),
+                              cuuint64_t(heads), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2,
+                                 cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {CW, 64, 1, 1};
+  return hopper::make_map(map, base, 4, dims, strides, box, CW);
+}
+
+bool tma_ok(const void* p, long long sb, long long sh, long long ss) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb > 0 && sh > 0 &&
+         ss > 0 && sb % 8 == 0 && sh % 8 == 0 && ss % 8 == 0;
 }
 
 }  // namespace
@@ -218,7 +260,8 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// Launches on `stream`; returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for strides or bases TMA cannot read.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int batch, int hq, int hkv, int sq, int skv,
                          long long q_sb, long long q_sh, long long q_ss,
@@ -226,6 +269,9 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          long long v_sb, long long v_sh, long long v_ss,
                          float scale, int causal, int has_window, int window,
                          int q_offset, void* stream) {
+  if (!tma_ok(q, q_sb, q_sh, q_ss) || !tma_ok(k, k_sb, k_sh, k_ss) ||
+      !tma_ok(v, v_sb, v_sh, v_ss) || hkv <= 0 || hq % hkv || skv <= 0)
+    return int(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -234,12 +280,17 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = make_map(&map_q, q, batch, hq, sq, q_sb, q_sh, q_ss);
+  if (err == cudaSuccess)
+    err = make_map(&map_k, k, batch, hkv, skv, k_sb, k_sh, k_ss);
+  if (err == cudaSuccess)
+    err = make_map(&map_v, v, batch, hkv, skv, v_sb, v_sh, v_ss);
+  if (err != cudaSuccess) return int(err);
   dim3 grid((sq + BQ - 1) / BQ, hq, batch);
   flash_fwd_kernel<<<grid, NT, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      hq, hkv, sq, skv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-      scale, causal, has_window, window, q_offset);
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), hq, hkv, sq, skv,
+      scale * 1.4426950408889634f, causal, has_window, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,13 +1,28 @@
 """Blockwise (flash) attention with causal / sliding-window masking.
 
-The counterpart of ``src/repro/kernels/flash_attention.py``. The Hopper
-kernel (``csrc/flash_attention.cu``) runs one CTA per (batch, query head,
-64-row query tile), stages 64-key K/V tiles through shared memory and keeps
-the f32 online-softmax state in registers. GQA maps query head ``h`` to KV
-head ``h // group``, so K/V are never repeated in memory. KV tiles wholly
-past the causal diagonal or behind the window are skipped, and ragged
-``Sq``/``Skv`` edges are masked in the kernel: unlike the TPU kernel, no
-length has to divide a block.
+The counterpart of ``src/repro/kernels/flash_attention.py``
+(``_attn_kernel``, the Pallas TPU kernel). The Hopper kernel
+(``csrc/flash_attention.cu``) runs on the tensor cores: one CTA per (batch,
+query head, 64-row query tile), one consumer warpgroup and one producer
+warp. TMA brings the Q tile in once and streams 64-key K and V tiles
+through a 2-stage ring paced by mbarriers, into 128-byte-swizzled shared
+memory; ``wgmma`` computes S = Q K^T from shared memory, the f32 online
+softmax runs on its accumulator registers, and P, rounded to bf16 in
+registers, is ``wgmma``'s A operand for O += P V. At the main path's
+prefill shape (Sq 512 over Skv 576, 16 query heads over 2 KV heads) the
+bytes (Q and O, 4.6 MB: 0.0014 ms) bound it just above the operations
+(1.07 GFLOP causal: 0.0011 ms); far from both, the kernel is held by the
+latency of each CTA's serial walk over its KV tiles. GQA maps query head ``h`` to KV head ``h // group``, so K/V
+are never repeated in memory. KV tiles wholly past the causal diagonal or
+behind the window are skipped, and ragged ``Sq``/``Skv`` edges are zero
+filled by TMA and masked: unlike the TPU kernel, no length has to divide a
+block. The tiles are fixed (64 x 64); sizing them from the ``h100``
+planner is ROADMAP work.
+
+TMA reads the tensors through their own strides, so the model's
+``transpose(1, 2)`` views go in without a copy; a tensor whose batch, head
+or sequence stride is not a multiple of 8 elements (16 bytes), or whose
+base is not 16-byte aligned, is copied to a contiguous one first.
 
 :func:`flash_attention_plain` beside it is the plain PyTorch version of the
 same function; a CPU tensor takes it, a CUDA tensor takes the kernel.
@@ -22,6 +37,18 @@ import torch
 from repro_torch.kernels import build, ref
 
 _LIB = "flash_attention"
+
+
+def tma_strides(t: torch.Tensor) -> tuple:
+    """The (batch, head, seq) strides of a (B, H, S, D) tensor as the
+    kernel's tensor map reads them: a dim of size 1 is never stepped, so
+    it takes a stride of D. None if TMA cannot read ``t`` in place (a
+    stride not a multiple of 8 elements, or a base not 16-byte aligned)."""
+    strides = tuple(t.stride(i) if t.shape[i] > 1 else t.shape[-1]
+                    for i in range(3))
+    if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in strides):
+        return None
+    return strides
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -77,12 +104,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
+    if skv == 0:
+        return out.zero_()
+    views = []
+    for t in (q, k, v):
+        strides = tma_strides(t)
+        if strides is None:         # a fresh allocation is aligned
+            t = t.clone(memory_format=torch.contiguous_format)
+            strides = tma_strides(t)
+        views.append((t, strides))
+    (q, qs), (k, ks), (v, vs) = views
     rc = lib.flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, skv,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+        b, hq, hkv, sq, skv, *qs, *ks, *vs,
         float(scale), int(causal), int(window is not None), window or 0,
         q_offset, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(_LIB, rc)

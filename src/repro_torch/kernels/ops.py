@@ -24,7 +24,8 @@ from repro_torch.core import planner, tiling
 from repro_torch.core.target import get_target
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
-from repro_torch.kernels.matmul3d import SMEM_BYTES, check_plan
+from repro_torch.kernels.matmul3d import (SMEM_BYTES, check_plan,
+                                          kernel_blocks)
 from repro_torch.kernels.matmul3d import matmul3d as _matmul
 from repro_torch.kernels.mamba_scan import mamba_scan as _scan
 from repro_torch.kernels.mamba_scan import mamba_scan_plain
@@ -70,7 +71,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
 
     ``plan=None`` plans from the current target, which must then be a GPU
     target; a given plan is checked against the kernel before it is
-    clamped to the problem, and one that does not fit raises.
+    clamped to the problem, and one that does not fit raises. The padding
+    is to the blocks the kernel runs (``matmul3d.kernel_blocks``: for bf16,
+    the clamped plan rounded up to the tensor-core grain).
     """
     if not _use_kernel(impl, a):
         return ref.matmul_ref(a, b, out_dtype)
@@ -83,8 +86,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     else:
         check_plan(plan, a.element_size())
         eff = planner.clamp_matmul_plan(plan, m, k, n)
-    ap = _pad_to(_pad_to(a, 0, eff.bm), 1, eff.bk).contiguous()
-    bp = _pad_to(_pad_to(b, 0, eff.bk), 1, eff.bn).contiguous()
+    bm, bk, bn = kernel_blocks(eff, m, k, n, a.element_size())
+    ap = _pad_to(_pad_to(a, 0, bm), 1, bk).contiguous()
+    bp = _pad_to(_pad_to(b, 0, bk), 1, bn).contiguous()
     out = _matmul(ap, bp, plan=eff, out_dtype=out_dtype or a.dtype)
     return out[:m, :n]
 

@@ -142,3 +142,29 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.library("paged_attention")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_all()
+
+
+def test_build_key_follows_included_headers(monkeypatch, tmp_path):
+    """A library is keyed on its source, every csrc header it includes
+    (transitively) and the flags: editing a shared header changes the key
+    of each source that includes it, and a source that includes no header
+    keys on its bytes and the flags alone, as before headers existed."""
+    import hashlib
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "shared.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("constexpr int X = 1;\n")
+    (csrc / "uses.cu").write_text('#include <cuda.h>\n#include "shared.cuh"\n')
+    (csrc / "plain.cu").write_text("#include <cuda_runtime.h>\nint f();\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    assert [p.name for p in build._sources("uses")] == [
+        "uses.cu", "shared.cuh", "inner.cuh"]
+    uses, plain = build._target("uses"), build._target("plain")
+    digest = hashlib.sha256((csrc / "plain.cu").read_bytes()
+                            + " ".join(build.NVCC_FLAGS).encode())
+    assert plain.name == f"libplain-{digest.hexdigest()[:16]}.so"
+    (csrc / "inner.cuh").write_text("constexpr int X = 2;\n")
+    assert build._target("uses") != uses
+    assert build._target("plain") == plain
+    assert build._target("uses").parent == tmp_path / "_build"

@@ -19,7 +19,7 @@ from repro.kernels.paged_attention import (
     decode_attention_masked as j_decode, gather_kv_pages as j_gather,
     paged_decode_attention as j_paged)
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, tma_strides
 from repro_torch.kernels.paged_attention import (
     decode_attention_masked, gather_kv_pages, paged_decode_attention,
     paged_flash_decode)
@@ -234,3 +234,60 @@ def test_kernels_match_plain_versions_on_the_card():
             paged_flash_decode(qd, kp, vp, bt, cl, window=window).float(),
             paged_decode_attention(qd, kp, vp, bt, cl, window=window,
                                    impl="ref").float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_tma_strides_read_the_models_views_in_place():
+    """The model's q/k/v are ``transpose(1, 2)`` views of (B, S, H, D)
+    tensors: TMA reads them through their own strides (no copy). A size-1
+    dim is never stepped and takes stride D; a stride off the 16-byte grain
+    needs a copy (None)."""
+    x = torch.zeros((2, 40, 16, 128), dtype=torch.bfloat16)
+    view = x.transpose(1, 2)
+    assert tma_strides(view) == (40 * 16 * 128, 128, 16 * 128)
+    assert tma_strides(x[:1].transpose(1, 2)) == (128, 128, 16 * 128)
+    assert tma_strides(torch.zeros((1, 1, 1, 128), dtype=torch.bfloat16)) \
+        == (128, 128, 128)
+    odd = torch.zeros((1, 2, 5, 130), dtype=torch.bfloat16)[..., :128]
+    assert tma_strides(odd) is None
+    assert tma_strides(odd.clone(memory_format=torch.contiguous_format)) \
+        == (128, 5 * 128, 128)
+
+
+#: flash cases on the card: (B, Hq, Hkv, Sq, Skv, kwargs, transposed views)
+FLASH_CASES = {
+    "admission-b4-sq256": (4, 16, 2, 256, 256, {}, False),
+    "ragged-sq300-skv333": (1, 16, 2, 300, 333, {}, False),
+    "model-views": (2, 16, 2, 200, 256, {}, True),
+    "window": (1, 16, 2, 512, 576, {"window": 64}, False),
+    "q-offset": (1, 16, 2, 37, 576, {"q_offset": 16}, False),
+    "mha": (1, 16, 16, 512, 576, {}, False),
+    "non-causal": (1, 8, 2, 100, 130, {"causal": False}, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernel_cases_on_the_card(case):
+    """The tensor-core flash kernel against its plain version (bf16, atol
+    = rtol = 2e-2): the one-shot's admission batch, an Sq no query tile
+    divides over a ragged Skv, the strided views models/attention.py
+    passes, a window, a q_offset, Hq == Hkv and no causal mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, hq, hkv, sq, skv, kw, views = FLASH_CASES[case]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(bb, h, s):
+        shape = (bb, s, h, 128) if views else (bb, h, s, 128)
+        t = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return t.transpose(1, 2) if views else t
+
+    q, k, v = rnd(b, hq, sq), rnd(b, hkv, skv), rnd(b, hkv, skv)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               ref.attention_ref(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=2e-2)

@@ -29,9 +29,10 @@ from repro_torch.core import planner, tiling
 from repro_torch.core.hw_profiles import H100_SXM
 from repro_torch.core.target import get_target, use_target
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.matmul3d import (MAX_REG_BLOCK, N_BUFFERS,
-                                          SMEM_BYTES, check_plan, matmul3d,
-                                          smem_bytes)
+from repro_torch.kernels.matmul3d import (BARRIER_BYTES, MAX_REG_BLOCK,
+                                          N_BUFFERS, SMEM_BYTES, TC_K, TC_M,
+                                          TC_N, check_plan, kernel_blocks,
+                                          matmul3d, smem_bytes)
 
 torch.set_num_threads(1)
 FRACTIONS = (0.125, 0.25, 0.5, 0.75)
@@ -257,12 +258,79 @@ def test_wrapper_checks_what_the_kernel_takes():
 def test_kernel_limits_match_the_cuda_source():
     text = (build.CSRC / "matmul3d.cu").read_text()
 
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+    consts = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
+                                 re.M):
+        consts[name] = eval(expr, {}, dict(consts))   # integer constants
 
-    assert const("TDIM") * const("MAX_T") == MAX_REG_BLOCK
+    def const(name):
+        return consts[name]
+
+    assert const("TDIM") * const("MAX_T") == const("MAX_REG_BLOCK") \
+        == MAX_REG_BLOCK == 128
     assert const("N_BUFFERS") == N_BUFFERS == 2
     assert const("MAX_SMEM") == SMEM_BYTES == 232448
+    assert (const("TC_M"), const("TC_N"), const("TC_K")) \
+        == (TC_M, TC_N, TC_K) == (64, 32, 32)
+    assert const("BARRIER_BYTES") == BARRIER_BYTES == 32
+
+
+@pytest.mark.parametrize("source", ["matmul3d.cu", "flash_attention.cu"])
+def test_kernel_sources_stay_on_the_tensor_cores(source):
+    """Both rebuilt kernels issue wgmma fed by TMA loads paced by mbarriers
+    (through the shared header, which must hold the instructions), so a
+    later edit cannot quietly drop the tensor cores."""
+    text = (build.CSRC / source).read_text()
+    header = (build.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in text
+    assert re.search(r"hopper::Wgmma<\w+>::(template )?(ss|rs)", text)
+    assert re.search(r"hopper::tma_load_[24]d\(", text)
+    assert "hopper::mbar_wait(" in text and "hopper::mbar_expect_tx(" in text
+    for instr in ("wgmma.mma_async.sync.aligned", "cp.async.bulk.tensor",
+                  "mbarrier.try_wait.parity", "wgmma.fence.sync.aligned"):
+        assert instr in header
+    assert "hopper.cuh" in [p.name for p in build._sources(source[:-3])]
+
+
+@pytest.mark.parametrize("m,k,n,plan,blocks", [
+    (37, 45, 19, (32, 32, 19), (64, 32, 32)),
+    (96, 32, 300, (96, 32, 288), (128, 32, 288)),
+    (200, 300, 100, (128, 128, 128), (128, 128, 128)),
+    (8192, 8192, 8192, (128, 64, 128), (128, 64, 128)),
+])
+def test_bf16_blocks_round_up_to_the_tensor_core_grain(m, k, n, plan, blocks):
+    """A bf16 plan clamped to a small problem is rounded up to
+    64 rows, 32 columns and 32 deep; f32 keeps the clamped blocks. The
+    wrapper refuses operands not padded to the rounded blocks and takes
+    padded ones (here on the CPU: its plain version, against the oracle)."""
+    p = tiling.MatmulPlan(*plan)
+    clamped = (min(p.bm, m), min(p.bk, k), min(p.bn, n))
+    assert kernel_blocks(p, m, k, n, 2) == blocks
+    assert kernel_blocks(p, m, k, n, 4) == clamped
+    check_plan(p, 2)
+    assert smem_bytes(p, 2) <= SMEM_BYTES
+    if m > 1024:
+        return
+    _, (ta, tb) = _inputs(m, k, n, "bf16", seed=8)
+    if blocks != clamped:
+        with pytest.raises(ValueError, match="pad first"):
+            matmul3d(ta, tb, plan=p, out_dtype=torch.float32)
+    bm, bk, bn = blocks
+    ap = torch.zeros((-(-m // bm) * bm, -(-k // bk) * bk), dtype=ta.dtype)
+    bp = torch.zeros((ap.shape[1], -(-n // bn) * bn), dtype=tb.dtype)
+    ap[:m, :k], bp[:k, :n] = ta, tb
+    got = matmul3d(ap, bp, plan=p, out_dtype=torch.float32)[:m, :n]
+    torch.testing.assert_close(got, ref.matmul_ref(ta, tb, torch.float32),
+                               **_tol("bf16"))
+
+
+@pytest.mark.parametrize("tile", H100_TILES[2])
+def test_bf16_sweep_plans_claim_the_plans_ring(tile):
+    """The capacity law stays the kernel's own: a bf16 sweep plan's launch
+    claims its two buffers of A and B tiles and the mbarriers, no more."""
+    plan = tiling.MatmulPlan(*tile)
+    assert kernel_blocks(plan, M_SWEEP, M_SWEEP, M_SWEEP, 2) == tile
+    assert smem_bytes(plan, 2) == 2 * plan.streamed_bytes(2) + BARRIER_BYTES
 
 
 # --------------------------------------------------------- on the card
@@ -289,3 +357,26 @@ def test_matmul3d_kernel_matches_plain_on_card(m, k, n, name):
         assert matmul3d.launches == before + 1
     want = ref.matmul_ref(ta, tb, torch.float32)
     torch.testing.assert_close(got, want, **_tol(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", H100_TILES[2] + [(192, 32, 192),
+                                                  (256, 64, 128),
+                                                  (64, 64, 96)])
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+def test_matmul3d_bf16_plans_match_plain_on_card(tile, out):
+    """Every h100 bf16 sweep plan (C in registers), two plans whose C tile
+    lives in shared memory, and a 96-wide one, at 768 x 512 x (768 or
+    576)."""
+    dev = _cuda()
+    _, (ta, tb) = _inputs(768, 512, 768 if tile[2] != 192 else 576, "bf16",
+                          seed=9)
+    ta, tb = ta.to(dev), tb.to(dev)
+    out_dtype = torch.float32 if out == "f32" else torch.bfloat16
+    plan = tiling.MatmulPlan(*tile)
+    before = matmul3d.launches
+    got = matmul3d(ta, tb, plan=plan, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert matmul3d.launches == before + 1
+    torch.testing.assert_close(got.float(), ref.matmul_ref(
+        ta, tb, out_dtype).float(), **_tol("bf16"))
