@@ -26,12 +26,18 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      within ``mempool_matmul.REL_TOL`` of the plain version's largest
      value (bf16 1e-3 at every h100 plan of the paper sweep, f32 1e-4 at
      the f32 default plan, timed beside ``torch.mm`` with TF32 off);
+     paged decode also at split (4-page) boundaries, windows across and
+     emptying splits, and the long case (4 slots x 4096 positions, timed
+     in GB/s), one CUDA kernel a call, each slot alone and a 64-page
+     null-padded table bit for bit equal to the batch of 4 over 36 pages;
      mamba_scan at falcon-mamba-7b's shapes
      under ``h100`` plans (prefill L = 512 and a ragged 300 from a zero
      state, decode B = 4 from a random state, the loss forward's L = 2048
      without state): bf16 y at atol = rtol = 2e-2, f32 y and the final
      state at 2e-4 (``test_mamba_scan_sweep``'s tolerance), several plans
-     bit for bit equal, and a split scan equal to the full one;
+     bit for bit equal, a split scan equal to the full one, and at decode
+     the state written over h0 and each batch row alone bit for bit equal
+     to the functional batched scan;
   4. one-shot generate of qwen2.5-3b at full width (random weights);
   5. the paged continuous-batching stream at full width, then the same
      stream with layer 0 squeezed until it preempts, spills and restores;
@@ -102,11 +108,12 @@ SQUEEZED_PAGES = 50        # layer-0 pages that make qwen's STREAM preempt
 # prompts (drawn over its vocab) preempt at 45
 FALCON_SQUEEZED_PAGES = 45
 LOSS_LEN = 2048
+LONG_TOKENS = 4096         # the long-context paged case: 4 slots x 4096
 #: libraries whose SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
 TENSOR_CORE_KERNELS = ("matmul3d", "flash_attention")
 #: the port's kernels by name, as the profiler lists them
 PORT_KERNELS = ("flash_fwd_kernel", "paged_decode_kernel",
-                "mamba_scan_kernel", "matmul3d_")
+                "mamba_scan_kernel", "mamba_scan_step_kernel", "matmul3d_")
 
 
 def log(msg: str) -> None:
@@ -126,26 +133,40 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, kernel: str = "", n: int = N_TIMED) -> float:
+def device_profile(fn, kernel: str = "", n: int = N_TIMED) -> tuple:
     """Device time per call of ``fn`` in the kernels whose names hold
     ``kernel`` (every kernel it launches when empty), over ``n`` calls
     under torch.profiler (CUDA activity only): the device's work alone,
     without the host's call path that CUDA events around one call also
-    count. Fails if the profiler saw no such kernel."""
+    count; and how many CUDA kernels of any name one call launches. A
+    trace that holds no kernel at all (the profiler now and then returns
+    an empty one) is taken again once; fails if the profiler saw no such
+    kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if cuda:
+            break
+        log("  (the profiler returned an empty trace; tracing again)")
+    hits = [e for e in cuda if kernel in e.key]
     if not hits:
         fail(f"the profiler saw no {kernel or 'CUDA'} kernel")
-    return sum(e.self_device_time_total for e in hits) / n / 1e3
+    return (sum(e.self_device_time_total for e in hits) / n / 1e3,
+            sum(e.count for e in cuda) / n)
+
+
+def device_ms(fn, kernel: str = "", n: int = N_TIMED) -> float:
+    """:func:`device_profile`'s device time alone."""
+    return device_profile(fn, kernel, n)[0]
 
 
 def layer_counts(cfg) -> tuple:
@@ -229,8 +250,10 @@ def phase_build() -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Function properties" in line:
+                log(f"  {name}: {line.split(' for ')[-1].strip()}")
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}:   {line.strip()}")
     tensor_cores = {}
     for name in build.SOURCES:
         sass = build.sass(name)
@@ -332,35 +355,86 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                       got, want)
         return err, (q, kp, vp, bt, cl)
 
+    def paged_work(lens, q, bt, cl):
+        """Bytes (visible K/V once, q, o, table, frontiers) and FLOPs of a
+        call without a window."""
+        visible = sum(n + 1 for n in lens)
+        n_bytes = (2 * 2 * visible * hkv * d + 2 * 2 * q.numel()
+                   + 4 * bt.numel() + 4 * cl.numel())
+        return n_bytes, 4.0 * d * hq * visible
+
+    # edge frontiers: 0, page and split (4 pages) boundaries and one short,
+    # the last position, windows across a split boundary and emptying splits
     paged_err = 0.0
     edge = [0, pt, 40 * pt - 1, 1, 2 * pt - 1, 100, 333, 17]
-    for window in (None, 64):
-        e, _ = paged_case(8, 40, edge, window, "(0 / page boundary / last)")
+    split = 4 * pt
+    edges = [(edge, None), (edge, 64),
+             ([split - 1, split, 2 * split - 1, 2 * split, 5 * split + 1,
+               40 * pt - 2, 7, 9 * split], 2 * split + 3),
+             ([400, 575, 200, 130, 64, 63, 600, 639], 20)]
+    for lens_, window in edges:
+        e, _ = paged_case(8, 40, lens_, window,
+                          "(0 / page and split boundaries / last)")
         paged_err = max(paged_err, e)
     lens = [int(x) for x in torch.randint(256, depth - 1, (n_slots,),
                                           generator=gen, device=dev)]
     e, args = paged_case(n_slots, p_max, lens, None, "(main path)")
     paged_err = max(paged_err, e)
     q, kp, vp, bt, cl = args
+    # bit for bit: each slot alone equals its row of the batch, and a
+    # block table null-padded to 64 pages equals the 36-page one
+    batch = paged_flash_decode(q, kp, vp, bt, cl)
+    for i in range(n_slots):
+        alone = paged_flash_decode(q[i:i + 1], kp, vp, bt[i:i + 1],
+                                   cl[i:i + 1])
+        if not torch.equal(alone, batch[i:i + 1]):
+            fail(f"paged: slot {i} decoded alone differs from its row of "
+                 f"the batch of {n_slots}")
+    wide = torch.zeros((n_slots, 64), dtype=torch.int32, device=dev)
+    wide[:, :p_max] = bt
+    if not torch.equal(paged_flash_decode(q, kp, vp, wide, cl), batch):
+        fail(f"paged: a 64-page block table differs from the {p_max}-page "
+             f"one")
+    log(f"  paged: each slot alone == its row of the batch of {n_slots}, "
+        f"and P = 64 (null-padded) == P = {p_max}, bit for bit  ok")
     p_ms = median_ms(lambda: paged_flash_decode(q, kp, vp, bt, cl), N_TIMED)
-    p_dev = device_ms(lambda: paged_flash_decode(q, kp, vp, bt, cl),
-                      "paged_decode_kernel")
+    p_dev, p_kernels = device_profile(
+        lambda: paged_flash_decode(q, kp, vp, bt, cl), "paged_decode_kernel")
+    if p_kernels != 1:
+        fail(f"paged: a call launched {p_kernels:g} CUDA kernels, want 1 "
+             f"(the merge runs inside the launch)")
     p_plain = median_ms(
         lambda: paged_flash_decode_plain(q, kp, vp, bt, cl), N_TIMED)
-    visible = sum(n + 1 for n in lens)
-    p_bytes = (2 * 2 * visible * hkv * d + 2 * 2 * q.numel()
-               + 4 * bt.numel() + 4 * cl.numel())
-    p_bound, p_by = bound_ms(p_bytes, 4.0 * d * hq * visible)
+    p_bytes, p_flops = paged_work(lens, q, bt, cl)
+    p_bound, p_by = bound_ms(p_bytes, p_flops)
     log(f"  paged B={n_slots} P={p_max} lens={lens}: kernel {p_ms:.4f} ms "
-        f"(device {p_dev:.4f} ms), "
+        f"(device {p_dev:.4f} ms, {p_kernels:g} CUDA kernel(s) a call), "
         f"plain {p_plain:.4f} ms, bound {p_bound:.4f} ms ({p_by})")
+    # the long case: 4 slots x 4096 positions, 256 pages each
+    long_lens = [LONG_TOKENS - 1] * 4
+    l_err, (q, kp, vp, bt, cl) = paged_case(4, LONG_TOKENS // pt, long_lens,
+                                            None, "(long context)")
+    paged_err = max(paged_err, l_err)
+    l_dev = device_ms(lambda: paged_flash_decode(q, kp, vp, bt, cl),
+                      "paged_decode_kernel")
+    l_bytes, l_flops = paged_work(long_lens, q, bt, cl)
+    l_bound, l_by = bound_ms(l_bytes, l_flops)
+    l_gbps = l_bytes / l_dev / 1e6
+    log(f"  paged long B=4 P={LONG_TOKENS // pt}: device {l_dev:.4f} ms, "
+        f"{l_bytes / 1e6:.2f} MB at {l_gbps:.1f} GB/s "
+        f"({l_gbps * 1e9 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s), bound "
+        f"{l_bound:.4f} ms ({l_by})")
+    del q, kp, vp, bt, cl, batch
     return {
         "flash": dict(err=flash_err, ms=f_ms, device_ms=f_dev,
                       library_device_ms=f_lib_dev, plain_ms=f_plain,
                       library_ms=f_lib, bound_ms=f_bound, bound_by=f_by),
         "paged": dict(err=paged_err, ms=p_ms, device_ms=p_dev,
                       plain_ms=p_plain,
-                      library_ms=None, bound_ms=p_bound, bound_by=p_by),
+                      library_ms=None, bound_ms=p_bound, bound_by=p_by,
+                      extra=dict(cuda_kernels_per_call=p_kernels,
+                                 long_device_ms=l_dev, long_bound_ms=l_bound,
+                                 long_gb_per_s=l_gbps)),
         "matmul3d": phase_matmul_kernel(),
         "mamba_scan": phase_scan_kernel(fcfg),
     }
@@ -557,6 +631,27 @@ def phase_scan_kernel(fcfg) -> dict:
             fail("mamba_scan: chunks 1, 8, 64 and 512 give different y")
         log("  mamba_scan chunks 1, 8, 64, 512 at L = 512: y bit for bit "
             "equal  ok")
+        # bit for bit: the final state written over h0 equals the
+        # functional one, and each batch row equals that row scanned alone
+        args, h0 = timed["decode"]
+        y_f, h_f = scan(args, h0)
+        cache = h0.clone()
+        y_i, h_i = ops.selective_scan(*args, h0=cache, return_state=True,
+                                      state_in_place=True)
+        if h_i is not cache or not (torch.equal(y_i, y_f)
+                                    and torch.equal(cache, h_f)):
+            fail("mamba_scan: the state written in place differs from the "
+                 "functional state")
+        for i in range(args[0].shape[0]):
+            row = [t[i:i + 1] if t.dim() == 3 else t for t in args]
+            y1, h1 = scan(row, h0[i:i + 1])
+            if not (torch.equal(y1, y_f[i:i + 1])
+                    and torch.equal(h1, h_f[i:i + 1])):
+                fail(f"mamba_scan: batch row {i} alone differs from its "
+                     f"row of the batch")
+        log(f"  mamba_scan decode B={args[0].shape[0]}: state in place == "
+            f"functional, each row alone == its row of the batch, bit for "
+            f"bit  ok")
         args, h0 = timed["prefill f32"]
         cut = 200
         head = [t[:, :cut] if t.dim() == 3 else t for t in args]
@@ -573,7 +668,7 @@ def phase_scan_kernel(fcfg) -> dict:
         for label in ("prefill", "decode", "forward"):
             args, h0 = timed[label]
             ms = median_ms(lambda: scan(args, h0), N_TIMED)
-            dev = device_ms(lambda: scan(args, h0), "mamba_scan_kernel")
+            dev = device_ms(lambda: scan(args, h0), "mamba_scan")
             plain = median_ms(lambda: mamba_scan_plain(
                 *args, h0=h0, return_state=h0 is not None),
                 N_TIMED_PLAIN_SCAN)
@@ -588,7 +683,11 @@ def phase_scan_kernel(fcfg) -> dict:
                 f"{dev:.4f} ms), plain "
                 f"{plain:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
                 f"{exps} exp), no library call")
-    return rows["prefill"]
+    row = dict(rows["prefill"])
+    row["extra"] = {f"{label}_{key}": rows[label][key]
+                    for label in ("decode", "forward")
+                    for key in ("device_ms", "bound_ms", "bound_by")}
+    return row
 
 
 def teacher_forced_check(cfg, seed_params, prompt, tokens, label) -> float:
@@ -972,6 +1071,7 @@ def main() -> int:
             row.update(f32_ms=t["f32_ms"],
                        f32_library_ms=t["f32_library_ms"],
                        f32_bound_ms=t["f32_bound_ms"])
+        row.update(t.get("extra", {}))
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)

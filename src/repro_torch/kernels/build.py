@@ -41,11 +41,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "paged_attention": {
-        "paged_decode_bf16": (_I, [_P] * 6 + [_I] * 5 + [_L] * 2 + [_F]
-                              + [_I] * 2 + [_P]),
+        "paged_decode_bf16": (_I, [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I]
+                              + [_F] + [_I] * 2 + [_P]),
         "paged_attention_head_dim": (_I, []),
         "paged_attention_max_group": (_I, []),
         "paged_attention_max_page_tokens": (_I, []),
+        "paged_attention_split_tokens": (_I, []),
         "paged_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "matmul3d": {

@@ -1,9 +1,10 @@
-// Hopper building blocks shared by the tensor-core kernels (matmul3d.cu,
-// flash_attention.cu): tensor maps for the Tensor Memory Accelerator (TMA),
-// mbarriers, TMA loads, wgmma shared-memory descriptors and the wgmma
-// instructions themselves. Everything here is inline PTX for sm_90a; the
-// build keys every library on this header's bytes too (build.py), so an
-// edit here rebuilds both kernels.
+// Hopper building blocks shared by the port's kernels: for the tensor-core
+// kernels (matmul3d.cu, flash_attention.cu) tensor maps for the Tensor
+// Memory Accelerator (TMA), mbarriers, TMA loads, wgmma shared-memory
+// descriptors and the wgmma instructions themselves; for the others
+// (paged_attention.cu, mamba_scan.cu) cp.async copies. Everything here is
+// inline PTX for sm_90a; the build keys every library on this header's
+// bytes too (build.py), so an edit here rebuilds every kernel.
 //
 // Shared-memory layouts. A tile is stored as "chunks" of CW columns along
 // its contiguous axis (CW = 32 or 64 bf16, i.e. 64- or 128-byte rows), each
@@ -141,6 +142,27 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ------------------------------------------------------ cp.async (sm_80+)
+
+// 16 bytes from global to shared memory, in flight until
+// cp_async_wait_all; both addresses 16-byte aligned. .cg: cached in L2 only
+// (streamed once).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// Close the copies this thread issued since the last commit into a group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until every group this thread committed has landed (a
+// __syncthreads after it makes every thread's copies visible).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ------------------------------------------------------ wgmma descriptors

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.matmul3d import (SMEM_BYTES, check_plan,
                                           kernel_blocks)
 from repro_torch.kernels.matmul3d import matmul3d as _matmul
+from repro_torch.kernels.mamba_scan import check_in_place
 from repro_torch.kernels.mamba_scan import mamba_scan as _scan
 from repro_torch.kernels.mamba_scan import mamba_scan_plain
 
@@ -126,6 +127,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    plan: Optional[tiling.ScanChunkPlan] = None,
                    h0: Optional[torch.Tensor] = None,
                    return_state: bool = False,
+                   state_in_place: bool = False,
                    impl: Impl = "auto"):
     """Mamba-1 selective scan (see ``ref.selective_scan_ref`` for shapes).
 
@@ -133,11 +135,18 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     target; a given plan is clamped to the length. Both branches of the
     model's mamba block come here, so on the card every scan, with or
     without a carried state, runs the kernel. ``impl="kernel"`` needs a
-    CUDA tensor.
+    CUDA tensor. ``state_in_place`` (with ``h0`` and ``return_state``)
+    writes the final state into ``h0`` and returns ``(y, h0)``.
     """
+    if state_in_place:
+        check_in_place(h0, return_state)
     if not _use_kernel(impl, x):
-        return mamba_scan_plain(x, dt, a, b, c, d, h0=h0,
-                                return_state=return_state)
+        out = mamba_scan_plain(x, dt, a, b, c, d, h0=h0,
+                               return_state=return_state)
+        if state_in_place:
+            h0.copy_(out[1])
+            return out[0], h0
+        return out
     if not x.is_cuda:
         raise ValueError(f"impl='kernel' runs the mamba_scan kernel on the "
                          f"card; x is on {x.device}")
@@ -151,4 +160,5 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return _scan(x.contiguous(), dt.contiguous(), a.float().contiguous(),
                  b.contiguous(), c.contiguous(), d.float().contiguous(),
                  plan=eff, return_state=return_state,
+                 state_in_place=state_in_place,
                  h0=None if h0 is None else h0.float().contiguous())

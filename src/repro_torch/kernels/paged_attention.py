@@ -11,27 +11,40 @@ block table (page 0 is the null page). This module owns the decode math:
     it after a gather, so paged == dense is bit-exact on the plain path.
   * :func:`gather_kv_pages` — block-table gather back to a per-slot
     contiguous view.
-  * :func:`paged_flash_decode` — the Hopper page-walk kernel
-    (``csrc/paged_attention.cu``) and, beside it,
-    :func:`paged_flash_decode_plain`, its plain PyTorch version.
+  * :func:`paged_flash_decode` — the Hopper split page-walk kernel
+    (``csrc/paged_attention.cu``: one CTA per ``SPLIT_TOKENS`` positions
+    of one (slot, KV head), partials merged in split order inside the same
+    launch) and, beside it, :func:`paged_flash_decode_plain`, its plain
+    PyTorch version. :func:`split_geometry` sizes its grid and workspace.
   * :func:`paged_decode_attention` — the entry, with the reference's
     dispatch rule: a single-token causal decode over unquantized pages on a
     CUDA tensor takes the kernel; multi-token queries, ``causal=False`` and
     CPU tensors take gather + oracle. Quantized pools are not ported yet.
 
 The kernel reads each slot's frontier ``cache_len`` on the device, so no
-wrapper here reads a device value on the host.
+wrapper here reads a device value on the host: the grid and the partials'
+workspace are sized from the block table's width alone.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 _LIB = "paged_attention"
+#: positions per split of the page walk (``SPLIT_TOKENS`` in the source; a
+#: split is a whole number of pages); held equal to the source by the tests
+#: and by the wrapper at its first launch
+SPLIT_TOKENS = 64
+#: splits a first-level merge takes (``NODE`` in the source): a slot whose
+#: live splits span several such nodes merges each node, then the nodes
+MERGE_NODE = 16
+#: per-device (slot, KV head) arrival counters of the in-launch merge: zeroed
+#: once, left zero by every launch, grown when a call needs more
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 # ------------------------------------------------------------------ oracle
@@ -100,19 +113,53 @@ def paged_flash_decode_plain(q, k_pages, v_pages, block_tables, cache_len, *,
     return decode_attention_masked(q, k, v, cache_len, window=window)
 
 
+class SplitGeometry(NamedTuple):
+    pages_per_split: int
+    n_splits: int
+    n_nodes: int           # first-level merge nodes of MERGE_NODE splits
+    grid: tuple            # (n_splits, Hkv, B), as the kernel launches
+    workspace_floats: int  # f32 partials (B, Hkv, n_splits + n_nodes,
+                           # group, D + 2)
+    counters: int          # per (slot, KV head): one a node, one for all
+
+
+def split_geometry(batch: int, hkv: int, group: int, page_tokens: int,
+                   p_max: int, head_dim: int) -> SplitGeometry:
+    """The kernel's grid and workspace for a call: a function of the batch,
+    the heads, the page size and the block table's width ``p_max`` only,
+    never of a frontier (which lives on the device)."""
+    pps = max(1, SPLIT_TOKENS // page_tokens)
+    n_splits = -(-p_max // pps)
+    n_nodes = -(-n_splits // MERGE_NODE)
+    return SplitGeometry(
+        pps, n_splits, n_nodes, (n_splits, hkv, batch),
+        batch * hkv * (n_splits + n_nodes) * group * (head_dim + 2),
+        batch * hkv * (n_nodes + 1))
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, block_tables: torch.Tensor,
                        cache_len: torch.Tensor, *,
                        window: Optional[int] = None) -> torch.Tensor:
-    """Page-walk decode attention on the card.
+    """Split page-walk decode attention on the card.
 
     q: (B, Hq, 1, D) bf16; k_pages/v_pages: (n_pages, Hkv, page_tokens, D)
     bf16, contiguous; block_tables: (B, P) int32; cache_len: (B,) int32.
-    On a CUDA tensor this launches ``csrc/paged_attention.cu`` or raises;
-    a CPU tensor takes :func:`paged_flash_decode_plain`. Block-table
+    On a CUDA tensor this launches ``csrc/paged_attention.cu`` once or
+    raises; a CPU tensor takes :func:`paged_flash_decode_plain`. Block-table
     entries must lie in ``[0, n_pages)``: the scheduler's page allocator
     guarantees it, and checking it here would read the device from the
-    host inside the decode chunk.
+    host inside the decode chunk. Calls that share a device must run on
+    one stream (the merge's counters are per device).
     """
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, block_tables,
@@ -154,13 +201,28 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
             or not v_pages.is_contiguous():
         raise ValueError("paged_flash_decode needs unit stride on D for q "
                          "and contiguous pages")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_flash_decode copies pages in 16-byte pieces: "
+                         "the pools must start 16-byte aligned")
+    if p_max < 1:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} has no "
+                         f"page column")
     if window is not None and window < 0:
         raise ValueError(f"window must be None or >= 0, got {window}")
+    if lib.paged_attention_split_tokens() != SPLIT_TOKENS:
+        raise RuntimeError(f"paged_attention.cu splits every "
+                           f"{lib.paged_attention_split_tokens()} positions, "
+                           f"the wrapper sizes for {SPLIT_TOKENS}")
+    geom = split_geometry(b, hkv, hq // hkv, pt, p_max, d)
+    ws = torch.empty(geom.workspace_floats, dtype=torch.float32,
+                     device=q.device)
+    counters = _counters(q.device, geom.counters)
     out = torch.empty((b, hq, 1, d), dtype=q.dtype, device=q.device)
     rc = lib.paged_decode_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-        b, hq, hkv, pt, p_max, q.stride(0), q.stride(1), d ** -0.5,
+        ws.data_ptr(), counters.data_ptr(), b, hq, hkv, pt, p_max,
+        q.stride(0), q.stride(1), ws.numel(), counters.numel(), d ** -0.5,
         int(window is not None), window or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(_LIB, rc)

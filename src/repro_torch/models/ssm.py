@@ -9,8 +9,9 @@ Every selective scan goes through :func:`repro_torch.kernels.ops.selective_
 scan` with ``impl="auto"``: the full-sequence forward (``cache=None``), and
 prefill and decode, which carry ``(conv, ssm)`` state. The reference sends
 the carried-state calls to its oracle; on the card the port sends them to
-the kernel, which takes the initial state and writes the final one. The
-cache is updated in place, as the port's attention caches are.
+the kernel, which takes the initial state and writes the final one over
+it (no copy follows the scan). The cache is updated in place, as the
+port's attention caches are.
 """
 
 from __future__ import annotations
@@ -99,11 +100,10 @@ def mamba_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     a = -torch.exp(p["a_log"])
 
     if cache is not None:
-        y, h_t = ops.selective_scan(xs, dt, a, bmat, cmat, p["ssm_d"],
-                                    plan=plan, h0=cache["ssm"],
-                                    return_state=True)
+        y, _ = ops.selective_scan(xs, dt, a, bmat, cmat, p["ssm_d"],
+                                  plan=plan, h0=cache["ssm"],
+                                  return_state=True, state_in_place=True)
         cache["conv"].copy_(new_conv)
-        cache["ssm"].copy_(h_t)
     else:
         y = ops.selective_scan(xs, dt, a, bmat, cmat, p["ssm_d"], plan=plan)
 

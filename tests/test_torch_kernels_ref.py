@@ -3,7 +3,12 @@
 Same numpy inputs go through JAX's oracles (``repro.kernels.ref``, the
 paged gather + masked oracle), JAX's Pallas kernels in interpret mode, and
 the port's plain versions. Inputs are f32; the tolerance (1e-5) only
-covers summation order.
+covers summation order. The paged kernel's split page walk (per-split
+``(m, l, acc)`` partials merged in split order) is emulated here in f32
+and held to the same oracles at 1e-5. The ``cuda`` tests hold both Hopper
+kernels to their plain versions (bf16, atol = rtol = 2e-2) and the paged
+kernel's output bit for bit across batch compositions and block-table
+widths.
 """
 
 import jax
@@ -20,9 +25,11 @@ from repro.kernels.paged_attention import (
     paged_decode_attention as j_paged)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention, tma_strides
+from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import (
-    decode_attention_masked, gather_kv_pages, paged_decode_attention,
-    paged_flash_decode)
+    MERGE_NODE, SPLIT_TOKENS, decode_attention_masked, gather_kv_pages,
+    paged_decode_attention, paged_flash_decode, paged_flash_decode_plain,
+    split_geometry)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -164,6 +171,171 @@ def test_paged_decode_matches_jax(hq, hkv, window):
                               window=window), got)
 
 
+def _merge(parts):
+    """Partials (m, l, acc) merged in order with the log-sum-exp rescale:
+    the merged partial."""
+    top = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l_, acc in parts:
+        w = torch.exp(m - top)
+        num = num + acc * w[:, None]
+        den = den + l_ * w
+    return top, den, num
+
+
+def _split_walk(q, kp, vp, bt, cl, window=None):
+    """The kernel's algorithm in f32, step by step: each slot's visible
+    positions [lo, hi) cut into splits of ``pages_per_split`` pages, each
+    live split's (m, l, acc) over its own positions, then the merge in
+    split order (log-sum-exp rescale): in one level when the live splits
+    lie in one node of MERGE_NODE splits, else each node's splits, then the
+    nodes. Returns the output and, per slot, the live splits."""
+    b, hq, _, d = q.shape
+    _, hkv, pt, _ = kp.shape
+    p_max = bt.shape[1]
+    group = hq // hkv
+    geom = split_geometry(b, hkv, group, pt, p_max, d)
+    span = geom.pages_per_split * pt
+    k = gather_kv_pages(kp, bt, seq_axis=1).float()
+    v = gather_kv_pages(vp, bt, seq_axis=1).float()
+    qg = q.float().reshape(b, hkv, group, d)
+    out = torch.zeros((b, hkv, group, d))
+    live = []
+    for i in range(b):
+        front = int(cl[i])
+        hi = min(front + 1, p_max * pt)
+        lo = 0 if window is None else max(0, front - window + 1)
+        splits = [s for s in range(geom.n_splits)
+                  if max(lo, s * span) < min(hi, (s + 1) * span)]
+        live.append(splits)
+        for h in range(hkv):
+            parts = []
+            for s in splits:
+                a, z = max(lo, s * span), min(hi, (s + 1) * span)
+                sc = qg[i, h] @ k[i, h, a:z].T * d ** -0.5     # (group, n)
+                m = sc.max(dim=1).values
+                e = torch.exp(sc - m[:, None])
+                parts.append((m, e.sum(dim=1), e @ v[i, h, a:z]))
+            if not parts:
+                continue
+            nodes = sorted({s // MERGE_NODE for s in splits})
+            if len(nodes) > 1:
+                parts = [_merge([pt_ for s, pt_ in zip(splits, parts)
+                                 if s // MERGE_NODE == nd]) for nd in nodes]
+            _, den, num = _merge(parts)
+            out[i, h] = num / den[:, None]
+    return out.reshape(b, hq, 1, d), live
+
+
+#: (frontiers, window, live splits per slot) at pt = 8 (a split is 64
+#: positions, 8 pages) over P = 20 pages (not a multiple of the split)
+SPLIT_CASES = {
+    "frontier-0": ([0, 0], None, [[0], [0]]),
+    "split-boundary": ([63, 64], None, [[0], [0, 1]]),
+    "one-short-and-last": ([127, 159], None, [[0, 1], [0, 1, 2]]),
+    "window-crosses-a-boundary": ([100, 70], 50, [[0, 1], [0, 1]]),
+    "window-empties-splits": ([150, 140], 20, [[2], [1, 2]]),
+}
+
+
+@pytest.mark.parametrize("lens,window,nodes", [
+    ([1500, 1023], None, [[0, 1], [0]]),
+    ([1500, 1100], 200, [[1], [0, 1]]),
+])
+def test_two_level_merge_matches_jax(lens, window, nodes):
+    """Slots whose live splits span two merge nodes (16 splits, 1024
+    positions at pt = 8) merge each node, then the nodes: the oracle's
+    output, the port's and JAX's."""
+    d, pt, p_max = 16, 8, 200
+    q, kp, vp, bt, cl = _paged_inputs(2, 4, 2, d, pt, p_max, lens, seed=6)
+    got, splits = _split_walk(_t(q), _t(kp), _t(vp), _t(bt), _t(cl),
+                              window=window)
+    assert [sorted({s // MERGE_NODE for s in sp}) for sp in splits] == nodes
+    _close(got, decode_attention_masked(
+        _t(q), gather_kv_pages(_t(kp), _t(bt), seq_axis=1),
+        gather_kv_pages(_t(vp), _t(bt), seq_axis=1), _t(cl), window=window))
+    _close(got, j_paged(*(jnp.asarray(x) for x in (q, kp, vp, bt, cl)),
+                        window=window))
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 1)])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_page_walk_matches_jax(case, hq, hkv):
+    """The split walk with its ordered merge gives the masked oracle's
+    output (the port's and JAX's, oracle and Pallas page walk) at a
+    frontier of 0, frontiers on and one short of a split boundary, the last
+    position of a block-table row that no split divides, a window across a
+    boundary and a window that empties whole splits; pages past each
+    frontier are null."""
+    lens, window, live = SPLIT_CASES[case]
+    d, pt, p_max = 16, 8, 20
+    q, kp, vp, bt, cl = _paged_inputs(2, hq, hkv, d, pt, p_max, lens,
+                                      seed=5)
+    got, splits = _split_walk(_t(q), _t(kp), _t(vp), _t(bt), _t(cl),
+                              window=window)
+    assert splits == live
+    _close(got, decode_attention_masked(
+        _t(q), gather_kv_pages(_t(kp), _t(bt), seq_axis=1),
+        gather_kv_pages(_t(vp), _t(bt), seq_axis=1), _t(cl), window=window))
+    jargs = tuple(jnp.asarray(x) for x in (q, kp, vp, bt, cl))
+    _close(got, j_paged(*jargs, window=window))
+    _close(got, j_paged(*jargs, window=window, impl="pallas"))
+
+
+def test_split_geometry_depends_only_on_the_table_width():
+    """Grid (n_splits, Hkv, B) and the f32 workspace (B, Hkv, n_splits,
+    group, D + 2) follow from B, Hkv, group, page size and P alone (no
+    frontier enters), with the source's SPLIT_TOKENS and its size check."""
+    text = (build.CSRC / "paged_attention.cu").read_text()
+    assert f"constexpr int SPLIT_TOKENS = {SPLIT_TOKENS};" in text
+    assert f"constexpr int NODE = {MERGE_NODE};" in text
+    assert ("(long long)batch * hkv * (n_splits + n_nodes) * group * (D + 2)"
+            in text)
+    assert "n_counters < batch * hkv * (n_nodes + 1)" in text
+    assert "const dim3 grid(n_splits, hkv, batch);" in text
+    main = split_geometry(4, 2, 8, 16, 36, 128)     # qwen's decode step
+    assert main.pages_per_split == 4 and main.n_splits == 9
+    assert main.n_nodes == 1 and main.grid == (9, 2, 4)
+    assert main.workspace_floats == 4 * 2 * (9 + 1) * 8 * 130
+    assert main.counters == 4 * 2 * 2
+    assert split_geometry(4, 2, 8, 16, 64, 128).grid == (16, 2, 4)
+    long = split_geometry(4, 2, 8, 16, 256, 128)    # 4 slots x 4096
+    assert long.n_splits == 64 and long.n_nodes == 4
+    assert long.counters == 4 * 2 * 5
+    for pt, pps in ((8, 8), (16, 4), (5, 12), (48, 1), (64, 1)):
+        geom = split_geometry(3, 1, 2, pt, 25, 128)
+        assert geom.pages_per_split == pps
+        assert geom.n_splits == -(-25 // pps)
+    assert split_geometry(1, 2, 8, 16, 36, 128).workspace_floats \
+        * 4 == main.workspace_floats
+    assert split_geometry(4, 2, 8, 16, 37, 128).n_nodes == 1
+    assert split_geometry(4, 2, 8, 16, 65, 128).n_nodes == 2
+
+
+@pytest.mark.parametrize("source,parts", [
+    ("paged_attention.cu", (
+        '#include "hopper.cuh"', "hopper::cp_async16(ks + at",
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+        "atomicAdd(counter, 1)", "const dim3 grid(n_splits, hkv, batch);")),
+    ("mamba_scan.cu", (
+        '#include "hopper.cuh"', "hopper::cp_async16(",
+        "hopper::cp_async_wait_all();", "transpose_sub<T>(",
+        "__shfl_xor_sync(0xffffffffu, send, 8)",
+        "mamba_scan_step_kernel<T>")),
+])
+def test_redesigned_kernels_keep_their_design(source, parts):
+    """The split page walk stages pages with cp.async and runs its products
+    on mma.sync with an in-launch merge; the scan stages a cp.async ring,
+    transposes it, sums y with the transposed butterfly and has its
+    one-step kernel: a later edit cannot quietly drop them."""
+    text = (build.CSRC / source).read_text()
+    for part in parts:
+        assert part in text, part
+    assert "hopper.cuh" in [p.name for p in build._sources(source[:-3])]
+
+
 def test_gather_kv_pages_matches_jax_exactly():
     pages = _np(9, 2, 4, 8, seed=3)
     bt = np.asarray([[3, 1, 0], [8, 2, 5]], np.int32)
@@ -291,3 +463,94 @@ def test_flash_kernel_cases_on_the_card(case):
     torch.testing.assert_close(got.float(),
                                ref.attention_ref(q, k, v, **kw).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+def _card_pool(b, p_max, lens, *, hq=16, hkv=2, pt=16, seed=0,
+               pool_pages=None):
+    """A bf16 pool on the card with each slot's pages shuffled and the
+    entries past its frontier null, as the scheduler leaves them."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = pool_pages or b * p_max + 1
+    kp = torch.randn((n_pages, hkv, pt, 128), generator=g,
+                     device=dev).bfloat16()
+    vp = torch.randn((n_pages, hkv, pt, 128), generator=g,
+                     device=dev).bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+    bt = perm[:b * p_max].reshape(b, p_max).to(torch.int32)
+    mapped = (torch.arange(p_max, device=dev)[None, :] * pt
+              <= torch.as_tensor(lens, device=dev)[:, None])
+    bt = torch.where(mapped, bt, 0).contiguous()
+    cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((b, hq, 1, 128), generator=g, device=dev).bfloat16()
+    return q, kp, vp, bt, cl
+
+
+#: paged cases on the card at pt = 16 (a split is 4 pages): (B, P,
+#: frontiers, window)
+PAGED_CARD_CASES = {
+    "frontiers-0-boundary-last": (8, 40, [0, 63, 64, 639, 1, 127, 333, 17],
+                                  None),
+    "window-crosses": (4, 36, [100, 300, 575, 64], 50),
+    "window-empties-splits": (4, 36, [400, 575, 200, 130], 20),
+    "window-0": (2, 8, [5, 100], 0),
+    "p-not-a-split-multiple": (3, 37, [591, 580, 512], None),
+    "two-level-merge": (3, 100, [1599, 1023, 1100], None),
+    "two-level-window": (2, 100, [1599, 1100], 700),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PAGED_CARD_CASES))
+def test_paged_split_cases_on_the_card(case):
+    """The split page walk against its plain version (bf16, atol = rtol =
+    2e-2) at split-edge frontiers and windows, with one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, p_max, lens, window = PAGED_CARD_CASES[case]
+    q, kp, vp, bt, cl = _card_pool(b, p_max, lens)
+    before = paged_flash_decode.launches
+    got = paged_flash_decode(q, kp, vp, bt, cl, window=window)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    want = paged_flash_decode_plain(q, kp, vp, bt, cl, window=window)
+    if window == 0:       # nothing visible: the kernel writes zeros
+        assert torch.count_nonzero(got) == 0
+        return
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_paged_decode_is_batch_and_width_invariant_on_the_card():
+    """A slot's output is bit for bit the same decoded alone or in a batch
+    of 4, and with its block-table row 36, 64 or 100 pages wide
+    (null-padded), repeated launches included (the merge's counters
+    reset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lens = [300, 575, 17, 128]
+    q, kp, vp, bt, cl = _card_pool(4, 36, lens, seed=3)
+    batch = paged_flash_decode(q, kp, vp, bt, cl)
+    for i in range(4):
+        alone = paged_flash_decode(q[i:i + 1], kp, vp, bt[i:i + 1],
+                                   cl[i:i + 1])
+        assert torch.equal(alone, batch[i:i + 1]), i
+    for width in (64, 100):     # 100 pages: two merge nodes' worth
+        wide = torch.zeros((4, width), dtype=torch.int32, device=bt.device)
+        wide[:, :36] = bt
+        assert torch.equal(paged_flash_decode(q, kp, vp, wide, cl), batch)
+    assert torch.equal(paged_flash_decode(q, kp, vp, bt, cl), batch)
+
+
+@pytest.mark.cuda
+def test_paged_decode_long_context_on_the_card():
+    """4 slots x 4096 positions (256 pages each, 64 splits a slot) against
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, kp, vp, bt, cl = _card_pool(4, 256, [4095, 4000, 2048, 3333], seed=4)
+    got = paged_flash_decode(q, kp, vp, bt, cl)
+    torch.testing.assert_close(
+        got.float(), paged_flash_decode_plain(q, kp, vp, bt, cl).float(),
+        atol=2e-2, rtol=2e-2)

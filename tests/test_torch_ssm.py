@@ -23,7 +23,9 @@ Within the port the paged stream equals one-shot ``Engine.generate`` bit for
 bit, and prefill plus decode steps give a full-sequence forward's logits
 within 1e-4 (only the unembed's sums change with the row count). The ``cuda`` tests run the kernel on the card: bf16 y within atol =
 rtol = 2e-2 of the plain version, f32 y and the final state within 2e-4,
-several plans bit for bit equal, and a split scan equal to the full one.
+several plans bit for bit equal, a split scan equal to the full one, the
+final state written over ``h0`` equal bit for bit to the functional one,
+and a batch row equal bit for bit alone and inside a batch of 4.
 """
 
 import re
@@ -47,9 +49,12 @@ from repro_torch.configs import get_reduced
 from repro_torch.core import tiling
 from repro_torch.core.target import use_target
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.mamba_scan import (BLOCK_D, MAX_DS, SMEM_BYTES,
-                                            SPLIT, mamba_scan,
-                                            mamba_scan_plain, staging_bytes)
+from repro_torch.kernels.mamba_scan import (BLOCK_D, LANES, MAX_DS,
+                                            MIN_STAGE_STEPS, N_STAGES,
+                                            SMEM_BYTES, SUB_STEPS,
+                                            check_plan, mamba_scan,
+                                            mamba_scan_plain, stage_steps,
+                                            staging_bytes)
 from repro_torch.launch import serve as cli
 from repro_torch.models import build_model, layers, ssm, transformer
 from repro_torch.models.bridge import params_from_numpy
@@ -167,7 +172,7 @@ def test_wrapper_checks_what_the_kernel_takes():
     with pytest.raises(ValueError, match="chunk 32 does not divide the "
                                          "length 48"):
         mamba_scan(*meta, plan=tiling.ScanChunkPlan(32))
-    big = SMEM_BYTES // staging_bytes(1, 16) + 1
+    big = next(c for c in range(1, 4096) if staging_bytes(c) > SMEM_BYTES)
     x_long = torch.empty((2, big, 64), device="meta")
     bc_long = torch.empty((2, big, 16), device="meta")
     with pytest.raises(ValueError, match=rf"staging {big} steps.*"
@@ -188,17 +193,135 @@ def test_wrapper_checks_what_the_kernel_takes():
 
 
 def test_kernel_limits_match_the_cuda_source():
+    """The wrapper's constants and ring formula are the source's: one
+    thread per (channel, state); a stage of whole chunks and at least
+    MIN_STAGE_STEPS steps; a ring of N_STAGES = 2 such stages; x and
+    B, C (padded to MAX_DS) in the input dtype, dt in f32, each region of a
+    stage rounded to 16 B; one transposed sub-block of SUB steps (f32 rows
+    16 bytes longer) and two of y rows."""
     text = (build.CSRC / "mamba_scan.cu").read_text()
 
     def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+        return re.search(rf"constexpr int {name} = (\w+);", text)[1]
 
-    assert const("MAX_DS") == MAX_DS == 16
-    assert const("SPLIT") == SPLIT
-    assert const("BD") == BLOCK_D
-    assert const("MAX_SMEM") == SMEM_BYTES == 232448
-    assert "sizeof(float) * size_t(chunk) * (2 * BD + 2 * ds)" in text
-    assert staging_bytes(8, 16) == 4 * 8 * (2 * BLOCK_D + 2 * 16)
+    assert int(const("MAX_DS")) == MAX_DS == 16
+    assert const("LANES") == "MAX_DS" and LANES == MAX_DS
+    assert int(const("BD")) == BLOCK_D
+    assert int(const("SUB")) == SUB_STEPS
+    assert const("MIN_STAGE_STEPS") == "SUB" and MIN_STAGE_STEPS == SUB_STEPS
+    assert int(const("NSTAGE")) == N_STAGES == 2
+    assert int(const("MAX_SMEM")) == SMEM_BYTES == 232448
+    for line in (
+            "return chunk * ((MIN_STAGE_STEPS + chunk - 1) / chunk);",
+            "return round16(size_t(steps) * BD * es) + round16(size_t(steps) "
+            "* BD * 4) +\n         2 * round16(size_t(steps) * MAX_DS * es);",
+            "constexpr int ROW = SUB + 4;",
+            "constexpr size_t SUB_BYTES = size_t(BD + BD + 2 * MAX_DS) * ROW "
+            "* 4;",
+            "return NSTAGE * stage_bytes(stage_steps(chunk), es) +\n"
+            "         SUB_BYTES + 2 * round16(size_t(SUB) * BD * es);",
+            "smem_bytes(chunk, bf16 ? 2 : 4) > size_t(MAX_SMEM))"):
+        assert line in text, line
+    # the h100 plan's chunk 8: one 64-step stage in flight ahead of another
+    assert stage_steps(8) == 64
+    sub = 64 * 68 * 4
+    assert staging_bytes(8, 2) == 2 * 64 * 160 + sub + 2 * 2048
+    assert staging_bytes(8) == 2 * 64 * 256 + sub + 2 * 4096
+    assert [stage_steps(c) for c in (1, 7, 20, 64, 512)] == [
+        64, 70, 80, 64, 512]
+    # a ragged stage rounds each region up: 70 steps of bf16 x is 2240 B
+    assert staging_bytes(7, 2) == 2 * (2240 + 4480 + 2 * 2240) + sub \
+        + 2 * 2048
+
+
+@pytest.mark.parametrize("in_bytes,largest", [(4, 404), (2, 659)])
+def test_check_plan_counts_the_whole_ring(in_bytes, largest):
+    """The largest chunk whose staging (two stages of one chunk at this
+    size, the sub-block and y) fits 232448 B is taken, the next is refused
+    with its bytes, never shrunk; bf16 stages take more steps than f32
+    ones."""
+    assert staging_bytes(largest, in_bytes) <= SMEM_BYTES
+    assert staging_bytes(largest + 1, in_bytes) > SMEM_BYTES
+    length = 2 * 3 * 5 * 7 * 11 * 13 * 17 * 19 * 23
+    fits = next(c for c in range(largest, 0, -1) if length % c == 0)
+    assert check_plan(tiling.ScanChunkPlan(fits), length, 16,
+                      in_bytes) == fits
+    too_big = next(c for c in range(largest + 1, 4 * largest)
+                   if length % c == 0)
+    need = staging_bytes(too_big, in_bytes)
+    with pytest.raises(ValueError, match=rf"chunk {too_big}: .* ring of 2 "
+                                         rf"stages of {too_big} steps takes "
+                                         rf"{need} B"):
+        check_plan(tiling.ScanChunkPlan(too_big), length, 16, in_bytes)
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+def test_final_state_in_place_equals_the_functional_state(impl):
+    """``state_in_place`` writes the final state over ``h0`` and returns
+    it: y and the state equal the functional call's bit for bit; without
+    ``h0`` / ``return_state`` or with a non-contiguous or non-f32 ``h0`` it
+    raises."""
+    x, dt, a, bb, c, d = (_t(v) for v in _scan_inputs(2, 24, 64, 16,
+                                                      seed=16))
+    h0 = _t(np.random.RandomState(17).randn(2, 64, 16).astype(np.float32))
+    y_f, h_f = ops.selective_scan(x, dt, a, bb, c, d, h0=h0,
+                                  return_state=True, impl=impl)
+    cache = h0.clone()
+    y_i, h_i = ops.selective_scan(x, dt, a, bb, c, d, h0=cache,
+                                  return_state=True, state_in_place=True,
+                                  impl=impl)
+    assert h_i is cache
+    torch.testing.assert_close(y_i, y_f, rtol=0, atol=0)
+    torch.testing.assert_close(cache, h_f, rtol=0, atol=0)
+    cache = h0.clone()
+    y_w, h_w = mamba_scan(x, dt, a, bb, c, d, h0=cache, return_state=True,
+                          state_in_place=True,
+                          plan=tiling.ScanChunkPlan(8))
+    assert h_w is cache
+    torch.testing.assert_close(cache, h_f, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="pass h0 and return_state"):
+        ops.selective_scan(x, dt, a, bb, c, d, state_in_place=True,
+                           return_state=True)
+    with pytest.raises(ValueError, match="pass h0 and return_state"):
+        ops.selective_scan(x, dt, a, bb, c, d, h0=h0.clone(),
+                           state_in_place=True)
+    with pytest.raises(ValueError, match="contiguous f32 h0"):
+        ops.selective_scan(x, dt, a, bb, c, d,
+                           h0=h0.transpose(1, 2).contiguous().transpose(1, 2),
+                           return_state=True, state_in_place=True)
+    with pytest.raises(ValueError, match="contiguous f32 h0"):
+        ops.selective_scan(x, dt, a, bb, c, d, h0=h0.double(),
+                           return_state=True, state_in_place=True)
+
+
+def test_mamba_block_scans_into_its_cache():
+    """The block hands its recurrent cache to the scan as the final
+    state's output: the state after a cached call is the functional scan's
+    final state, and no new state tensor takes its place."""
+    cfg = get_reduced(ARCH)
+    _, tp = _block_params(j_get_reduced(ARCH), seed=4)
+    rng = np.random.RandomState(18)
+    x = _t(rng.randn(2, 5, cfg.d_model).astype(np.float32), torch.bfloat16)
+    cache = {"conv": torch.zeros((2, cfg.ssm_conv - 1, cfg.ssm_d_inner)),
+             "ssm": _t(rng.randn(2, cfg.ssm_d_inner, cfg.ssm_d_state)
+                       .astype(np.float32))}
+    state = cache["ssm"]
+    before = state.clone()
+    calls = []
+    real = ops.selective_scan
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    ops.selective_scan = spy
+    try:
+        ssm.mamba_block(tp, x, cfg=cfg, cache=cache)
+    finally:
+        ops.selective_scan = real
+    assert cache["ssm"] is state and calls[0]["h0"] is state
+    assert calls[0]["state_in_place"] and calls[0]["return_state"]
+    assert not torch.equal(state, before)
 
 
 # ---------------------------------------------------- the block vs JAX
@@ -579,6 +702,55 @@ def test_mamba_scan_kernel_chunk_invariance_and_split_on_card():
     torch.testing.assert_close(torch.cat([y1, y2], 1).float(), full.float(),
                                **SCAN_TOL)
     torch.testing.assert_close(h2, hf, **SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,dtype", [(512, torch.bfloat16),
+                                          (1, torch.bfloat16),
+                                          (300, torch.float32)])
+def test_mamba_scan_in_place_state_and_batch_rows_on_card(length, dtype):
+    """On the card: the final state written over h0 equals the functional
+    state bit for bit (and y too), and each batch row's y and state equal,
+    bit for bit, that row scanned alone."""
+    dev = _cuda()
+    x, dt, a, bb, c, d = _card_inputs(dev, 4, length, 8192, 16, dtype, 24)
+    h0 = torch.randn((4, 8192, 16), device=dev) * 0.1
+    plan = tiling.ScanChunkPlan(4 if length == 300 else 8)
+    y_f, h_f = ops.selective_scan(x, dt, a, bb, c, d, plan=plan, h0=h0,
+                                  return_state=True)
+    cache = h0.clone()
+    y_i, h_i = ops.selective_scan(x, dt, a, bb, c, d, plan=plan, h0=cache,
+                                  return_state=True, state_in_place=True)
+    torch.cuda.synchronize()
+    assert h_i is cache
+    assert torch.equal(y_i, y_f) and torch.equal(cache, h_f)
+    for i in range(4):
+        rows = [t[i:i + 1] for t in (x, dt)] + [a] + \
+            [t[i:i + 1] for t in (bb, c)] + [d]
+        y1, h1 = ops.selective_scan(*rows, plan=plan, h0=h0[i:i + 1],
+                                    return_state=True)
+        assert torch.equal(y1, y_f[i:i + 1]) and torch.equal(h1, h_f[i:i + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di,ds", [(8192, 16), (100, 5)])
+def test_mamba_scan_decode_step_equals_the_general_kernel_on_card(di, ds):
+    """A single step (decode) takes the one-step kernel: its y equals the
+    first step of a 16-step scan by the staged kernel bit for bit, and the
+    other 15 steps scanned from its state equal the rest of that scan."""
+    dev = _cuda()
+    x, dt, a, bb, c, d = _card_inputs(dev, 4, 16, di, ds, torch.bfloat16, 25)
+    h0 = torch.randn((4, di, ds), device=dev) * 0.1
+    plan = tiling.ScanChunkPlan(8)
+    full = ops.selective_scan(x, dt, a, bb, c, d, plan=plan, h0=h0)
+    first = [t[:, :1] for t in (x, dt)] + [a] + [t[:, :1] for t in (bb, c)]
+    rest = [t[:, 1:] for t in (x, dt)] + [a] + [t[:, 1:] for t in (bb, c)]
+    y1, h1 = ops.selective_scan(*first, d, plan=plan, h0=h0,
+                                return_state=True)
+    y15 = ops.selective_scan(*rest, d, plan=plan, h0=h1)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, full[:, :1])
+    assert torch.equal(y15, full[:, 1:])
 
 
 @pytest.mark.cuda
