@@ -12,15 +12,19 @@ Phases, each fatal on failure (a non-zero exit and no result line):
   2. build: every CUDA kernel of the port (one nvcc per source, all
      started together), from ``kernels/csrc``; then each library's SASS
      (``cuobjdump --dump-sass``): matmul3d and flash_attention must hold
-     HGMMA (wgmma, the tensor cores) and UTMALDG (TMA loads);
+     HGMMA (wgmma, the tensor cores) and UTMALDG (TMA loads); HMMA
+     (``mma.sync``, paged decode's tensor cores) is counted beside them;
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at edge cases, with median times of kernel,
      plain version, one library call where there is one, and the bound.
      Attention kernels in bf16, atol = rtol = 2e-2 (the kernels' online
      softmax and the plain f32 softmax agree to within 1-2 bf16 ulp of
      O(1) values), flash also at the one-shot's admission (4 x 256), at
-     an Sq no 64-row tile divides over a ragged Skv, and on the strided
-     ``transpose(1, 2)`` views models/attention.py passes; matmul3d at
+     an Sq no 64-row tile divides over a ragged Skv, on the strided
+     ``transpose(1, 2)`` views models/attention.py passes, and at the
+     resumed prefill's serving shapes (a 256-row prefix-share suffix at
+     ``q_offset`` 256 and a 128-row chunk at 384, over the slot's 576
+     positions; timed beside SDPA with the same mask); matmul3d at
      ``tests/test_kernels.py``'s tolerances (f32 2e-4, bf16 2e-2) at
      small and ragged shapes (bf16 with f32 and bf16 out), and at M = 8192
      within ``mempool_matmul.REL_TOL`` of the plain version's largest
@@ -30,6 +34,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      emptying splits, and the long case (4 slots x 4096 positions, timed
      in GB/s), one CUDA kernel a call, each slot alone and a 64-page
      null-padded table bit for bit equal to the batch of 4 over 36 pages;
+     then every attention case is called REPEAT_ROUNDS more times, the
+     cases interleaved, each call bit for bit equal to its first output;
      mamba_scan at falcon-mamba-7b's shapes
      under ``h100`` plans (prefill L = 512 and a ragged 300 from a zero
      state, decode B = 4 from a random state, the loss forward's L = 2048
@@ -39,18 +45,29 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      the state written over h0 and each batch row alone bit for bit equal
      to the functional batched scan;
   4. one-shot generate of qwen2.5-3b at full width (random weights);
-  5. the paged continuous-batching stream at full width, then the same
-     stream with layer 0 squeezed until it preempts, spills and restores;
-     kernel launch counts must match admissions x layers and decode steps
-     x layers, and every decode chunk runs with device->host syncs made
-     errors (the engine's guard);
-  6. falcon-mamba-7b at full width under ``--target h100``: one-shot
-     generate, the paged stream, the squeezed stream (so the recurrent
-     rows spill to their seats and come back, and every request emits the
-     roomy stream's tokens), the greedy tokens against teacher-forced
-     passes at the served batch, and ``Model.loss``'s forward on 1 x 2048
-     tokens. Every forward call launches mamba_scan once per layer (64)
-     and the plain scan never;
+  5. qwen2.5-3b's continuous-batching streams at full width, through the
+     launcher, which serves under the ``h100`` target on the card: the
+     paged stream; the same with layer 0 squeezed until it preempts,
+     spills and restores; the dense slot-slab stream; the prefix-shared
+     stream (a common 256-token system prompt: at least one prefix hit and
+     more mapped than physical pages); chunked prefill at 128 tokens a
+     boundary on both pools; and, through ``Engine.serve``, the same
+     page-aligned 512-token prompt twice with prefix sharing, whole and
+     chunked, so the second admission copies its frontier page on write
+     (the launcher's unique tails never do). Kernel launch counts must match (admissions +
+     prefill chunks) x layers for flash and decode steps x layers for
+     paged decode (0 on the dense slab, whose decode is the masked oracle
+     by the reference's dispatch); every decode chunk runs with
+     device->host syncs made errors (the engine's guard), and requests 0
+     and 1 of every stream, and every request of the prefix-shared and
+     copy-on-write streams, are held to the teacher-forced rule;
+  6. falcon-mamba-7b at full width: one-shot generate, the paged stream,
+     the dense slot-slab stream, the squeezed paged stream (so the
+     recurrent rows spill to their seats and come back, and every request
+     emits the roomy stream's tokens), the greedy tokens against
+     teacher-forced passes at the served batch, and ``Model.loss``'s
+     forward on 1 x 2048 tokens. Every forward call launches mamba_scan
+     once per layer (64) and the plain scan never;
   7. the paper path: ``repro_torch.launch.mempool_matmul`` (the
      scratchpad-fraction sweep at M = 8192, bf16 and f32, each plan held
      to the plain version) and ``repro_torch.benchmarks.kernel_bench
@@ -58,7 +75,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
   8. four chunks of the qwen2.5-3b stream and of the falcon-mamba-7b
      stream under ``torch.profiler`` (CUDA activity only): device time by
      kernel and the device's idle share;
-  9. the ``kernels`` summary line, the card line, and the result line.
+  9. the ``kernels`` summary line (launches on the main path, the paged
+     qwen stream, and by path for every stream), the card line, and the
+     result line.
 
 Greedy tokens are held within ``LOGIT_TOL`` of the best logit of a
 teacher-forced pass of the same model. For qwen2.5-3b that pass is one
@@ -73,7 +92,7 @@ bit: its recurrent rows only move between slots and f32 seats.
 
 from __future__ import annotations
 
-import contextlib
+import functools
 import gc
 import json
 import os
@@ -90,6 +109,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12          # H100 SXM f32 peak outside the tensor cores
 N_TIMED = 25
+REPEAT_ROUNDS = 500        # phase 3's attention cases, each called again
 MATMUL_M = 8192            # the paper sweep's size (see mempool_matmul)
 PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 7
 
@@ -98,11 +118,21 @@ SCAN_TOL = 2e-4            # f32 y and final state (test_mamba_scan_sweep)
 
 STREAM_ARGS = ["--stream", "8", "--paged", "--batch", "4", "--prompt-len",
                "512", "--gen-len", "64", "--sync-interval", "8"]
+#: the same stream over the dense slot slab
+DENSE_STREAM_ARGS = [a for a in STREAM_ARGS if a != "--paged"]
 ONE_SHOT_ARGS = ["--batch", "4", "--prompt-len", "256", "--gen-len", "32"]
+# no --target: on the card the launcher serves under h100
 QWEN = ["--arch", "qwen2.5-3b", "--full"]
-FALCON = ["--arch", "falcon-mamba-7b", "--full", "--target", "h100"]
+FALCON = ["--arch", "falcon-mamba-7b", "--full"]
 STREAM, ONE_SHOT = QWEN + STREAM_ARGS, QWEN + ONE_SHOT_ARGS
+SERVING_TARGET = "h100"    # the launcher's target on the card
 MAX_LEN = 512 + 64         # STREAM's prompt + generation depth
+SYSTEM_LEN = 256           # the prefix-shared stream's common prompt head
+CHUNK_TOKENS = 128         # the chunked streams' prefill budget a boundary
+#: (Sq, q_offset) of flash at the resumed prefill's serving shapes, over
+#: the slot's whole depth: a prefix-share suffix and a prefill chunk
+RESUMED_FLASH = {"suffix": (512 - SYSTEM_LEN, SYSTEM_LEN),
+                 "chunk": (CHUNK_TOKENS, 3 * CHUNK_TOKENS)}
 SQUEEZED_PAGES = 50        # layer-0 pages that make qwen's STREAM preempt
 # falcon-mamba-7b keeps no KV, so --layer0-bytes counts pages; its stream's
 # prompts (drawn over its vocab) preempt at 45
@@ -240,8 +270,9 @@ def phase_environment() -> str:
 
 def phase_build() -> dict:
     """Build every kernel, log registers and spills, and read each
-    library's SASS: the tensor-core kernels must hold HGMMA (wgmma) and
-    UTMALDG (TMA loads). Returns {library: on the tensor cores}."""
+    library's SASS: the wgmma kernels must hold HGMMA (wgmma) and UTMALDG
+    (TMA loads). Returns {library: its SASS counts of HGMMA, UTMALDG and
+    HMMA (``mma.sync``, the tensor cores without wgmma)}."""
     from repro_torch.kernels import build
     log("[2/9] build: nvcc " + " ".join(build.NVCC_FLAGS))
     t0 = time.perf_counter()
@@ -254,17 +285,17 @@ def phase_build() -> dict:
                 log(f"  {name}: {line.split(' for ')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 log(f"  {name}:   {line.strip()}")
-    tensor_cores = {}
+    sass_ops = {}
     for name in build.SOURCES:
         sass = build.sass(name)
-        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-        tensor_cores[name] = all(counts.values())
-        log(f"  {name} SASS (cuobjdump --dump-sass): {counts}")
+        sass_ops[name] = {op: sass.count(op)
+                          for op in ("HGMMA", "UTMALDG", "HMMA")}
+        log(f"  {name} SASS (cuobjdump --dump-sass): {sass_ops[name]}")
     for name in TENSOR_CORE_KERNELS:
-        if not tensor_cores[name]:
+        if not (sass_ops[name]["HGMMA"] and sass_ops[name]["UTMALDG"]):
             fail(f"{name}: no HGMMA or no UTMALDG in its SASS; its bf16 "
                  f"path must run wgmma fed by TMA")
-    return tensor_cores
+    return sass_ops
 
 
 def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
@@ -306,15 +337,22 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
               (4, hq, hkv, 256, 256, dict(), model_view),
               (2, hq, hkv, 300, 333, dict(window=100, q_offset=33),
                model_view)]
+    # the resumed prefill's serving shapes: a suffix and a chunk over the
+    # slot's whole depth, at their offsets
+    cases += [(1, hq, hkv, sq, depth, dict(q_offset=off), model_view)
+              for sq, off in RESUMED_FLASH.values()]
+    repeats = []        # (label, call, first output): see repeat_calls
     for b, h_q, h_kv, sq, skv, kw, make in cases:
         q, k, v = make(b, h_q, sq), make(b, h_kv, skv), make(b, h_kv, skv)
         got = flash_attention(q, k, v, causal=True, **kw)
         want = flash_attention_plain(q, k, v, causal=True, **kw)
         torch.cuda.synchronize()
         views = " (model views)" if make is model_view else ""
-        flash_err = max(flash_err, compare(
-            f"flash B={b} Hq={h_q} Hkv={h_kv} Sq={sq} Skv={skv} {kw}{views}",
-            got, want))
+        label = (f"flash B={b} Hq={h_q} Hkv={h_kv} Sq={sq} Skv={skv} "
+                 f"{kw}{views}")
+        flash_err = max(flash_err, compare(label, got, want))
+        repeats.append((label, functools.partial(
+            flash_attention, q, k, v, causal=True, **kw), got))
     # timing at the main path's longest admission: Sq = 512, causal
     sq = 512
     q, k, v = rnd(1, hq, sq, d), rnd(1, hkv, depth, d), rnd(1, hkv, depth, d)
@@ -335,6 +373,10 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
         f"{f_plain:.4f} ms, sdpa {f_lib:.4f} ms (device {f_lib_dev:.4f} "
         f"ms), bound {f_bound:.4f} ms "
         f"({f_by})")
+    resumed = {}
+    for label, (sq, off) in RESUMED_FLASH.items():
+        resumed[label] = time_resumed_flash(label, rnd, hq, hkv, d, sq,
+                                            depth, off)
 
     # ---- paged decode: B slots walking P pages of pt tokens
     def paged_case(b, p, lens, window=None, tag=""):
@@ -351,8 +393,10 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
         got = paged_flash_decode(q, kp, vp, bt, cl, window=window)
         want = paged_flash_decode_plain(q, kp, vp, bt, cl, window=window)
         torch.cuda.synchronize()
-        err = compare(f"paged B={b} P={p} pt={pt} window={window} {tag}",
-                      got, want)
+        label = f"paged B={b} P={p} pt={pt} window={window} {tag}"
+        err = compare(label, got, want)
+        repeats.append((label, functools.partial(
+            paged_flash_decode, q, kp, vp, bt, cl, window=window), got))
         return err, (q, kp, vp, bt, cl)
 
     def paged_work(lens, q, bt, cl):
@@ -424,11 +468,15 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
         f"{l_bytes / 1e6:.2f} MB at {l_gbps:.1f} GB/s "
         f"({l_gbps * 1e9 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s), bound "
         f"{l_bound:.4f} ms ({l_by})")
-    del q, kp, vp, bt, cl, batch
+    repeat_calls(repeats)
+    del q, kp, vp, bt, cl, batch, repeats
     return {
         "flash": dict(err=flash_err, ms=f_ms, device_ms=f_dev,
                       library_device_ms=f_lib_dev, plain_ms=f_plain,
-                      library_ms=f_lib, bound_ms=f_bound, bound_by=f_by),
+                      library_ms=f_lib, bound_ms=f_bound, bound_by=f_by,
+                      extra={f"{label}_{key}": row[key]
+                             for label, row in resumed.items()
+                             for key in row}),
         "paged": dict(err=paged_err, ms=p_ms, device_ms=p_dev,
                       plain_ms=p_plain,
                       library_ms=None, bound_ms=p_bound, bound_by=p_by,
@@ -438,6 +486,64 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
         "matmul3d": phase_matmul_kernel(),
         "mamba_scan": phase_scan_kernel(fcfg),
     }
+
+
+def repeat_calls(repeats) -> None:
+    """Call every attention case of phase 3 again, REPEAT_ROUNDS rounds
+    with the cases interleaved on one stream, and hold each call to the
+    case's first output bit for bit (both kernels are deterministic: no
+    atomics in any sum). The soak that narrows ROADMAP C1."""
+    import torch
+    t0 = time.perf_counter()
+    bad = {}
+    for _ in range(REPEAT_ROUNDS):
+        for label, call, first in repeats:
+            if not torch.equal(call(), first):
+                bad[label] = bad.get(label, 0) + 1
+    torch.cuda.synchronize()
+    if bad:
+        fail(f"repeated calls differ from the first: {bad}")
+    log(f"  repeated calls: {REPEAT_ROUNDS} rounds x {len(repeats)} cases = "
+        f"{REPEAT_ROUNDS * len(repeats)} calls, each equal to its case's "
+        f"first output bit for bit, in {time.perf_counter() - t0:.1f} s  ok")
+
+
+def time_resumed_flash(label, rnd, hq, hkv, d, sq, skv, q_offset) -> dict:
+    """Flash at a resumed prefill's shape (Sq rows at ``q_offset`` over
+    the whole Skv depth, causal) beside its plain version and SDPA with the
+    same causal mask given as a boolean ``attn_mask``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.common import median_ms
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = rnd(1, hq, sq, d), rnd(1, hkv, skv, d), rnd(1, hkv, skv, d)
+    rows = q_offset + torch.arange(sq, device=q.device)
+    mask = torch.arange(skv, device=q.device)[None, :] <= rows[:, None]
+
+    def kernel():
+        return flash_attention(q, k, v, causal=True, q_offset=q_offset)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
+    compare(f"flash {label}: SDPA with the mask vs the plain version",
+            sdpa(), flash_attention_plain(q, k, v, causal=True,
+                                          q_offset=q_offset))
+    ms = median_ms(kernel, N_TIMED)
+    dev_ms = device_ms(kernel, "flash_fwd_kernel")
+    plain = median_ms(lambda: flash_attention_plain(
+        q, k, v, causal=True, q_offset=q_offset), N_TIMED)
+    lib = median_ms(sdpa, N_TIMED)
+    pairs = sum(min(q_offset + i + 1, skv) for i in range(sq))
+    bound, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                         4.0 * d * hq * pairs)
+    log(f"  flash {label} Sq={sq} Skv={skv} q_offset={q_offset}: kernel "
+        f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain:.4f} ms, sdpa "
+        f"(mask) {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bound, bound_by=by)
 
 
 def phase_matmul_kernel() -> dict:
@@ -804,27 +910,41 @@ def phase_one_shot(cfg) -> None:
 
 
 def run_stream(cfg, argv, label) -> dict:
-    """The paged stream through the CLI; each admission launches flash per
-    attention layer, each decode step the paged kernel per attention
-    layer, and both launch mamba_scan per mamba layer."""
+    """A stream through the CLI, its launches counted around it: each
+    whole-prompt or suffix admission and each prefill chunk launches flash
+    once per attention layer; each decode step launches the paged kernel
+    once per attention layer on the paged pool and no kernel on the dense
+    slot slab (the reference's dispatch: slab decode is the masked
+    oracle); admissions and decode steps launch mamba_scan once per mamba
+    layer."""
     from repro_torch.launch import serve as cli
     log(f"  {label}: " + " ".join(argv))
-    n_attn, n_ssm = layer_counts(cfg)
     reset_counts()
     rec = cli.run(argv)
-    rec["launches"] = counts = read_counts()
+    return check_stream(cfg, rec, read_counts(), label)
+
+
+def check_stream(cfg, rec, counts, label) -> dict:
+    """A stream's completions, host syncs and launches (see run_stream)."""
+    n_attn, n_ssm = layer_counts(cfg)
+    rec["launches"] = counts
     if rec["completed"] != rec["n_requests"]:
         fail(f"{label}: {rec['completed']}/{rec['n_requests']} completed")
     if rec["host_syncs"] != rec["chunks"]:
         fail(f"{label}: host_syncs {rec['host_syncs']} != chunks "
              f"{rec['chunks']}")
     adm, steps = rec["admissions"], rec["decode_steps_total"]
+    chunks = rec["prefill_chunks"]
     check_counts(label, counts, {
-        "flash": adm * n_attn, "paged": steps * n_attn,
+        "flash": (adm + chunks) * n_attn,
+        "paged": steps * n_attn if rec["paged"] else 0,
         "scan": (adm + steps) * n_ssm, "plain_scan": 0})
-    log(f"  {label}: ok — {adm} admissions, {steps} decode steps, "
-        f"{rec['chunks']} chunks = {rec['host_syncs']} host syncs; launches "
-        f"{counts}; {rec['tok_per_s']:.1f} tok/s")
+    log(f"  {label}: ok — {adm} admissions, {chunks} prefill chunks, "
+        f"{steps} decode steps, {rec['chunks']} chunks = "
+        f"{rec['host_syncs']} host syncs; launches {counts}; "
+        f"{rec['tok_per_s']:.1f} tok/s; ttft to the first token p50/p95 "
+        f"{rec['ttft_emit_steps_p50']:.0f}/{rec['ttft_emit_steps_p95']:.0f} "
+        f"steps")
     return rec
 
 
@@ -839,21 +959,113 @@ def check_squeezed(label, rec) -> None:
 
 
 def phase_stream(cfg) -> dict:
-    from repro_torch.serve.scheduler import kv_bytes_per_token, synthetic_stream
-    log("[5/9] paged stream (every decode chunk under "
-        "set_sync_debug_mode('error'))")
-    rec = run_stream(cfg, STREAM, "stream")
+    """qwen2.5-3b's streams: paged, squeezed, dense slot slab, prefix
+    shared and chunked (paged and dense). Every stream's requests 0 and 1
+    are held to the teacher-forced rule."""
+    from repro_torch.serve.scheduler import (kv_bytes_per_token,
+                                             shared_prefix_stream,
+                                             synthetic_stream)
+    log("[5/9] qwen2.5-3b streams (every decode chunk under "
+        "set_sync_debug_mode('error')); the prefix-shared stream's requests "
+        "are all held to the teacher-forced rule")
+    recs = {"stream": run_stream(cfg, STREAM, "stream")}
     layer0 = kv_bytes_per_token(cfg) * 16 * SQUEEZED_PAGES
-    squeezed = run_stream(cfg, STREAM + ["--layer0-bytes", str(layer0)],
-                          "squeezed")
-    check_squeezed("squeezed stream", squeezed)
+    recs["squeezed"] = run_stream(
+        cfg, STREAM + ["--layer0-bytes", str(layer0)], "squeezed")
+    check_squeezed("squeezed stream", recs["squeezed"])
+    free_memory()
+    recs["dense"] = run_stream(cfg, QWEN + DENSE_STREAM_ARGS, "dense stream")
+    log("  dense stream: decode over the slot slab is the masked oracle, as "
+        "the reference dispatches it (no kernel walks a slab): 0 paged "
+        "launches")
+    free_memory()
+    share = run_stream(cfg, STREAM + ["--prefix-share", "--system-len",
+                                      str(SYSTEM_LEN)], "prefix-shared")
+    if not (share["prefix_hits"] >= 1 and share["shared_prefix_tokens"] >= 1
+            and share["mapped_high_water"] > share["pages_high_water"]):
+        fail(f"prefix-shared stream: {share['prefix_hits']} hits, "
+             f"{share['shared_prefix_tokens']} shared tokens, "
+             f"{share['mapped_high_water']} mapped vs "
+             f"{share['pages_high_water']} physical pages")
+    log(f"  prefix-shared: {share['prefix_hits']} hits / "
+        f"{share['prefix_misses']} misses, {share['shared_prefix_tokens']} "
+        f"prompt tokens from shared pages, {share['cow_copies']} COW "
+        f"copies, {share['mapped_high_water']} mapped vs "
+        f"{share['pages_high_water']} physical pages")
+    recs["prefix_share"] = share
+    free_memory()
+    chunk_args = ["--chunk-prefill-tokens", str(CHUNK_TOKENS)]
+    for name, argv in (("chunked_paged", STREAM + chunk_args),
+                       ("chunked_dense", QWEN + DENSE_STREAM_ARGS
+                        + chunk_args)):
+        rec = run_stream(cfg, argv, name.replace("_", " "))
+        if not (rec["admissions"] == 0 and rec["prefill_chunks"] > 8
+                and rec["max_boundary_prefill_tokens"] <= CHUNK_TOKENS):
+            fail(f"{name}: {rec['admissions']} whole admissions, "
+                 f"{rec['prefill_chunks']} chunks, max boundary prefill "
+                 f"{rec['max_boundary_prefill_tokens']} tokens (budget "
+                 f"{CHUNK_TOKENS})")
+        recs[name] = rec
+        free_memory()
     params = reference_params(cfg)
-    stream = synthetic_stream(8, 512, 64, cfg.vocab_size)
-    for rid in (0, 1):
-        for name, r in (("stream", rec), ("squeezed", squeezed)):
+    plain = synthetic_stream(8, 512, 64, cfg.vocab_size)
+    shared = shared_prefix_stream(8, SYSTEM_LEN, 512 - SYSTEM_LEN, 64,
+                                  cfg.vocab_size)
+    for name, r in recs.items():
+        stream = shared if name == "prefix_share" else plain
+        # every prefix-shared request: all but the first are suffix
+        # admissions over shared pages
+        for rid in range(len(stream) if name == "prefix_share" else 2):
             teacher_forced_check(cfg, params, stream[rid]["prompt"],
                                  r["outputs"][rid], f"{name} request {rid}")
-    return rec
+    recs.update(cow_streams(cfg, params))
+    del params
+    free_memory()
+    return recs
+
+
+def cow_streams(cfg, params) -> dict:
+    """The same page-aligned 512-token prompt twice over two paged slots,
+    served whole and by CHUNK_TOKENS chunks: the second request shares all
+    but the prompt's last page and prefills only its last token over a
+    private copy of that page (the copy-on-write admission, which the
+    launcher's streams never make: their tails are unique). Both requests
+    are held to the teacher-forced rule."""
+    import numpy as np
+    from repro_torch.core.target import use_target
+    from repro_torch.launch import serve as cli
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.scheduler import Scheduler, derive_page_geometry
+    prompt = np.random.RandomState(3).randint(2, cfg.vocab_size, size=512)
+    stream = [{"prompt": prompt.astype(np.int32), "max_new_tokens": 32}] * 2
+    recs = {}
+    with use_target(SERVING_TARGET):
+        engine = Engine(build_model(cfg), params,
+                        EngineConfig(max_len=MAX_LEN, sync_interval=8))
+        pages = derive_page_geometry(cfg, MAX_LEN, page_tokens=16,
+                                     max_slots=2)
+        for name, chunk in (("cow", None), ("cow_chunked", CHUNK_TOKENS)):
+            label = f"copy-on-write ({'whole' if chunk is None else chunk})"
+            log(f"  {label}: Engine.serve, 2 slots, prefix sharing, the same "
+                f"512-token prompt twice")
+            sch = Scheduler(n_slots=2, pages=pages, prefix_share=True,
+                            chunk_prefill_tokens=chunk)
+            reset_counts()
+            rec = cli.run_stream(engine, sch, stream)
+            rec = check_stream(cfg, rec, read_counts(), label)
+            if not (rec["cow_copies"] == 1 and rec["prefix_hits"] == 1
+                    and rec["shared_prefix_tokens"] == 511):
+                fail(f"{label}: {rec['cow_copies']} COW copies, "
+                     f"{rec['prefix_hits']} hits, "
+                     f"{rec['shared_prefix_tokens']} shared tokens (want 1, "
+                     f"1, 511)")
+            for rid in (0, 1):
+                teacher_forced_check(cfg, params, prompt, rec["outputs"][rid],
+                                     f"{label} request {rid}")
+            recs[name] = rec
+    del engine
+    return recs
 
 
 def phase_falcon(fcfg) -> dict:
@@ -866,11 +1078,14 @@ def phase_falcon(fcfg) -> dict:
     from repro_torch.models.api import build_model
     from repro_torch.serve.scheduler import synthetic_stream
     log("[6/9] falcon-mamba-7b at full width: " + " ".join(FALCON)
-        + " (every decode chunk under set_sync_debug_mode('error'))")
+        + f" (the launcher's target on the card, {SERVING_TARGET}; every "
+        "decode chunk under set_sync_debug_mode('error'))")
     n_ssm = layer_counts(fcfg)[1]
     first = one_shot(fcfg, FALCON + ONE_SHOT_ARGS, "one-shot")
     free_memory()
     rec = run_stream(fcfg, FALCON + STREAM_ARGS, "stream")
+    free_memory()
+    dense = run_stream(fcfg, FALCON + DENSE_STREAM_ARGS, "dense stream")
     free_memory()
     squeezed = run_stream(fcfg, FALCON + STREAM_ARGS + [
         "--layer0-bytes", str(FALCON_SQUEEZED_PAGES)], "squeezed")
@@ -891,8 +1106,9 @@ def phase_falcon(fcfg) -> dict:
         rows = 4                                    # STREAM_ARGS' --batch
         checks = [(one_shot_prompts(fcfg), first["tokens"].numpy(),
                    "one-shot")]
-        checks += [([stream[rid]["prompt"]], [rec["outputs"][rid]],
-                    f"stream request {rid}") for rid in (0, 1)]
+        checks += [([stream[rid]["prompt"]], [r["outputs"][rid]],
+                    f"{name} request {rid}") for rid in (0, 1)
+                   for name, r in (("stream", rec), ("dense stream", dense))]
         reset_counts()
         gap = max(served_batch_check(model, params, p, t, rows, label)
                   for p, t, label in checks)
@@ -922,7 +1138,7 @@ def phase_falcon(fcfg) -> dict:
     del model, params
     free_memory()
     return {"launches": rec["launches"]["scan"], "gap": gap,
-            "loss": loss, "loss_ms": loss_ms}
+            "loss": loss, "loss_ms": loss_ms, "stream": rec, "dense": dense}
 
 
 def phase_paper() -> dict:
@@ -955,12 +1171,12 @@ def phase_paper() -> dict:
     return {"launches": launches, "sweep": sweep}
 
 
-def phase_profile(cfg, target=None) -> None:
+def phase_profile(cfg) -> None:
     """Device time by kernel, and the device's idle share, over the first
-    PROFILE_STEPS decode steps of one more run of ``cfg``'s stream under
-    ``torch.profiler`` with CUDA activity only (kernel launches made here
-    are outside the counted main-path runs). ``target`` is the launcher's
-    ``--target`` (None: the default)."""
+    PROFILE_STEPS decode steps of one more run of ``cfg``'s paged stream
+    under ``torch.profiler`` with CUDA activity only (kernel launches made
+    here are outside the counted main-path runs), under the launcher's
+    target on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -971,8 +1187,7 @@ def phase_profile(cfg, target=None) -> None:
                                              derive_page_geometry,
                                              synthetic_stream)
     log(f"  {cfg.name}: the first {PROFILE_STEPS} decode steps of its stream")
-    scope = use_target(target) if target else contextlib.nullcontext()
-    with scope:
+    with use_target(SERVING_TARGET):
         geom = derive_page_geometry(cfg, MAX_LEN, page_tokens=16,
                                     max_slots=4)
         n_slots = derive_n_slots(cfg, MAX_LEN, max_slots=4, pages=geom)
@@ -1026,24 +1241,27 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
+    from repro_torch.core.target import use_target
     from repro_torch.serve.scheduler import derive_n_slots, derive_page_geometry
 
     t_start = time.perf_counter()
     smi = phase_environment()
-    tensor_cores = phase_build()
+    sass_ops = phase_build()
     cfg, fcfg = get_config("qwen2.5-3b"), get_config("falcon-mamba-7b")
-    geom = derive_page_geometry(cfg, MAX_LEN, page_tokens=16, max_slots=4)
-    n_slots = derive_n_slots(cfg, MAX_LEN, max_slots=4, pages=geom)
+    with use_target(SERVING_TARGET):       # the streams' geometry
+        geom = derive_page_geometry(cfg, MAX_LEN, page_tokens=16, max_slots=4)
+        n_slots = derive_n_slots(cfg, MAX_LEN, max_slots=4, pages=geom)
     timing = phase_kernels(cfg, geom, n_slots, fcfg)
     free_memory()
     phase_one_shot(cfg)
-    rec = phase_stream(cfg)
+    streams = phase_stream(cfg)
+    rec = streams["stream"]
     free_memory()
     falcon = phase_falcon(fcfg)
     paper = phase_paper()
     log("[8/9] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
-    phase_profile(fcfg, target="h100")
+    phase_profile(fcfg)
 
     log(f"[9/9] summary ({time.perf_counter() - t_start:.0f} s)")
     rows = [("flash_attention", "flash_attention",
@@ -1066,13 +1284,23 @@ def main() -> int:
                "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                "library_device_ms": t.get("library_device_ms"),
-               "tensor_cores": tensor_cores[lib]}
+               "tensor_cores": bool(sass_ops[lib]["HGMMA"]
+                                    or sass_ops[lib]["HMMA"]),
+               "sass_ops": sass_ops[lib]}
         if name == "matmul3d":   # the f32 path (CUDA cores) beside torch.mm
             row.update(f32_ms=t["f32_ms"],
                        f32_library_ms=t["f32_library_ms"],
                        f32_bound_ms=t["f32_bound_ms"])
         row.update(t.get("extra", {}))
         kernels.append(row)
+    # every stream's own counts, each read around that stream alone
+    by_path = {f"qwen {name}": r["launches"] for name, r in streams.items()}
+    by_path.update({f"falcon {name}": falcon[name]["launches"]
+                    for name in ("stream", "dense")})
+    for row, key in zip(kernels, ("flash", "paged", None, "scan")):
+        if key:
+            row["launches_by_path"] = {path: c[key]
+                                       for path, c in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

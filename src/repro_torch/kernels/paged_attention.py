@@ -260,7 +260,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if quantized:
         raise NotImplementedError(
             "quantized KV pools (int8/fp8 tier codecs) are not ported yet "
-            "(ROADMAP A6)")
+            "(ROADMAP A6.5)")
     single = q.shape[2] == 1
     use_kernel = impl == "kernel" or (impl == "auto" and q.is_cuda and single)
     if use_kernel and causal:

@@ -1,22 +1,32 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
 The counterpart of ``src/repro/launch/serve.py``, on the card by default
-(``--device cpu`` runs on the CPU). Two modes through the same Engine:
+(``--device cpu`` runs on the CPU). Modes through the same Engine:
 
   * default — one-shot batched greedy decode (prefill + fixed batch),
     reporting total latency and throughput.
-  * ``--stream N --paged`` — continuous batching of N synthetic requests
-    with mixed prompt/output lengths over the paged two-tier pool:
+  * ``--stream N`` — continuous batching of N synthetic requests with mixed
+    prompt/output lengths over the dense slot slab: per-request latency
+    percentiles (the scheduler's clocks) and tokens/s.
+  * ``--stream N --paged`` — the same stream over the paged two-tier pool:
     admission by pages, preempt-and-spill to the layer-1 tier when layer 0
     runs out. ``--page-tokens`` / ``--layer0-bytes`` / ``--layer1-bytes``
-    shape the pool; per-request latency percentiles and the
-    preemption/spill counters are reported.
+    shape the pool; the preemption/spill counters join the report.
+  * ``--stream N --paged --prefix-share`` — every prompt is one common
+    ``--system-len`` prefix plus a unique tail; admissions serve the shared
+    prefix from ref-counted resident pages and prefill only the tail
+    (copy-on-write at the frontier page). Prefix hit, shared-token, COW and
+    mapped-vs-physical page counters join the report.
+  * ``--chunk-prefill-tokens N`` (either pool) — chunked prefill: at most
+    N prompt tokens per drain boundary, interleaved with decode; ``0``
+    derives N from the target (``derive_prefill_chunk``) and prints it.
 
-Weights are random, made on the device from a fixed seed. Hardware target
-selection (``--target`` or ``REPRO_TARGET``) sizes the slot and page
-budgets from that target's CapacityPartition, as in the reference, and the
-kernels' plans: ``--arch falcon-mamba-7b`` on the card takes
-``--target h100``, whose scan chunks fit the kernel's shared memory. An
+Weights are random, made on the device from a fixed seed. The hardware
+target (``--target``, else ``REPRO_TARGET`` or the registry default) sizes
+the slot and page budgets from its CapacityPartition, as in the reference,
+and the kernels' plans. On the card with no ``--target`` it serves
+under ``h100`` (:func:`serving_target`), whose plans fit the kernels'
+shared memory; ``--device cpu`` keeps the registry default. An
 attention-free model keeps no KV bytes, so its ``--layer0-bytes`` /
 ``--layer1-bytes`` count pages.
 """
@@ -27,23 +37,34 @@ import argparse
 import contextlib
 import sys
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
-from repro_torch.core.target import available_targets, use_target
-from repro_torch.models.api import build_model
+from repro_torch.core.target import (available_targets, get_target,
+                                     use_target)
+from repro_torch.models.api import build_model, resolve_device
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.serve.scheduler import (DRAINED, Scheduler, derive_n_slots,
-                                         derive_page_geometry, percentile,
+                                         derive_page_geometry,
+                                         derive_prefill_chunk, percentile,
+                                         shared_prefix_stream,
                                          synthetic_stream)
 
 
 def _wait(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def serving_target(device: torch.device) -> Optional[str]:
+    """The target the launcher serves under when ``--target`` is not given:
+    ``h100`` on the card, so slot and page budgets and the kernels' plans
+    come from the card's own memory hierarchy; None (the registry default,
+    or ``REPRO_TARGET``) on the CPU."""
+    return "h100" if device.type == "cuda" else None
 
 
 def run_stream(engine: Engine, scheduler: Scheduler, stream: list) -> dict:
@@ -59,7 +80,7 @@ def run_stream(engine: Engine, scheduler: Scheduler, stream: list) -> dict:
     served = [r for r in report.requests if r.status == DRAINED]
     decode_steps = [r.finish_step - r.admit_step for r in served
                     if r.finish_step >= 0]
-    return {
+    rec = {
         "n_requests": len(stream),
         "completed": stats["drained"],
         "n_tokens": n_tokens,
@@ -80,11 +101,71 @@ def run_stream(engine: Engine, scheduler: Scheduler, stream: list) -> dict:
         "preemptions": stats["preemptions"],
         "spilled_pages": stats["spilled_pages"],
         "restores": stats["restores"],
-        **{k: stats[k] for k in ("page_tokens", "n_pages", "n_spill_pages",
-                                 "pages_high_water", "spill_high_water",
-                                 "pool_bytes", "spill_bytes")},
+        # chunked prefill: TTFT to the first OUTPUT token (under chunking
+        # the final chunk's boundary, later than slot admission) and how
+        # much prompt work any single boundary booked
+        "ttft_emit_steps_p50": percentile(stats["ttft_emit_steps"], 50),
+        "ttft_emit_steps_p95": percentile(stats["ttft_emit_steps"], 95),
+        "chunk_prefill_tokens": stats["chunk_prefill_tokens"],
+        "prefill_chunks": stats["prefill_chunks"],
+        "max_boundary_prefill_tokens": stats["max_boundary_prefill_tokens"],
+        "paged": stats["paged"],
         "outputs": report.outputs,
     }
+    if stats["paged"]:
+        rec.update({k: stats[k] for k in (
+            "page_tokens", "n_pages", "n_spill_pages", "pages_high_water",
+            "spill_high_water", "pool_bytes", "spill_bytes")})
+        if stats["prefix_sharing"]:
+            rec.update({k: stats[k] for k in (
+                "prefix_hits", "prefix_misses", "shared_prefix_tokens",
+                "cow_copies", "mapped_high_water")})
+    return rec
+
+
+def _print_stream(cfg, args, rec: dict, dev: torch.device) -> None:
+    mode = ("paged+share" if args.prefix_share
+            else "paged" if args.paged else "dense")
+    print(f"arch={cfg.name} stream={args.stream} mode={mode} "
+          f"slots={rec['n_slots']} (max reuse {rec['max_slot_reuse']})"
+          f" device={dev}")
+    print(f"completed {rec['completed']}/{rec['n_requests']} "
+          f"({rec['n_tokens']} tokens) in {rec['wall_s']*1e3:.0f} ms "
+          f"-> {rec['tok_per_s']:.1f} tok/s")
+    print(f"host syncs {rec['host_syncs']} over "
+          f"{rec['decode_steps_total']} decode steps")
+    print(f"latency (decode steps): ttft p50/p95 "
+          f"{rec['ttft_steps_p50']:.0f}/{rec['ttft_steps_p95']:.0f}, "
+          f"e2e p50/p95 {rec['e2e_steps_p50']:.0f}/"
+          f"{rec['e2e_steps_p95']:.0f}, decode p50/p95 "
+          f"{rec['decode_steps_p50']:.0f}/"
+          f"{rec['decode_steps_p95']:.0f}")
+    if rec["chunk_prefill_tokens"]:
+        print(f"chunked prefill: {rec['chunk_prefill_tokens']} "
+              f"tokens/boundary budget, {rec['prefill_chunks']} chunks, max "
+              f"boundary prefill {rec['max_boundary_prefill_tokens']} "
+              f"tokens, ttft-to-first-token p50/p95 "
+              f"{rec['ttft_emit_steps_p50']:.0f}/"
+              f"{rec['ttft_emit_steps_p95']:.0f}")
+    if not rec["paged"]:
+        print(f"preemptions {rec['preemptions']} (dense pool)", flush=True)
+        return
+    print(f"pages: {rec['pages_high_water']}/{rec['n_pages']} "
+          f"layer-0 high water ({rec['pool_bytes']} B), "
+          f"{rec['preemptions']} preemptions -> "
+          f"{rec['spilled_pages']} pages spilled, "
+          f"{rec['restores']} restores "
+          f"(layer-1 high water {rec['spill_high_water']}/"
+          f"{rec['n_spill_pages']})", flush=True)
+    if args.prefix_share:
+        hw = max(rec["pages_high_water"], 1)
+        print(f"prefix sharing: {rec['prefix_hits']} hits / "
+              f"{rec['prefix_misses']} misses, "
+              f"{rec['shared_prefix_tokens']} prompt tokens served from "
+              f"cache, {rec['cow_copies']} COW copies; residency "
+              f"{rec['mapped_high_water']} mapped vs "
+              f"{rec['pages_high_water']} physical pages "
+              f"({rec['mapped_high_water'] / hw:.2f}x)", flush=True)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -99,8 +180,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--target", default=None, metavar="NAME",
                     help=f"hardware target ({', '.join(available_targets())})")
     ap.add_argument("--stream", type=int, default=0, metavar="N",
-                    help="continuous batching over N synthetic requests "
-                         "(requires --paged)")
+                    help="continuous batching over N synthetic requests")
     ap.add_argument("--slots", type=int, default=None,
                     help="override the CapacityPartition-derived slot count")
     ap.add_argument("--sync-interval", type=int, default=8)
@@ -112,6 +192,18 @@ def parser() -> argparse.ArgumentParser:
                     help="override the layer-0 (hot tier) page-pool budget")
     ap.add_argument("--layer1-bytes", type=int, default=None,
                     help="override the layer-1 (spill tier) budget")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="share cached prompt prefixes across requests "
+                         "(paged mode; drives a shared-system-prompt stream)")
+    ap.add_argument("--system-len", type=int, default=None,
+                    help="shared system-prompt length for --prefix-share "
+                         "(default: half of --prompt-len)")
+    ap.add_argument("--chunk-prefill-tokens", type=int, default=None,
+                    metavar="N",
+                    help="chunked prefill: cap prompt prefill at N tokens "
+                         "per drain boundary, interleaved with decode "
+                         "(0: derive N from the target's CapacityPartition; "
+                         "default: whole-prompt admission)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "on the CPU)")
@@ -124,14 +216,19 @@ def run(argv=None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
     if args.paged and not args.stream:
         ap.error("--paged applies to --stream serving")
-    if args.stream and not args.paged:
-        ap.error("--stream needs --paged: the dense slot-slab stream is not "
-                 "ported yet")
+    if args.prefix_share and not args.paged:
+        ap.error("--prefix-share requires --paged (shared pages live in "
+                 "the paged pool)")
+    system_len = args.system_len or max(1, args.prompt_len // 2)
+    if args.prefix_share and system_len >= args.prompt_len:
+        ap.error("--system-len must leave room for a unique tail "
+                 "(< --prompt-len)")
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
-    tgt_ctx = use_target(args.target) if args.target else contextlib.nullcontext()
+    dev = resolve_device(args.device)
+    target = args.target or serving_target(dev)
+    tgt_ctx = use_target(target) if target else contextlib.nullcontext()
     with tgt_ctx:
-        model = build_model(cfg, device=args.device)
-        dev = model.device
+        model = build_model(cfg, device=dev)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         max_len = args.prompt_len + args.gen_len
         engine = Engine(model, params,
@@ -139,38 +236,32 @@ def run(argv=None) -> Dict[str, Any]:
                                      sync_interval=args.sync_interval))
         del params
         if args.stream:
-            pages = derive_page_geometry(
-                cfg, max_len, page_tokens=args.page_tokens,
-                max_slots=max(2, args.batch),
-                layer0_bytes=args.layer0_bytes,
-                layer1_bytes=args.layer1_bytes)
+            pages = None
+            if args.paged:
+                pages = derive_page_geometry(
+                    cfg, max_len, page_tokens=args.page_tokens,
+                    max_slots=max(2, args.batch),
+                    layer0_bytes=args.layer0_bytes,
+                    layer1_bytes=args.layer1_bytes)
             n_slots = args.slots or derive_n_slots(
                 cfg, max_len, max_slots=max(2, args.batch), pages=pages)
-            sched = Scheduler(n_slots=n_slots, pages=pages)
-            stream = synthetic_stream(args.stream, args.prompt_len,
-                                      args.gen_len, cfg.vocab_size)
+            chunk = args.chunk_prefill_tokens
+            if chunk == 0:
+                chunk = derive_prefill_chunk(cfg)
+                print(f"derived --chunk-prefill-tokens {chunk} "
+                      f"(target {get_target().name})")
+            sched = Scheduler(n_slots=n_slots, pages=pages,
+                              prefix_share=args.prefix_share,
+                              chunk_prefill_tokens=chunk)
+            if args.prefix_share:
+                stream = shared_prefix_stream(
+                    args.stream, system_len, args.prompt_len - system_len,
+                    args.gen_len, cfg.vocab_size)
+            else:
+                stream = synthetic_stream(args.stream, args.prompt_len,
+                                          args.gen_len, cfg.vocab_size)
             rec = run_stream(engine, sched, stream)
-            print(f"arch={cfg.name} stream={args.stream} mode=paged "
-                  f"slots={rec['n_slots']} (max reuse {rec['max_slot_reuse']})"
-                  f" device={dev}")
-            print(f"completed {rec['completed']}/{rec['n_requests']} "
-                  f"({rec['n_tokens']} tokens) in {rec['wall_s']*1e3:.0f} ms "
-                  f"-> {rec['tok_per_s']:.1f} tok/s")
-            print(f"host syncs {rec['host_syncs']} over "
-                  f"{rec['decode_steps_total']} decode steps")
-            print(f"latency (decode steps): ttft p50/p95 "
-                  f"{rec['ttft_steps_p50']:.0f}/{rec['ttft_steps_p95']:.0f}, "
-                  f"e2e p50/p95 {rec['e2e_steps_p50']:.0f}/"
-                  f"{rec['e2e_steps_p95']:.0f}, decode p50/p95 "
-                  f"{rec['decode_steps_p50']:.0f}/"
-                  f"{rec['decode_steps_p95']:.0f}")
-            print(f"pages: {rec['pages_high_water']}/{rec['n_pages']} "
-                  f"layer-0 high water ({rec['pool_bytes']} B), "
-                  f"{rec['preemptions']} preemptions -> "
-                  f"{rec['spilled_pages']} pages spilled, "
-                  f"{rec['restores']} restores "
-                  f"(layer-1 high water {rec['spill_high_water']}/"
-                  f"{rec['n_spill_pages']})", flush=True)
+            _print_stream(cfg, args, rec, dev)
             return rec
 
         rng = np.random.RandomState(1)

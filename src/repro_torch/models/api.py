@@ -1,4 +1,4 @@
-"""Model facade: init / loss / prefill / decode_step / slot_update_paged.
+"""Model facade: init / loss / prefill / decode_step / the row moves.
 
 The counterpart of ``src/repro/models/api.py`` for ``family="dense"`` and
 ``family="ssm"``.
@@ -109,16 +109,33 @@ class Model:
     # ---------------------------------------------------------- serving
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_len: int,
                 *, plans: Optional[KernelPlans] = None,
-                last_pos: Optional[torch.Tensor] = None):
+                last_pos: Optional[torch.Tensor] = None,
+                prefix_len: int = 0,
+                prefix_state: Optional[Dict[str, Any]] = None):
         """Run the prompt, building ``max_len``-deep KV caches.
 
         Returns ``(logits f32 (B, 1, padded_vocab), state)``. Logits come
         from the final position, or per row from ``last_pos`` ``(B,)``.
+
+        ``prefix_len``/``prefix_state`` run a *resumed* prefill (the
+        prefix-share suffix and the chunked-prefill chunk): the state
+        already caches the first ``prefix_len`` positions, ``tokens`` is the
+        tail only, and RoPE positions start at ``prefix_len``. The tail's
+        K/V are written into ``prefix_state``'s caches in place.
+        ``prefix_len`` is a host int. Attention-only decoder models with
+        token prompts only: recurrent SSM state has no resumable KV prefix.
         """
+        cfg = self.cfg
+        if (prefix_len or prefix_state is not None) and (
+                cfg.frontend_len or has_recurrent_state(cfg)):
+            raise NotImplementedError(
+                "resumed prefill requires attention-only token-prompt "
+                "models: recurrent SSM state has no resumable KV prefix")
         tokens = batch["tokens"]
         plans = plans or self.kernel_plans(tokens.shape[1], max_len)
-        x, caches = transformer.prefill(self.cfg, params, tokens, max_len,
-                                        plans=plans)
+        x, caches = transformer.prefill(
+            cfg, params, tokens, max_len, plans=plans,
+            caches=(prefix_state or {}).get("caches"), prefix_len=prefix_len)
         if last_pos is None:
             x = x[:, -1:]
         else:
@@ -138,6 +155,69 @@ class Model:
             self.cfg, params, tokens, state["caches"], cache_len,
             plans=plans, block_tables=block_tables)
         return logits, {**state, "caches": caches}
+
+    def slot_update(self, pool_state: Dict[str, Any],
+                    row_state: Dict[str, Any], slot: int) -> Dict[str, Any]:
+        """Write a prefilled row state (batch 1, or a run of rows) into the
+        slot-major pool at ``slot``, in place — the dense slot slab's
+        admission scatter. Every cache leaf is stacked ``(n_repeat, B,
+        ...)``, so recurrent SSM rows (conv tail, state) move exactly like
+        K/V rows."""
+        def walk(pool, row):
+            if torch.is_tensor(pool):
+                pool[:, slot:slot + row.shape[1]] = row.to(pool.dtype)
+                return
+            for name, leaf in pool.items():
+                walk(leaf, row[name])
+
+        walk(pool_state["caches"], row_state["caches"])
+        return pool_state
+
+    def gather_row(self, pool_state: Dict[str, Any], slot: int
+                   ) -> Dict[str, Any]:
+        """A copy of one slot's dense (batch-1) cache view from the
+        slot-major pool — the read half of dense chunked prefill and the
+        inverse of :meth:`slot_update`. Unwritten positions hold whatever
+        the slab holds there, which the resumed prefill's causal mask
+        hides. Attention-only models."""
+        if has_recurrent_state(self.cfg):
+            raise NotImplementedError(
+                "chunked prefill requires attention-only models: recurrent "
+                "SSM state has no resumable KV prefix")
+
+        def take(tree):
+            if torch.is_tensor(tree):
+                return tree[:, slot:slot + 1].clone()
+            return {k: take(v) for k, v in tree.items()}
+
+        return {"caches": take(pool_state["caches"])}
+
+    def gather_row_paged(self, pool_state: Dict[str, Any],
+                         block_row: torch.Tensor, page_tokens: int
+                         ) -> Dict[str, Any]:
+        """A copy of one slot's dense (batch-1) cache view read from the
+        paged pool through ``block_row`` — the inverse of
+        :meth:`slot_update_paged`'s page cut. Null entries read page 0,
+        whose content the resumed prefill's causal mask hides. This is the
+        read half of suffix prefill and of paged chunked prefill: shared
+        prefix pages (and the copy-on-write source) are gathered into the
+        contiguous view the tail attends over. Attention-only models."""
+        if has_recurrent_state(self.cfg):
+            raise NotImplementedError(
+                "prefix sharing requires attention-only models: recurrent "
+                "SSM state is per-sequence, not per-page")
+        rows = block_row.long()
+        caches: Dict[str, Any] = {}
+        for gname, key, _ in transformer.paged_cache_kinds(self.cfg):
+            leaf = pool_state["caches"][gname][key]
+            out = {}
+            for name, pages in leaf.items():
+                sel = pages[:, rows]                  # (r, P, hkv, pt, hd)
+                r, p_max, hkv, _, hd = sel.shape
+                out[name] = torch.movedim(sel, 1, 2).reshape(
+                    r, hkv, p_max * page_tokens, hd)[:, None]
+            caches.setdefault(gname, {})[key] = out
+        return {"caches": caches}
 
     def slot_update_paged(self, pool_state: Dict[str, Any],
                           row_state: Dict[str, Any], slot: int,
@@ -165,6 +245,12 @@ class Model:
                 cut = row[:, 0].reshape(r, hkv, p_max, page_tokens, hd)
                 pool[:, rows] = torch.movedim(cut, 2, 1).to(pool.dtype)
         return pool_state
+
+
+def has_recurrent_state(cfg: ModelConfig) -> bool:
+    """Whether any layer of ``cfg`` keeps recurrent (mamba) state."""
+    return any(kind.attn == "mamba" for group in cfg.layer_groups()
+               for kind in group.pattern)
 
 
 def build_model(cfg: ModelConfig, target: Optional[HardwareTarget] = None,

@@ -45,7 +45,7 @@ def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor, cache_len,
     offset) or a per-row ``(B,)`` tensor (each slot at its own depth).
     Tensor offsets stay on the device: a masked select, never a host read.
     Multi-token appends at tensor offsets (the speculative verify chunk)
-    come with ROADMAP A6.
+    come with ROADMAP A6.3.
     """
     new = new.to(cache_arr.dtype)
     s = new.shape[axis]
@@ -57,7 +57,7 @@ def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor, cache_len,
     if s != 1:
         raise NotImplementedError(
             "multi-token appends at device-side offsets (speculative "
-            "verify) are not ported yet (ROADMAP A6)")
+            "verify) are not ported yet (ROADMAP A6.3)")
     shape = [1] * cache_arr.ndim
     shape[axis] = cache_arr.shape[axis]
     iota = torch.arange(cache_arr.shape[axis],
@@ -163,7 +163,7 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     if cache is not None and block_tables is not None:
         if "k_scale" in cache:
             raise NotImplementedError(
-                "quantized KV pools are not ported yet (ROADMAP A6)")
+                "quantized KV pools are not ported yet (ROADMAP A6.5)")
         _paged_cache_write(cache["k"], k, cache_len, block_tables, axis=1)
         _paged_cache_write(cache["v"], v, cache_len, block_tables, axis=1)
         out = paged_decode_attention(q, cache["k"], cache["v"], block_tables,

@@ -222,13 +222,24 @@ def paged_cache_kinds(cfg: ModelConfig):
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            max_len: int, *, plans: Optional[KernelPlans] = None):
-    """Run the prompt into fresh ``max_len``-deep caches. Attention runs
-    over the whole (zero-filled) cache depth at ``q_offset = 0``, as in the
-    reference. Returns (hidden, caches)."""
-    caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
-    return forward(cfg, params, tokens, caches=caches, cache_len=0,
-                   plans=plans)
+            max_len: int, *, plans: Optional[KernelPlans] = None,
+            caches=None, prefix_len: int = 0):
+    """Run the prompt into ``max_len``-deep caches. Attention runs over the
+    whole cache depth at ``q_offset = prefix_len``, as in the reference.
+    Returns (hidden, caches).
+
+    ``caches``/``prefix_len`` run a *resumed* prefill (prefix-share
+    suffixes, chunked-prefill chunks): ``caches`` already holds the K/V of
+    the first ``prefix_len`` positions, ``tokens`` is the tail only, RoPE
+    positions start at ``prefix_len`` and the tail's K/V land at
+    ``[prefix_len, prefix_len + S)``, in place. ``prefix_len`` is a host
+    int: the reference traces its chunk cursor only to bound XLA compiles,
+    so here every tail reaches the flash kernel at a static offset.
+    """
+    if caches is None:
+        caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
+    return forward(cfg, params, tokens, caches=caches,
+                   cache_len=int(prefix_len), plans=plans)
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

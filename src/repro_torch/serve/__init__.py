@@ -1,4 +1,5 @@
-"""Serving: continuous-batching engine + scheduler over the paged KV pool."""
+"""Serving: continuous-batching engine + scheduler over the pooled KV cache
+(dense slot slab or paged two-tier pool)."""
 
 from repro_torch.serve.engine import Engine, EngineConfig, PoolState, ServeReport
 from repro_torch.serve.scheduler import (Request, Scheduler, SlotTable,

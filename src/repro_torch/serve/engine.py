@@ -1,4 +1,4 @@
-"""Serving engine over the paged KV pool: continuous batching on the card.
+"""Serving engine over the pooled KV cache: continuous batching on the card.
 
 The counterpart of ``src/repro/serve/engine.py``. Two surfaces share one
 decode substrate:
@@ -7,11 +7,21 @@ decode substrate:
     through the flash kernel, then chunks of ``sync_interval`` steps over
     the dense slot slab (the masked oracle). Done rows are masked on the
     device and the host reads the done mask once per chunk.
-  * :meth:`Engine.serve` — continuous batching over the paged two-tier
-    pool: the :class:`~repro_torch.serve.scheduler.Scheduler` plans grow /
-    preempt / restore / admit in pages at every drain boundary, the engine
-    executes the copies in plan order, uploads the block table, and every
-    chunk decodes ALL slots with the page-walk kernel.
+  * :meth:`Engine.serve` — continuous batching. With a dense scheduler the
+    KV cache is a slab of ``n_slots`` ``max_len``-deep slots
+    (:meth:`PoolManager.init_pool`): admissions prefill a prompt and write
+    its row at a free slot, and every chunk decodes ALL slots over the slab
+    through the masked oracle (the reference's own dispatch: no kernel
+    walks a slot slab). With a paged scheduler the KV cache is the paged
+    two-tier pool: the :class:`~repro_torch.serve.scheduler.Scheduler`
+    plans grow / preempt / restore / admit in pages at every drain
+    boundary, the engine executes the copies in plan order, uploads the
+    block table, and every chunk decodes ALL slots with the page-walk
+    kernel. A ``prefix_share`` scheduler turns prefix-index hits into
+    suffix-only prefills over shared, ref-counted pages (copy-on-write at
+    the frontier page); a ``chunk_prefill_tokens`` scheduler prefills
+    prompts a budget of tokens per boundary, interleaved with decode, on
+    either pool.
 
 The drain-boundary discipline is the reference's: :meth:`EngineCore._fetch`
 is the only device->host read, counted in ``last_stats["host_syncs"]``. On
@@ -20,9 +30,8 @@ the card every decode chunk runs under
 sync inside a chunk raises — the counterpart of the reference's transfer
 guard.
 
-Not in this slice (ROADMAP A4, A6): the dense slot-slab ``serve`` loop,
-prefix sharing, chunked prefill, speculative decoding, disaggregated roles
-and host parking.
+Not in this slice (ROADMAP A6.3-A6.5): speculative decoding,
+disaggregated roles, quantized tiers and host parking.
 """
 
 from __future__ import annotations
@@ -35,9 +44,9 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.api import Model
+from repro_torch.models.api import Model, has_recurrent_state
 from repro_torch.serve import scheduler as sched_mod
-from repro_torch.serve.pool import PoolManager, PoolState
+from repro_torch.serve.pool import PoolManager, PoolState, check_page_ids
 
 __all__ = ["Engine", "EngineConfig", "EngineCore", "PrefillRole",
            "DecodeRole", "PoolState", "ServeReport"]
@@ -47,9 +56,9 @@ __all__ = ["Engine", "EngineConfig", "EngineCore", "PrefillRole",
 class EngineConfig:
     """``max_len`` bounds prompt + generation (the KV slot depth);
     ``sync_interval`` is the decode-chunk length between host syncs;
-    ``pad_token`` fills empty slots. Prompts prefill at their exact length
-    (the reference's ``prompt_pad_multiple`` bucketing comes with the
-    dense slot-slab stream, ROADMAP A4)."""
+    ``pad_token`` fills empty slots. Prompts prefill at their exact
+    length: the reference's prompt bucketing exists only to bound XLA
+    compiles, and eager PyTorch has none."""
 
     max_len: int
     eos_token: int = 1
@@ -92,7 +101,7 @@ def _to_host(tree):
 
 class EngineCore:
     """What the roles share: the serving params, kernel plans, device
-    placement, host IO and the bucketing rule."""
+    placement and host IO."""
 
     def __init__(self, model: Model, params: Any, ecfg: EngineConfig):
         self.model = model
@@ -115,46 +124,184 @@ class EngineCore:
 
 
 class PrefillRole:
-    """Admissions: prefill one prompt and scatter its pages into the pool."""
+    """Admissions (whole-prompt, suffix-only and chunked) over the pool."""
 
     def __init__(self, core: EngineCore, pools: PoolManager):
         self.core = core
         self.pools = pools
 
-    def _check_prompt(self, prompt: np.ndarray) -> int:
-        true_len = int(prompt.shape[0])
-        if true_len > self.core.ecfg.max_len:
+    def _prompt(self, prompt) -> np.ndarray:
+        """The prompt as int32 tokens, refused when it exceeds the KV slot
+        depth."""
+        tokens = np.asarray(prompt, np.int32)
+        max_len = self.core.ecfg.max_len
+        if tokens.shape[0] > max_len:
             raise ValueError(
-                f"prompt of {true_len} tokens exceeds the KV slot depth "
-                f"(max_len={self.core.ecfg.max_len})")
-        return true_len
+                f"prompt of {tokens.shape[0]} tokens exceeds the KV slot "
+                f"depth (max_len={max_len})")
+        return tokens
+
+    def _prefill(self, tokens: np.ndarray, depth: int, prefix_len: int = 0,
+                 prefix=None):
+        """Prefill one row of ``tokens`` (a tail after ``prefix_len``
+        cached positions when ``prefix`` is given). Returns (logits at the
+        row's last token, row state)."""
+        core = self.core
+        return core.model.prefill(
+            core.params, {"tokens": core.tensor(tokens[None])}, depth,
+            plans=core.plans, prefix_len=prefix_len, prefix_state=prefix)
+
+    def _arm(self, pool: PoolState, slot: int, logits: torch.Tensor,
+             kv_len: int, budget: int) -> Tuple[PoolState, torch.Tensor]:
+        """Arm ``slot`` with the first token read from ``logits`` and a
+        ``kv_len``-deep KV prefix; the token stays on the device until the
+        next drain."""
+        cfg, ecfg = self.core.model.cfg, self.core.ecfg
+        first = torch.argmax(logits[0, -1, :cfg.vocab_size]).to(torch.int32)
+        pool.tok[slot] = first
+        pool.cache_len[slot] = kv_len
+        pool.done[slot] = ((first == ecfg.eos_token) | (budget <= 1)
+                           | (kv_len >= ecfg.max_len))
+        pool.n_gen[slot] = 1
+        pool.budget[slot] = budget
+        return pool, first
+
+    def _chunk_tokens(self, step: sched_mod.PrefillStep) -> np.ndarray:
+        return np.asarray(step.req.prompt, np.int32)[
+            step.start:step.start + step.n_tokens]
+
+    def _after_chunk(self, pool: PoolState, step: sched_mod.PrefillStep,
+                     logits: torch.Tensor
+                     ) -> Tuple[PoolState, Optional[torch.Tensor]]:
+        """A non-final chunk only advances ``cache_len`` and keeps the slot
+        done-masked (a slot freed by preempting a mid-decode request still
+        reads done=False on the device, and the interleaved decode chunk
+        must not decode a half-prefilled slot); the final chunk arms the
+        slot exactly like an admission."""
+        new_len = step.start + step.n_tokens
+        if not step.final:
+            pool.cache_len[step.slot] = new_len
+            pool.done[step.slot] = True
+            return pool, None
+        return self._arm(pool, step.slot, logits, new_len,
+                         step.req.max_new_tokens)
+
+    # ------------------------------------------------------ dense slab
+    def admit_into_slot(self, pool: PoolState, slot: int,
+                        prompt: np.ndarray, max_new_tokens: int
+                        ) -> Tuple[PoolState, torch.Tensor]:
+        """Prefill ``prompt`` and write its ``max_len``-deep row into
+        ``slot`` of the dense slab (in-flight slots untouched). Returns
+        (pool, first token)."""
+        tokens = self._prompt(prompt)
+        logits, row = self._prefill(tokens, self.core.ecfg.max_len)
+        self.core.model.slot_update(pool.state, row, slot)
+        return self._arm(pool, slot, logits, len(tokens), max_new_tokens)
+
+    def exec_dense_chunk(self, pool: PoolState, step: sched_mod.PrefillStep
+                         ) -> Tuple[PoolState, Optional[torch.Tensor]]:
+        """One planned prefill chunk on the dense slab: the chunk attends
+        over the slot's own row (earlier chunks' K/V, read by
+        :meth:`~repro_torch.models.api.Model.gather_row`) and the updated
+        row is written back. Returns (pool, first token or None)."""
+        model = self.core.model
+        prefix = model.gather_row(pool.state, step.slot)
+        logits, row = self._prefill(self._chunk_tokens(step),
+                                    self.core.ecfg.max_len, step.start,
+                                    prefix)
+        model.slot_update(pool.state, row, step.slot)
+        return self._after_chunk(pool, step, logits)
+
+    # ------------------------------------------------------- paged pool
+    def _page_row(self, row: np.ndarray, geom: sched_mod.PageGeometry,
+                  what: str) -> torch.Tensor:
+        return self.core.tensor(check_page_ids(row, geom.n_pages, what))
 
     def paged_admit(self, pool: PoolState, slot: int,
                     req: sched_mod.Request, geom: sched_mod.PageGeometry
                     ) -> Tuple[PoolState, torch.Tensor]:
         """Prefill ``req``'s prompt at the pool's page-aligned depth, cut it
         into pages at the slot's block-table row and arm the slot. Returns
-        (pool, first token); the token stays on the device until the next
-        drain."""
-        core = self.core
-        cfg, ecfg = core.model.cfg, core.ecfg
-        tokens = np.asarray(req.prompt, np.int32)
-        true_len = self._check_prompt(tokens)
-        block_row = self.pools.pad_pages(req.pages, geom.max_pages_per_slot)
-        logits, row = core.model.prefill(
-            core.params, {"tokens": core.tensor(tokens[None])}, geom.depth,
-            plans=core.plans, last_pos=core.tensor([true_len - 1]))
-        first = torch.argmax(logits[0, -1, :cfg.vocab_size]).to(torch.int32)
-        core.model.slot_update_paged(pool.state, row, slot, block_row,
-                                     geom.page_tokens)
-        budget = req.max_new_tokens
-        pool.tok[slot] = first
-        pool.cache_len[slot] = true_len
-        pool.done[slot] = ((first == ecfg.eos_token)
-                           | (budget <= 1) | (true_len >= ecfg.max_len))
-        pool.n_gen[slot] = 1
-        pool.budget[slot] = budget
-        return pool, first
+        (pool, first token)."""
+        tokens = self._prompt(req.prompt)
+        block_row = self.pools.pad_pages(req.pages, geom.max_pages_per_slot,
+                                         geom.n_pages)
+        logits, row = self._prefill(tokens, geom.depth)
+        self.core.model.slot_update_paged(pool.state, row, slot, block_row,
+                                          geom.page_tokens)
+        return self._arm(pool, slot, logits, len(tokens), req.max_new_tokens)
+
+    def _paged_resume(self, pool: PoolState, slot: int, tokens: np.ndarray,
+                      prefix_len: int, read: np.ndarray, write: np.ndarray,
+                      geom: sched_mod.PageGeometry):
+        """Gather the pages ``read`` maps into a dense row, prefill the
+        tail at ``prefix_len`` and scatter the row through ``write``."""
+        model = self.core.model
+        prefix = model.gather_row_paged(
+            pool.state, self._page_row(read, geom, "read row"),
+            geom.page_tokens)
+        logits, row = self._prefill(tokens, geom.depth, prefix_len, prefix)
+        model.slot_update_paged(pool.state, row, slot,
+                                self._page_row(write, geom, "write row"),
+                                geom.page_tokens)
+        return logits
+
+    def shared_paged_admit(self, pool: PoolState, slot: int,
+                           req: sched_mod.Request,
+                           geom: sched_mod.PageGeometry
+                           ) -> Tuple[PoolState, torch.Tensor]:
+        """A prefix-index hit: prefill ONLY the unmatched suffix.
+
+        ``read_row`` maps the pages the suffix attends over: the shared
+        full pages, plus — when the match ends mid-page — the COW *source*
+        page at the frontier index. ``write_row`` maps where the suffix's
+        K/V lands: null (page 0) under the shared prefix, the request's own
+        fresh pages from the frontier on. The frontier page is therefore
+        read from the canonical copy but written to a private one, and
+        shared history is never written."""
+        pt, p_max = geom.page_tokens, geom.max_pages_per_slot
+        tokens = self._prompt(req.prompt)
+        f_w = req.prefix_len // pt                  # frontier logical page
+        read = np.zeros((p_max,), np.int32)
+        read[:req.n_shared] = req.pages[:req.n_shared]
+        if req.cow_src >= 0:
+            read[f_w] = req.cow_src
+        write = np.zeros((p_max,), np.int32)
+        write[f_w:len(req.pages)] = req.pages[f_w:]
+        logits = self._paged_resume(pool, slot, tokens[req.prefix_len:],
+                                    req.prefix_len, read, write, geom)
+        return self._arm(pool, slot, logits, len(tokens),
+                         req.max_new_tokens)
+
+    def exec_prefill_chunk(self, pool: PoolState,
+                           step: sched_mod.PrefillStep,
+                           geom: sched_mod.PageGeometry
+                           ) -> Tuple[PoolState, Optional[torch.Tensor]]:
+        """One planned prefill chunk on the paged pool.
+
+        ``read_row`` maps every page holding KV the chunk attends over: the
+        request's own pages below the cursor (the shared prefix pages for
+        its leading entries), plus the copy-on-write source when the first
+        chunk starts at a mid-page prefix match. ``write_row`` maps the
+        pages the chunk's K/V lands in, from the cursor's page on (the
+        whole-page scatter re-writes the frontier page's earlier tokens
+        with the content just gathered, so a COW source is copied private
+        on the first chunk for free). The chunk prefills at its exact
+        length, at the host-int cursor ``step.start``."""
+        req = step.req
+        pt, p_max = geom.page_tokens, geom.max_pages_per_slot
+        f_r = -(-step.start // pt)              # pages covering [0, start)
+        read = np.zeros((p_max,), np.int32)
+        read[:f_r] = req.pages[:f_r]
+        if step.start == req.prefix_len and req.cow_src >= 0:
+            read[step.start // pt] = req.cow_src
+        f_w = step.start // pt                  # cursor's (frontier) page
+        end_pages = geom.pages_for(step.start + step.n_tokens)
+        write = np.zeros((p_max,), np.int32)
+        write[f_w:end_pages] = req.pages[f_w:end_pages]
+        logits = self._paged_resume(pool, step.slot, self._chunk_tokens(step),
+                                    step.start, read, write, geom)
+        return self._after_chunk(pool, step, logits)
 
 
 class DecodeRole:
@@ -290,40 +437,155 @@ class Engine:
                 break
         return torch.cat(out, dim=1), state
 
-    # -------------------------------------------------------- paged serve
-    def _serve_paged(self, sch: sched_mod.Scheduler,
-                     max_steps: Optional[int] = None) -> ServeReport:
-        """Continuous batching over the paged two-tier pool.
-
-        Boundary order: spills -> restores -> admissions (each copy in plan
-        order, so the in-place pools see exactly the reference's sequence
-        of functional updates) -> block-table upload -> decode chunk -> ONE
-        drain fetch of the chunk's tokens, the done mask and any pending
-        first tokens.
-        """
-        core, pools = self.core, self.pools
-        pre, dec = self.prefill_role, self.decode_role
-        if sch.prefix_index is not None or sch.chunk_prefill_tokens is not None \
-                or sch.disaggregate:
-            raise NotImplementedError(
-                "prefix sharing, chunked prefill and disaggregated roles are "
-                "not ported yet (ROADMAP A6)")
-        geom = sch.pages
+    # ------------------------------------------------------------ serve
+    def _start_stats(self) -> None:
         self.last_stats = {"host_syncs": 0, "decode_steps": 0, "chunks": 0,
                            "admissions": 0}
-        pool, spill = pools.init_paged_pool(sch)
+
+    def _decode_and_drain(self, sch: sched_mod.Scheduler, pool: PoolState,
+                          pending_first: List[Tuple[sched_mod.Request,
+                                                    torch.Tensor]],
+                          step_clock: int) -> Tuple[PoolState, int, int]:
+        """One ``sync_interval`` decode chunk over every slot, then the
+        boundary's ONE host sync: the chunk's tokens, the done mask and any
+        pending first tokens. Drained slots are freed. Returns (pool, step
+        clock, tokens emitted at this boundary)."""
+        core, n = self.core, self.ecfg.sync_interval
+        pool, toks, valid = self.decode_role.pool_chunk(n)(core.params, pool)
+        step_clock += n
+        self.last_stats["decode_steps"] += n
+        self.last_stats["chunks"] += 1
+        toks_h, valid_h, done_h, firsts = core._fetch(
+            (toks, valid, pool.done, [f for _, f in pending_first]))
+        emitted = len(firsts)
+        for (req, _), f in zip(pending_first, firsts):
+            req.tokens.append(int(f))
+            # the first token becomes real only at THIS drain
+            req.first_step = step_clock
+        pending_first.clear()
+        for slot in sorted(sch.active):
+            req = sch.active[slot]
+            before = len(req.tokens)
+            req.tokens.extend(
+                int(t) for t, v in zip(toks_h[:, slot], valid_h[:, slot])
+                if v)
+            emitted += len(req.tokens) - before
+            # a mid-prefill slot's done flag is still the free marker from
+            # before its admission: only DECODING slots can drain
+            if done_h[slot] and req.status != sched_mod.PREFILLING:
+                req.finish_step = step_clock
+                sch.complete(slot)
+        return pool, step_clock, emitted
+
+    def _run_boundaries(self, sch: sched_mod.Scheduler, pool: PoolState,
+                        boundary, max_steps: Optional[int]) -> None:
+        """The serve loop both pools share: ``boundary(pool, step_clock,
+        pending_first)`` does a boundary's admissions and copies and
+        returns the pool, then one decode chunk and one drain."""
         pending_first: List[Tuple[sched_mod.Request, torch.Tensor]] = []
         boundary_wall: List[float] = []
         boundary_tokens: List[int] = []
         step_clock = 0
-        n = self.ecfg.sync_interval
-        p_max = geom.max_pages_per_slot
         while sch.has_work():
             t0 = time.perf_counter()
+            pool = boundary(pool, step_clock, pending_first)
+            pool, step_clock, emitted = self._decode_and_drain(
+                sch, pool, pending_first, step_clock)
+            boundary_wall.append(time.perf_counter() - t0)
+            boundary_tokens.append(emitted)
+            if max_steps is not None and step_clock >= max_steps:
+                break
+        self.last_stats["boundary_wall_s"] = boundary_wall
+        self.last_stats["boundary_tokens"] = boundary_tokens
+
+    def _report(self, sch: sched_mod.Scheduler,
+                requests: List[sched_mod.Request]) -> ServeReport:
+        stats = dict(self.last_stats)
+        stats.update(sch.stats())
+        return ServeReport(requests=requests, stats=stats)
+
+    def _serve_dense(self, sch: sched_mod.Scheduler,
+                     max_steps: Optional[int] = None) -> ServeReport:
+        """Continuous batching over the dense slot slab.
+
+        Boundary order: admissions (an over-long prompt is rejected
+        cleanly, without aborting the stream or leaking its slot) -> the
+        planned prefill chunks when chunking -> decode chunk -> ONE drain
+        fetch."""
+        if sch.disaggregate:
+            raise ValueError(
+                "disaggregated serving requires the paged pool: page "
+                "handover moves block-table rows, which the dense "
+                "slot-slab pool does not have")
+        chunked = sch.chunk_prefill_tokens is not None
+        if chunked and has_recurrent_state(self.model.cfg):
+            raise ValueError(
+                "chunked prefill requires attention-only models: recurrent "
+                "SSM state has no resumable KV prefix")
+        pre, max_len = self.prefill_role, self.ecfg.max_len
+        self._start_stats()
+
+        def boundary(pool, step_clock, pending_first):
+            for slot, req in sch.admit():
+                req.admit_step = step_clock
+                if req.prompt_len > max_len:
+                    req.finish_step = step_clock
+                    sch.complete(slot, status=sched_mod.REJECTED)
+                    continue
+                if chunked:
+                    continue        # prefills by chunks via plan_prefill
+                pool, first = pre.admit_into_slot(pool, slot, req.prompt,
+                                                  req.max_new_tokens)
+                self.last_stats["admissions"] += 1
+                req.status = sched_mod.DECODING
+                pending_first.append((req, first))
+            if chunked:
+                for step in sch.plan_prefill():
+                    pool, first = pre.exec_dense_chunk(pool, step)
+                    if step.final:
+                        step.req.status = sched_mod.DECODING
+                        pending_first.append((step.req, first))
+            return pool
+
+        self._run_boundaries(sch, self.pools.init_pool(sch.n_slots), boundary,
+                             max_steps)
+        return self._report(sch, sch.drained + list(sch.active.values()))
+
+    def _serve_paged(self, sch: sched_mod.Scheduler,
+                     max_steps: Optional[int] = None) -> ServeReport:
+        """Continuous batching over the paged two-tier pool.
+
+        Boundary order: spills -> restores -> admissions (whole-prompt, or
+        suffix-only for a prefix-index hit) -> the planned prefill chunks
+        (each copy in plan order, so the in-place pools see exactly the
+        reference's sequence of functional updates) -> block-table upload
+        -> decode chunk -> ONE drain fetch of the chunk's tokens, the done
+        mask and any pending first tokens.
+        """
+        if sch.disaggregate:
+            raise NotImplementedError(
+                "disaggregated roles are not ported yet (ROADMAP A6.4)")
+        ssm = has_recurrent_state(self.model.cfg)
+        if sch.prefix_index is not None and ssm:
+            raise ValueError(
+                "prefix sharing requires attention-only models: recurrent "
+                "SSM state is per-sequence, not per-page")
+        if sch.chunk_prefill_tokens is not None and ssm:
+            raise ValueError(
+                "chunked prefill requires attention-only models: recurrent "
+                "SSM state has no resumable KV prefix")
+        core, pools, pre = self.core, self.pools, self.prefill_role
+        geom = sch.pages
+        self._start_stats()
+        pool, spill = pools.init_paged_pool(sch)
+        n, p_max = self.ecfg.sync_interval, geom.max_pages_per_slot
+
+        def boundary(pool, step_clock, pending_first):
+            nonlocal spill
             plan = sch.plan_boundary(chunk_tokens=n, max_len=self.ecfg.max_len)
             if plan.resumes:
                 raise NotImplementedError(
-                    "host park/resume is not ported yet (ROADMAP A6)")
+                    "host park/resume is not ported yet (ROADMAP A6.5)")
             for req in plan.rejects:
                 req.finish_step = step_clock
             # spills FIRST: they copy layer-0 pages that restores/admits
@@ -334,57 +596,45 @@ class Engine:
                 pool = pools.exec_restore(pool, spill, act, p_max)
             for slot, req in plan.admits:
                 req.admit_step = step_clock
-                pool, first = pre.paged_admit(pool, slot, req, geom)
+                if req.prefill_pos >= 0:
+                    continue        # chunked admission: via prefill_steps
+                admit = (pre.shared_paged_admit if req.prefix_len
+                         else pre.paged_admit)
+                pool, first = admit(pool, slot, req, geom)
                 self.last_stats["admissions"] += 1
                 req.status = sched_mod.DECODING
                 pending_first.append((req, first))
-            pool = dataclasses.replace(
-                pool, block_tables=core.tensor(sch.block_table()))
-            pool, toks, valid = dec.pool_chunk(n)(core.params, pool)
-            step_clock += n
-            self.last_stats["decode_steps"] += n
-            self.last_stats["chunks"] += 1
-            # ---- drain boundary: the single host sync of this iteration
-            toks_h, valid_h, done_h, firsts = core._fetch(
-                (toks, valid, pool.done, [f for _, f in pending_first]))
-            emitted = len(firsts)
-            for (req, _), f in zip(pending_first, firsts):
-                req.tokens.append(int(f))
-                req.first_step = step_clock
-            pending_first.clear()
-            for slot in sorted(sch.active):
-                req = sch.active[slot]
-                before = len(req.tokens)
-                req.tokens.extend(
-                    int(t) for t, v in zip(toks_h[:, slot], valid_h[:, slot])
-                    if v)
-                emitted += len(req.tokens) - before
-                if done_h[slot] and req.status != sched_mod.PREFILLING:
-                    req.finish_step = step_clock
-                    sch.complete(slot)
-            boundary_wall.append(time.perf_counter() - t0)
-            boundary_tokens.append(emitted)
-            if max_steps is not None and step_clock >= max_steps:
-                break
-        self.last_stats["boundary_wall_s"] = boundary_wall
-        self.last_stats["boundary_tokens"] = boundary_tokens
-        stats = dict(self.last_stats)
-        stats.update(sch.stats())
-        return ServeReport(requests=(sch.drained + list(sch.active.values())
-                                     + list(sch.queue)),
-                           stats=stats)
+            # chunk prefills AFTER every copy, in plan order; a final chunk
+            # arms its slot like an admission
+            for step in plan.prefill_steps:
+                pool, first = pre.exec_prefill_chunk(pool, step, geom)
+                if step.final:
+                    step.req.status = sched_mod.DECODING
+                    pending_first.append((step.req, first))
+            table = check_page_ids(sch.block_table(), geom.n_pages,
+                                   "block table")
+            return dataclasses.replace(pool, block_tables=core.tensor(table))
+
+        self._run_boundaries(sch, pool, boundary, max_steps)
+        return self._report(sch, sch.drained + list(sch.active.values())
+                            + list(sch.queue))
 
     def serve(self, requests: Iterable[sched_mod.Request] = (),
               scheduler: Optional[sched_mod.Scheduler] = None, *,
               max_steps: Optional[int] = None) -> ServeReport:
-        """Continuous batching over a request stream (paged pool only in
-        this slice; the dense slot-slab loop is ROADMAP A4)."""
+        """Continuous batching over a request stream. With no scheduler the
+        reference's default is built: the dense slot slab, slots derived
+        for ``max_len``.
+
+        Loop invariant: between drain boundaries everything is on the
+        device. Each iteration admits queued requests into free slots (and
+        runs planned prefill chunks), runs one ``sync_interval`` decode
+        chunk over the whole pool, and performs ONE host sync to read the
+        chunk's tokens and done mask; drained slots are freed at once."""
         sch = scheduler or sched_mod.Scheduler.for_model(
-            self.model.cfg, self.ecfg.max_len, paged=True)
+            self.model.cfg, self.ecfg.max_len)
         for req in requests:
             sch.submit_request(req)
-        if sch.pages is None:
-            raise NotImplementedError(
-                "the dense slot-slab serve loop is not ported yet (ROADMAP "
-                "A4); pass a paged Scheduler")
-        return self._serve_paged(sch, max_steps)
+        if sch.pages is not None:
+            return self._serve_paged(sch, max_steps)
+        return self._serve_dense(sch, max_steps)

@@ -1,9 +1,11 @@
 """Pool ownership for the serving engine: construction and tier copies.
 
 The counterpart of ``src/repro/serve/pool.py`` for the fp16 (bf16 storage)
-codec. The KV pool is one device-side address space: a flat layer-0 page
-pool addressed through per-slot block tables, and a layer-1 spill tier the
-scheduler preempts into when layer 0 runs out. Recurrent SSM state is not
+codec. Two pools: the dense slot slab (one ``max_len``-deep KV row per
+slot, :meth:`PoolManager.init_pool`), and the paged pool, one device-side
+address space: a flat layer-0 page pool addressed through per-slot block
+tables, and a layer-1 spill tier the scheduler preempts into when layer 0
+runs out. Recurrent SSM state is not
 paged: layer 0 holds one row per slot and layer 1 one seat per spill page,
 and a spill or restore moves the row between the slot and its seat.
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.serve import scheduler as sched_mod
@@ -61,6 +64,24 @@ def quant_policy(kv_quant: Optional[str]) -> Tuple[str, str]:
                      f"(choices: {', '.join(sorted(CODECS))})")
 
 
+def check_page_ids(ids: np.ndarray, n_pages: int, what: str) -> np.ndarray:
+    """``ids`` (host int32: a block table, or a read / write / tier-copy
+    row) unchanged if every entry lies in ``[0, n_pages)``, else raise.
+
+    The page-walk kernel and the in-place page copies index pages by these
+    ids unchecked, and with prefix sharing several tables alias one page,
+    so a bad id would read or overwrite another sequence's KV on the card.
+    The check runs on the host copy before upload: it costs no device read.
+    """
+    ids = np.asarray(ids, np.int32)
+    bad = (ids < 0) | (ids >= n_pages)
+    if bad.any():
+        raise ValueError(
+            f"{what}: page ids {sorted(set(ids[bad].tolist()))[:8]} outside "
+            f"the pool's [0, {n_pages})")
+    return ids
+
+
 @dataclasses.dataclass
 class PoolState:
     """Device-side state of the KV slot pool (batch axis = slot index).
@@ -86,8 +107,35 @@ class PoolManager:
         self.model = model
         self.ecfg = ecfg
         self.device = model.device
+        self.geom: Optional[sched_mod.PageGeometry] = None  # paged pools
 
     # ------------------------------------------------------- construction
+    def _vectors(self, n_slots: int) -> Dict[str, torch.Tensor]:
+        """The per-slot vectors of an empty pool: every slot done (free)."""
+        def vec(value, dtype=torch.int32):
+            return torch.full((n_slots,), value, dtype=dtype,
+                              device=self.device)
+
+        return dict(tok=vec(self.ecfg.pad_token), cache_len=vec(0),
+                    done=vec(True, torch.bool), n_gen=vec(0), budget=vec(0))
+
+    def init_pool(self, n_slots: int) -> PoolState:
+        """Empty dense slot-slab pool: one ``max_len``-deep KV row (and one
+        recurrent row) per slot, every slot done (free)."""
+        cfg = self.model.cfg
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "pooled serving targets decoder-only families; encdec "
+                "requests go through one-shot generate()")
+        if cfg.frontend_len:
+            raise NotImplementedError(
+                "pooled serving takes token prompts; frontend-embed "
+                "requests go through one-shot generate()")
+        from repro_torch.models import transformer
+        state = {"caches": transformer.init_caches(
+            cfg, n_slots, self.ecfg.max_len, self.device)}
+        return PoolState(state=state, **self._vectors(n_slots))
+
     def init_paged_pool(self, sch: sched_mod.Scheduler
                         ) -> Tuple[PoolState, Dict[str, Any]]:
         """Empty paged pool (all slots done/free) + the layer-1 spill
@@ -100,9 +148,10 @@ class PoolManager:
         if (geom.layer0_codec, geom.layer1_codec) != ("fp16", "fp16"):
             raise NotImplementedError(
                 "quantized KV tiers (int8/fp8) are not ported yet "
-                "(ROADMAP A6)")
+                "(ROADMAP A6.5)")
         from repro_torch.models import transformer
         cfg, dev = self.model.cfg, self.device
+        self.geom = geom
         n_slots = sch.n_slots
         state = {"caches": transformer.init_paged_caches(
             cfg, n_slots, geom.n_pages, geom.page_tokens, dev)}
@@ -110,12 +159,8 @@ class PoolManager:
             cfg, geom.n_spill_pages, geom.n_spill_pages, geom.page_tokens,
             dev)
 
-        def vec(value, dtype=torch.int32):
-            return torch.full((n_slots,), value, dtype=dtype, device=dev)
-
         pool = PoolState(
-            state=state, tok=vec(self.ecfg.pad_token), cache_len=vec(0),
-            done=vec(True, torch.bool), n_gen=vec(0), budget=vec(0),
+            state=state, **self._vectors(n_slots),
             block_tables=torch.zeros((n_slots, geom.max_pages_per_slot),
                                      dtype=torch.int32, device=dev))
         return pool, spill
@@ -136,18 +181,25 @@ class PoolManager:
                 else:
                     dst[:, row_dst] = src_g[name][:, row_src]
 
-    def pad_pages(self, pages: Sequence[int], p_max: int) -> torch.Tensor:
-        row = [0] * p_max
-        row[:len(pages)] = list(pages)
-        return torch.tensor(row, dtype=torch.int32, device=self.device)
+    def pad_pages(self, pages: Sequence[int], p_max: int,
+                  n_pages: int) -> torch.Tensor:
+        """``pages`` null-padded to ``p_max`` entries, each checked against
+        its tier's ``n_pages`` on the host, then uploaded."""
+        row = np.zeros((p_max,), np.int32)
+        row[:len(pages)] = pages
+        return torch.as_tensor(check_page_ids(row, n_pages, "page row"),
+                               device=self.device)
 
     def exec_spill(self, pool: PoolState, spill: Dict[str, Any],
                    act: sched_mod.SpillAction, p_max: int) -> Dict[str, Any]:
         """Copy a preempted sequence's layer-0 pages into layer 1, and its
         slot's recurrent row into its seat."""
+        geom = self.geom
         self._tier_copy(pool.state["caches"], spill, act.slot, act.seat,
-                        self.pad_pages(act.src_pages, p_max).long(),
-                        self.pad_pages(act.dst_pages, p_max).long())
+                        self.pad_pages(act.src_pages, p_max,
+                                       geom.n_pages).long(),
+                        self.pad_pages(act.dst_pages, p_max,
+                                       geom.n_spill_pages).long())
         return spill
 
     def exec_restore(self, pool: PoolState, spill: Dict[str, Any],
@@ -159,11 +211,12 @@ class PoolManager:
         one behind the emitted count (the last token's K/V is written by
         its own upcoming decode step), so decode resumes bit-exactly where
         preemption cut it."""
-        req = act.req
+        req, geom = act.req, self.geom
         self._tier_copy(spill, pool.state["caches"], act.seat, act.slot,
-                        self.pad_pages(act.src_pages, p_max).long(),
+                        self.pad_pages(act.src_pages, p_max,
+                                       geom.n_spill_pages).long(),
                         self.pad_pages(req.pages[:len(act.src_pages)],
-                                       p_max).long())
+                                       p_max, geom.n_pages).long())
         slot = act.slot
         pool.cache_len[slot] = req.cache_len
         if req.status == sched_mod.PREFILLING:

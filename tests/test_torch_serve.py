@@ -153,14 +153,34 @@ def test_paged_serve_with_preemption_matches_no_preemption(engines):
 
 
 def test_serve_without_pages_is_not_ported(engines):
-    teng = engines[3]
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        teng.serve([], scheduler=sm.Scheduler(n_slots=2))
+    """With no scheduler, ``Engine.serve`` builds the reference's default,
+    the dense slot slab with ``Scheduler.for_model``'s slots, and serves
+    it: the same counters as the reference's default, and one-shot
+    generate's tokens. (The dense loop was once refused here; the name is
+    kept.)"""
+    jm, _, jeng, teng = engines
+    cfg = teng.model.cfg
+    prompts = _prompts(cfg.vocab_size, seed=3)
+    reqs = [sm.Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    got = teng.serve(reqs)
+    want = jeng.serve([j_sm.Request(rid=i, prompt=p, max_new_tokens=6)
+                       for i, p in enumerate(prompts)])
+    assert got.stats["paged"] is False
+    for key in ("n_slots", "chunks", "decode_steps", "host_syncs",
+                "drained"):
+        assert got.stats[key] == want.stats[key], key
+    assert got.stats["n_slots"] == sm.Scheduler.for_model(
+        cfg, ECFG["max_len"]).n_slots
+    for i, p in enumerate(prompts):
+        one, _ = teng.generate({"tokens": torch.as_tensor(p[None])},
+                               n_steps=6)
+        assert got.outputs[i] == one[0].tolist()[:len(got.outputs[i])]
 
 
 def test_launch_serve_main_on_cpu(capsys):
-    """The CLI's paged stream and one-shot modes run end to end on the
-    CPU when asked to."""
+    """The CLI's paged and dense streams and its one-shot mode run end to
+    end on the CPU when asked to."""
     assert cli.main(["--stream", "4", "--paged", "--batch", "2",
                      "--prompt-len", "8", "--gen-len", "6",
                      "--sync-interval", "4", "--device", "cpu"]) == 0
@@ -169,5 +189,7 @@ def test_launch_serve_main_on_cpu(capsys):
     assert cli.main(["--batch", "2", "--prompt-len", "8", "--gen-len", "4",
                      "--device", "cpu"]) == 0
     assert "gen=4" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        cli.main(["--stream", "4", "--device", "cpu"])   # dense stream: A4
+    assert cli.main(["--stream", "4", "--batch", "2", "--prompt-len", "8",
+                     "--gen-len", "6", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "mode=dense" in out and "completed 4/4" in out
