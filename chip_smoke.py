@@ -54,13 +54,23 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      boundary on both pools; and, through ``Engine.serve``, the same
      page-aligned 512-token prompt twice with prefix sharing, whole and
      chunked, so the second admission copies its frontier page on write
-     (the launcher's unique tails never do). Kernel launch counts must match (admissions +
-     prefill chunks) x layers for flash and decode steps x layers for
-     paged decode (0 on the dense slab, whose decode is the masked oracle
-     by the reference's dispatch); every decode chunk runs with
-     device->host syncs made errors (the engine's guard), and requests 0
-     and 1 of every stream, and every request of the prefix-shared and
-     copy-on-write streams, are held to the teacher-forced rule;
+     (the launcher's unique tails never do); speculative decoding with the
+     draft budget derived under ``h100`` (k = 8) on both pools, over the
+     launcher's repetitive stream; and the chunked paged stream again with
+     disaggregated prefill/decode roles, which must equal the combined
+     chunked paged stream token for token, in its counters and in its
+     launches, with one handover a request. Kernel launch counts must
+     match (admissions + prefill chunks) x layers for flash and decode
+     steps x layers for paged decode (0 on the dense slab, whose decode is
+     the masked oracle by the reference's dispatch, and 0 in a
+     speculative stream, whose multi-token verify forward takes gather +
+     oracle by the same dispatch); every decode and verify chunk runs with
+     device->host syncs made errors (the engine's guard); the host reads
+     the device once a boundary (disaggregated: the decode role once a
+     boundary, the prefill role only at boundaries that completed a
+     prompt); and requests 0 and 1 of every stream, and every request of
+     the prefix-shared and copy-on-write streams, are held to the
+     teacher-forced rule;
   6. falcon-mamba-7b at full width: one-shot generate, the paged stream,
      the dense slot-slab stream, the squeezed paged stream (so the
      recurrent rows spill to their seats and come back, and every request
@@ -78,6 +88,11 @@ Phases, each fatal on failure (a non-zero exit and no result line):
   9. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream), the card line, and the
      result line.
+
+After every phase from 3 on, every counter buffer of paged decode's
+in-launch merge (one per device and stream) must read all zeros: each
+launch leaves its counters zero, so a non-zero entry means a launch that
+did not complete.
 
 Greedy tokens are held within ``LOGIT_TOL`` of the best logit of a
 teacher-forced pass of the same model. For qwen2.5-3b that pass is one
@@ -129,6 +144,7 @@ SERVING_TARGET = "h100"    # the launcher's target on the card
 MAX_LEN = 512 + 64         # STREAM's prompt + generation depth
 SYSTEM_LEN = 256           # the prefix-shared stream's common prompt head
 CHUNK_TOKENS = 128         # the chunked streams' prefill budget a boundary
+SPEC_TOKENS = 8            # --speculate-tokens 0 derives this under h100
 #: (Sq, q_offset) of flash at the resumed prefill's serving shapes, over
 #: the slot's whole depth: a prefix-share suffix and a prefill chunk
 RESUMED_FLASH = {"suffix": (512 - SYSTEM_LEN, SYSTEM_LEN),
@@ -228,6 +244,21 @@ def read_counts() -> dict:
 def check_counts(label: str, got: dict, want: dict) -> None:
     if got != want:
         fail(f"{label}: launches {got}, want {want}")
+
+
+def check_merge_counters(label: str) -> None:
+    """Every counter buffer of paged decode's merge (one per device and
+    stream) must read all zeros once the device is idle."""
+    import torch
+    from repro_torch.kernels.paged_attention import counter_buffers
+    torch.cuda.synchronize()
+    bufs = counter_buffers()
+    nonzero = {f"{dev} stream {stream:#x}": int(torch.count_nonzero(buf))
+               for (dev, stream), buf in bufs.items()}
+    if any(nonzero.values()):
+        fail(f"after {label}: paged merge counters not all zero: {nonzero}")
+    log(f"  merge counters after {label}: {len(bufs)} buffer(s), "
+        f"{sum(b.numel() for b in bufs.values())} entries, all zero  ok")
 
 
 def free_memory() -> None:
@@ -930,22 +961,78 @@ def check_stream(cfg, rec, counts, label) -> dict:
     rec["launches"] = counts
     if rec["completed"] != rec["n_requests"]:
         fail(f"{label}: {rec['completed']}/{rec['n_requests']} completed")
-    if rec["host_syncs"] != rec["chunks"]:
+    syncs = f"{rec['chunks']} chunks = {rec['host_syncs']} host syncs"
+    if rec.get("disaggregate"):
+        # one decode-role read a boundary, one prefill-role read at each
+        # boundary that completed a prompt
+        roles = rec["host_syncs_by_role"]
+        if not (roles["decode"] == rec["chunks"]
+                and 0 < roles["prefill"] <= rec["chunks"]
+                and rec["host_syncs"] == roles["decode"] + roles["prefill"]):
+            fail(f"{label}: host syncs {rec['host_syncs']} by role {roles} "
+                 f"over {rec['chunks']} chunks")
+        syncs = (f"{rec['chunks']} chunks = {roles['decode']} decode-role "
+                 f"host syncs (+ {roles['prefill']} prefill-role)")
+    elif rec["host_syncs"] != rec["chunks"]:
         fail(f"{label}: host_syncs {rec['host_syncs']} != chunks "
              f"{rec['chunks']}")
     adm, steps = rec["admissions"], rec["decode_steps_total"]
     chunks = rec["prefill_chunks"]
+    # a speculative stream's verify forwards are multi-token: gather +
+    # oracle, never the single-token paged kernel
+    paged_steps = rec["paged"] and not rec.get("speculate_tokens")
     check_counts(label, counts, {
         "flash": (adm + chunks) * n_attn,
-        "paged": steps * n_attn if rec["paged"] else 0,
+        "paged": steps * n_attn if paged_steps else 0,
         "scan": (adm + steps) * n_ssm, "plain_scan": 0})
     log(f"  {label}: ok — {adm} admissions, {chunks} prefill chunks, "
-        f"{steps} decode steps, {rec['chunks']} chunks = "
-        f"{rec['host_syncs']} host syncs; launches {counts}; "
+        f"{steps} decode steps, {syncs}; launches {counts}; "
         f"{rec['tok_per_s']:.1f} tok/s; ttft to the first token p50/p95 "
         f"{rec['ttft_emit_steps_p50']:.0f}/{rec['ttft_emit_steps_p95']:.0f} "
         f"steps")
     return rec
+
+
+def check_speculative(label, rec) -> None:
+    """The derived draft budget, one verify forward a boundary, and
+    acceptance counters that add up."""
+    k, prop, acc = (rec.get("speculate_tokens"), rec["spec_proposed"],
+                    rec["spec_accepted"])
+    if not (k == SPEC_TOKENS and prop > 0 and 0 <= acc <= prop
+            and rec["spec_rejected"] == prop - acc
+            and rec["decode_steps_total"] == rec["chunks"]):
+        fail(f"{label}: k {k} (want {SPEC_TOKENS}), {prop} proposed, {acc} "
+             f"accepted, {rec['spec_rejected']} rejected, "
+             f"{rec['decode_steps_total']} verify forwards over "
+             f"{rec['chunks']} chunks")
+    log(f"  {label}: k = {k} derived under {SERVING_TARGET}; {prop} drafts "
+        f"proposed, {acc} accepted (rate {rec['spec_acceptance_rate']:.4f}); "
+        f"{rec['n_tokens']} tokens in {rec['decode_steps_total']} verify "
+        f"forwards; {rec['tok_per_s']:.1f} tok/s")
+
+
+def check_disaggregated(rec, combined) -> None:
+    """The disaggregated chunked stream against the combined one: the same
+    tokens, counters and launches, bit for bit, and one handover a
+    request."""
+    keys = ("chunks", "decode_steps_total", "prefill_chunks", "admissions")
+    differ = [k for k in keys if rec[k] != combined[k]]
+    differ += [f"launches[{k}]" for k in ("flash", "paged")
+               if rec["launches"][k] != combined["launches"][k]]
+    differ += [f"request {rid}" for rid, toks in combined["outputs"].items()
+               if rec["outputs"].get(rid) != toks]
+    if differ or len(rec["outputs"]) != len(combined["outputs"]):
+        fail(f"disaggregated chunked stream differs from the combined one "
+             f"in {differ}")
+    if rec["handovers"] != rec["n_requests"] or rec["handover_pages"] <= 0:
+        fail(f"disaggregated chunked stream: {rec['handovers']} handovers "
+             f"({rec['handover_pages']} pages) for {rec['n_requests']} "
+             f"requests")
+    log(f"  disagg chunked: == chunked paged in every token, {keys} and the "
+        f"flash / paged launches, bit for bit; {rec['handovers']} handovers "
+        f"({rec['handover_pages']} pages, 0 bytes copied), "
+        f"{rec['decode_tokens']} decode-role tokens; "
+        f"{rec['tok_per_s']:.1f} tok/s against {combined['tok_per_s']:.1f}")
 
 
 def check_squeezed(label, rec) -> None:
@@ -963,9 +1050,10 @@ def phase_stream(cfg) -> dict:
     shared and chunked (paged and dense). Every stream's requests 0 and 1
     are held to the teacher-forced rule."""
     from repro_torch.serve.scheduler import (kv_bytes_per_token,
+                                             repetitive_stream,
                                              shared_prefix_stream,
                                              synthetic_stream)
-    log("[5/9] qwen2.5-3b streams (every decode chunk under "
+    log("[5/9] qwen2.5-3b streams (every decode and verify chunk under "
         "set_sync_debug_mode('error')); the prefix-shared stream's requests "
         "are all held to the teacher-forced rule")
     recs = {"stream": run_stream(cfg, STREAM, "stream")}
@@ -1007,12 +1095,28 @@ def phase_stream(cfg) -> dict:
                  f"{CHUNK_TOKENS})")
         recs[name] = rec
         free_memory()
+    spec_args = ["--speculate-tokens", "0"]
+    for name, argv in (("speculate_paged", STREAM + spec_args),
+                       ("speculate_dense", QWEN + DENSE_STREAM_ARGS
+                        + spec_args)):
+        rec = run_stream(cfg, argv, name.replace("_", " "))
+        check_speculative(name.replace("_", " "), rec)
+        recs[name] = rec
+        free_memory()
+    rec = run_stream(cfg, STREAM + chunk_args + ["--disaggregate"],
+                     "disagg chunked")
+    check_disaggregated(rec, recs["chunked_paged"])
+    recs["disagg_chunked"] = rec
+    free_memory()
     params = reference_params(cfg)
     plain = synthetic_stream(8, 512, 64, cfg.vocab_size)
     shared = shared_prefix_stream(8, SYSTEM_LEN, 512 - SYSTEM_LEN, 64,
                                   cfg.vocab_size)
+    # the launcher serves a speculating stream over its repetitive workload
+    repetitive = repetitive_stream(8, 512, 64, cfg.vocab_size)
     for name, r in recs.items():
-        stream = shared if name == "prefix_share" else plain
+        stream = (shared if name == "prefix_share"
+                  else repetitive if name.startswith("speculate") else plain)
         # every prefix-shared request: all but the first are suffix
         # admissions over shared pages
         for rid in range(len(stream) if name == "prefix_share" else 2):
@@ -1252,16 +1356,22 @@ def main() -> int:
         geom = derive_page_geometry(cfg, MAX_LEN, page_tokens=16, max_slots=4)
         n_slots = derive_n_slots(cfg, MAX_LEN, max_slots=4, pages=geom)
     timing = phase_kernels(cfg, geom, n_slots, fcfg)
+    check_merge_counters("phase 3")
     free_memory()
     phase_one_shot(cfg)
+    check_merge_counters("phase 4")
     streams = phase_stream(cfg)
+    check_merge_counters("phase 5")
     rec = streams["stream"]
     free_memory()
     falcon = phase_falcon(fcfg)
+    check_merge_counters("phase 6")
     paper = phase_paper()
+    check_merge_counters("phase 7")
     log("[8/9] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
     phase_profile(fcfg)
+    check_merge_counters("phase 8")
 
     log(f"[9/9] summary ({time.perf_counter() - t_start:.0f} s)")
     rows = [("flash_attention", "flash_attention",

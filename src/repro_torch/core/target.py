@@ -229,6 +229,13 @@ class HardwareTarget:
     planner partitions: VMEM on TPU, the full shared-L1 cluster SPM on
     MemPool (the paper's t-rule fills the whole pool), one block's shared
     memory on a GPU.
+
+    ``stream_level`` names the level a prompt or verify chunk's streamed
+    rows live in between kernels, where that is not the scratchpad: on a
+    GPU a chunk's K/V and activation rows pass from kernel to kernel
+    through L2, not through one block's shared memory. Unset, the
+    serving budgets (``derive_prefill_chunk``,
+    ``derive_speculate_tokens``) price against the scratchpad.
     """
 
     name: str
@@ -239,6 +246,7 @@ class HardwareTarget:
     tile_align: int                    # block-edge alignment for plans
     word_bytes: int                    # native word the capacity rule counts
     db_margin: float = 0.0             # default double-buffer floor margin
+    stream_level: Optional[str] = None  # serving chunks' level, if not smem
 
     @property
     def scratchpad_bytes(self) -> int:
@@ -312,7 +320,8 @@ GPU_TILE_ALIGN = 32
 
 def gpu_target(profile: GpuProfile) -> HardwareTarget:
     """smem / L2 / HBM — the GPU instance. The scratchpad is the shared
-    memory one thread block may claim; L2 is shared by every SM.
+    memory one thread block may claim; L2 is shared by every SM and is the
+    level a serving chunk's streamed rows live in (``stream_level``).
 
     Latencies are public-order-of-magnitude estimates; planning uses only
     capacities and bandwidths.
@@ -326,7 +335,8 @@ def gpu_target(profile: GpuProfile) -> HardwareTarget:
     ))
     return HardwareTarget(
         name=profile.name, kind="gpu", hierarchy=hierarchy, profile=profile,
-        scratchpad_level="smem", tile_align=GPU_TILE_ALIGN, word_bytes=2)
+        scratchpad_level="smem", tile_align=GPU_TILE_ALIGN, word_bytes=2,
+        stream_level="l2")
 
 
 # ---------------------------------------------------------------------------

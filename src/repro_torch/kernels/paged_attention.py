@@ -28,7 +28,7 @@ workspace are sized from the block table's width alone.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,9 +42,11 @@ SPLIT_TOKENS = 64
 #: splits a first-level merge takes (``NODE`` in the source): a slot whose
 #: live splits span several such nodes merges each node, then the nodes
 MERGE_NODE = 16
-#: per-device (slot, KV head) arrival counters of the in-launch merge: zeroed
-#: once, left zero by every launch, grown when a call needs more
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+#: (slot, KV head) arrival counters of the in-launch merge, one buffer per
+#: (device, CUDA stream): zeroed once, left zero by every launch, grown when
+#: a call needs more. A launch on another stream never shares a buffer with
+#: one in flight.
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 # ------------------------------------------------------------------ oracle
@@ -137,13 +139,23 @@ def split_geometry(batch: int, hkv: int, group: int, page_tokens: int,
         batch * hkv * (n_nodes + 1))
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device)
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The merge's counter buffer of ``(device, stream)``, at least ``n``
+    long. A grown buffer is made on ``stream``, so it is zero before any
+    launch there reads it."""
+    key = (device, stream)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
                           dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
+        _COUNTERS[key] = buf
     return buf
+
+
+def counter_buffers() -> Dict[Tuple[torch.device, int], torch.Tensor]:
+    """Every merge counter buffer made so far, by (device, stream): each
+    must read all zeros whenever no launch is in flight."""
+    return dict(_COUNTERS)
 
 
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -158,8 +170,8 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     raises; a CPU tensor takes :func:`paged_flash_decode_plain`. Block-table
     entries must lie in ``[0, n_pages)``: the scheduler's page allocator
     guarantees it, and checking it here would read the device from the
-    host inside the decode chunk. Calls that share a device must run on
-    one stream (the merge's counters are per device).
+    host inside the decode chunk. The merge's counters are one buffer per
+    (device, stream), so launches on different streams never share one.
     """
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, block_tables,
@@ -216,15 +228,15 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     geom = split_geometry(b, hkv, hq // hkv, pt, p_max, d)
     ws = torch.empty(geom.workspace_floats, dtype=torch.float32,
                      device=q.device)
-    counters = _counters(q.device, geom.counters)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counters(q.device, stream, geom.counters)
     out = torch.empty((b, hq, 1, d), dtype=q.dtype, device=q.device)
     rc = lib.paged_decode_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
         ws.data_ptr(), counters.data_ptr(), b, hq, hkv, pt, p_max,
         q.stride(0), q.stride(1), ws.numel(), counters.numel(), d ** -0.5,
-        int(window is not None), window or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(window is not None), window or 0, stream)
     build.check(_LIB, rc)
     paged_flash_decode.launches += 1
     return out

@@ -20,6 +20,20 @@ The counterpart of ``src/repro/launch/serve.py``, on the card by default
   * ``--chunk-prefill-tokens N`` (either pool) — chunked prefill: at most
     N prompt tokens per drain boundary, interleaved with decode; ``0``
     derives N from the target (``derive_prefill_chunk``) and prints it.
+  * ``--speculate-tokens K`` (either pool) — self-drafting speculative
+    decoding: each drain boundary proposes up to K draft tokens a live
+    slot by prompt lookup and scores them all in ONE verify forward,
+    emitting the accepted prefix + 1; ``0`` derives K from the target
+    (``derive_speculate_tokens``) and prints it. Without
+    ``--prefix-share`` the stream becomes the repetitive (motif-tiled)
+    workload the proposer is built for. Proposed / accepted / rejected
+    drafts and the acceptance rate join the report.
+  * ``--stream N --paged --disaggregate`` — prefill and decode roles over
+    the same paged pool: admissions and prompt chunks on the prefill
+    role, decode on the decode role, and at each request's final prefill
+    chunk its pages hand over by a zero-copy ownership flip. Handover and
+    per-role host-sync counters join the report; outputs are the
+    combined engine's.
 
 Weights are random, made on the device from a fixed seed. The hardware
 target (``--target``, else ``REPRO_TARGET`` or the registry default) sizes
@@ -49,7 +63,9 @@ from repro_torch.models.api import build_model, resolve_device
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.serve.scheduler import (DRAINED, Scheduler, derive_n_slots,
                                          derive_page_geometry,
-                                         derive_prefill_chunk, percentile,
+                                         derive_prefill_chunk,
+                                         derive_speculate_tokens, percentile,
+                                         repetitive_stream,
                                          shared_prefix_stream,
                                          synthetic_stream)
 
@@ -112,6 +128,18 @@ def run_stream(engine: Engine, scheduler: Scheduler, stream: list) -> dict:
         "paged": stats["paged"],
         "outputs": report.outputs,
     }
+    if stats.get("speculate_tokens"):
+        rec.update({k: stats[k] for k in (
+            "speculate_tokens", "spec_proposed", "spec_accepted",
+            "spec_rejected", "spec_acceptance_rate")})
+    if stats.get("disaggregate"):
+        rec.update({
+            "disaggregate": True,
+            "handovers": stats["handovers"],
+            "handover_pages": stats["handover_pages"],
+            "host_syncs_by_role": dict(stats["host_syncs_by_role"]),
+            "decode_tokens": stats["decode_tokens"],
+        })
     if stats["paged"]:
         rec.update({k: stats[k] for k in (
             "page_tokens", "n_pages", "n_spill_pages", "pages_high_water",
@@ -126,6 +154,8 @@ def run_stream(engine: Engine, scheduler: Scheduler, stream: list) -> dict:
 def _print_stream(cfg, args, rec: dict, dev: torch.device) -> None:
     mode = ("paged+share" if args.prefix_share
             else "paged" if args.paged else "dense")
+    if args.disaggregate:
+        mode += "+disagg"
     print(f"arch={cfg.name} stream={args.stream} mode={mode} "
           f"slots={rec['n_slots']} (max reuse {rec['max_slot_reuse']})"
           f" device={dev}")
@@ -147,6 +177,21 @@ def _print_stream(cfg, args, rec: dict, dev: torch.device) -> None:
               f"tokens, ttft-to-first-token p50/p95 "
               f"{rec['ttft_emit_steps_p50']:.0f}/"
               f"{rec['ttft_emit_steps_p95']:.0f}")
+    if rec.get("speculate_tokens"):
+        print(f"speculative decoding: k={rec['speculate_tokens']}, "
+              f"{rec['spec_proposed']} proposed -> "
+              f"{rec['spec_accepted']} accepted / "
+              f"{rec['spec_rejected']} rejected "
+              f"(acceptance {rec['spec_acceptance_rate']:.2f}); "
+              f"{rec['n_tokens']} tokens over "
+              f"{rec['decode_steps_total']} verify forwards")
+    if rec.get("disaggregate"):
+        roles = rec["host_syncs_by_role"]
+        print(f"disaggregated roles: {rec['handovers']} handovers "
+              f"({rec['handover_pages']} pages moved, 0 bytes copied); "
+              f"host syncs prefill {roles.get('prefill', 0)} / decode "
+              f"{roles.get('decode', 0)}; {rec['decode_tokens']} "
+              f"decode-role tokens")
     if not rec["paged"]:
         print(f"preemptions {rec['preemptions']} (dense pool)", flush=True)
         return
@@ -204,6 +249,18 @@ def parser() -> argparse.ArgumentParser:
                          "per drain boundary, interleaved with decode "
                          "(0: derive N from the target's CapacityPartition; "
                          "default: whole-prompt admission)")
+    ap.add_argument("--speculate-tokens", type=int, default=None,
+                    metavar="K",
+                    help="self-drafting speculative decoding: propose up to "
+                         "K draft tokens per slot per drain boundary and "
+                         "verify them in one batched forward "
+                         "(0: derive K from the target's CapacityPartition; "
+                         "default: off)")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="split serving into prefill-role and decode-role "
+                         "engines over the shared paged pool; pages hand "
+                         "over at the final prefill chunk (requires "
+                         "--paged; bit-identical outputs)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "on the CPU)")
@@ -214,11 +271,16 @@ def run(argv=None) -> Dict[str, Any]:
     """Parse ``argv``, serve, print the report; return its record."""
     ap = parser()
     args = ap.parse_args(argv)
+    if args.speculate_tokens is not None and not args.stream:
+        ap.error("--speculate-tokens applies to --stream serving")
     if args.paged and not args.stream:
         ap.error("--paged applies to --stream serving")
     if args.prefix_share and not args.paged:
         ap.error("--prefix-share requires --paged (shared pages live in "
                  "the paged pool)")
+    if args.disaggregate and not args.paged:
+        ap.error("--disaggregate requires --paged (page handover moves "
+                 "block-table rows, which the dense pool does not have)")
     system_len = args.system_len or max(1, args.prompt_len // 2)
     if args.prefix_share and system_len >= args.prompt_len:
         ap.error("--system-len must leave room for a unique tail "
@@ -231,9 +293,16 @@ def run(argv=None) -> Dict[str, Any]:
         model = build_model(cfg, device=dev)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         max_len = args.prompt_len + args.gen_len
+        spec_k = args.speculate_tokens
+        if spec_k == 0:
+            spec_k = derive_speculate_tokens(cfg)
+            print(f"derived --speculate-tokens {spec_k} "
+                  f"(target {get_target().name})")
         engine = Engine(model, params,
                         EngineConfig(max_len=max_len,
-                                     sync_interval=args.sync_interval))
+                                     sync_interval=args.sync_interval,
+                                     speculate_tokens=spec_k or 0,
+                                     disaggregate=args.disaggregate))
         del params
         if args.stream:
             pages = None
@@ -252,11 +321,17 @@ def run(argv=None) -> Dict[str, Any]:
                       f"(target {get_target().name})")
             sched = Scheduler(n_slots=n_slots, pages=pages,
                               prefix_share=args.prefix_share,
-                              chunk_prefill_tokens=chunk)
+                              chunk_prefill_tokens=chunk,
+                              disaggregate=args.disaggregate)
             if args.prefix_share:
                 stream = shared_prefix_stream(
                     args.stream, system_len, args.prompt_len - system_len,
                     args.gen_len, cfg.vocab_size)
+            elif spec_k:
+                # the motif-tiled workload the prompt-lookup proposer is
+                # built for
+                stream = repetitive_stream(args.stream, args.prompt_len,
+                                           args.gen_len, cfg.vocab_size)
             else:
                 stream = synthetic_stream(args.stream, args.prompt_len,
                                           args.gen_len, cfg.vocab_size)

@@ -1,4 +1,5 @@
-"""Model facade: init / loss / prefill / decode_step / the row moves.
+"""Model facade: init / loss / prefill / decode_step / verify_step / the
+row moves.
 
 The counterpart of ``src/repro/models/api.py`` for ``family="dense"`` and
 ``family="ssm"``.
@@ -154,6 +155,34 @@ class Model:
         logits, caches = transformer.decode_step(
             self.cfg, params, tokens, state["caches"], cache_len,
             plans=plans, block_tables=block_tables)
+        return logits, {**state, "caches": caches}
+
+    def verify_step(self, params, tokens: torch.Tensor,
+                    state: Dict[str, Any], cache_len: torch.Tensor, *,
+                    plans: Optional[KernelPlans] = None,
+                    block_tables: Optional[torch.Tensor] = None):
+        """Score k draft tokens per slot in ONE batched forward, the verify
+        half of speculative decoding. ``tokens`` is ``(B, k+1)``: each
+        slot's last emitted token, then its drafts; ``cache_len`` is the
+        ``(B,)`` frontier. Returns ``(logits f32 (B, k+1, Vpad), state)``,
+        logits column ``j`` being what :meth:`decode_step` gives after
+        ``tokens[:, :j+1]``. All k+1 K/V rows are written at ``cache_len +
+        j`` (slab or, with ``block_tables``, pages); the engine rolls a
+        rejected suffix back by not advancing ``cache_len`` over it.
+        Attention-only decoder models: recurrent SSM state integrates every
+        token it sees and cannot roll back."""
+        cfg = self.cfg
+        if cfg.family == "encdec" or cfg.frontend_len:
+            raise NotImplementedError(
+                "speculative verify targets decoder-only token-prompt "
+                "models; others go through one-shot generate()")
+        if has_recurrent_state(cfg):
+            raise ValueError(
+                "speculative decoding requires attention-only models: "
+                "recurrent SSM state cannot roll back rejected draft tokens")
+        logits, caches = transformer.verify_step(
+            cfg, params, tokens, state["caches"], cache_len, plans=plans,
+            block_tables=block_tables)
         return logits, {**state, "caches": caches}
 
     def slot_update(self, pool_state: Dict[str, Any],

@@ -40,12 +40,14 @@ def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor, cache_len,
                  axis: int) -> torch.Tensor:
     """Write ``new`` into the cache at position ``cache_len``, in place.
 
-    ``cache_len`` is a python int (prefill: a static slice) or, for a
-    single-token ``new``, a 0-d tensor (one-shot decode: every row at one
-    offset) or a per-row ``(B,)`` tensor (each slot at its own depth).
-    Tensor offsets stay on the device: a masked select, never a host read.
-    Multi-token appends at tensor offsets (the speculative verify chunk)
-    come with ROADMAP A6.3.
+    ``cache_len`` is a python int (prefill: a static slice), a 0-d tensor
+    (one-shot decode: every row at one offset) or a per-row ``(B,)`` tensor
+    (each slot at its own depth). Tensor offsets stay on the device: a
+    masked select, never a host read. A multi-token ``new`` at tensor
+    offsets (the speculative verify chunk, k+1 rows a slot) is the
+    reference's masked gather-select: position ``cache_len + j`` takes row
+    ``j``, and rows that would land past the cache depth fall outside the
+    iota mask.
     """
     new = new.to(cache_arr.dtype)
     s = new.shape[axis]
@@ -54,17 +56,25 @@ def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor, cache_len,
         idx[axis] = slice(cache_len, cache_len + s)
         cache_arr[tuple(idx)] = new
         return cache_arr
-    if s != 1:
-        raise NotImplementedError(
-            "multi-token appends at device-side offsets (speculative "
-            "verify) are not ported yet (ROADMAP A6.3)")
     shape = [1] * cache_arr.ndim
     shape[axis] = cache_arr.shape[axis]
     iota = torch.arange(cache_arr.shape[axis],
                         device=cache_arr.device).reshape(shape)
     if cache_len.ndim == 1:          # per-slot lengths over batch axis 0
         cache_len = cache_len.reshape((-1,) + (1,) * (cache_arr.ndim - 1))
-    cache_arr.copy_(torch.where(iota == cache_len, new, cache_arr))
+    if s == 1:
+        cache_arr.copy_(torch.where(iota == cache_len, new, cache_arr))
+        return cache_arr
+    # multi-token append: gather row (position - cache_len) of ``new`` at
+    # every position, keep it where the position is one of the s written
+    rel = iota - cache_len
+    idx = torch.clamp(rel, 0, s - 1).expand(
+        *cache_arr.shape[:axis], cache_arr.shape[axis],
+        *cache_arr.shape[axis + 1:])
+    gathered = torch.gather(new.expand(*cache_arr.shape[:axis], s,
+                                       *cache_arr.shape[axis + 1:]),
+                            axis, idx.long())
+    cache_arr.copy_(torch.where((rel >= 0) & (rel < s), gathered, cache_arr))
     return cache_arr
 
 

@@ -253,3 +253,19 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                         cache_len=cache_len, plans=plans,
                         block_tables=block_tables)
     return layers.unembed_logits(params["tok"], x), caches
+
+
+def verify_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                caches, cache_len: torch.Tensor,
+                plans: Optional[KernelPlans] = None,
+                block_tables: Optional[torch.Tensor] = None):
+    """Multi-position decode for speculative verify: ``tokens`` is ``(B,
+    k+1)`` (each slot's last token, then its k drafts) and ``cache_len``
+    the per-slot ``(B,)`` frontier. Column ``j`` runs at RoPE position
+    ``cache_len + j`` with a causal-within-chunk mask over the (dense or
+    paged) cache and appends its K/V at ``cache_len + j``, so logits column
+    ``j`` scores the token after ``tokens[:, :j+1]`` as ``j`` successive
+    :func:`decode_step` calls would. This is :func:`decode_step` at S =
+    k+1; the name carries the verify contract, as in the reference."""
+    return decode_step(cfg, params, tokens, caches, cache_len, plans=plans,
+                       block_tables=block_tables)

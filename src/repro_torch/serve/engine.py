@@ -23,15 +23,33 @@ decode substrate:
     prompts a budget of tokens per boundary, interleaved with decode, on
     either pool.
 
+Two more modes run on either pool's loop:
+
+  * ``EngineConfig(speculate_tokens=k)`` — self-drafting speculative
+    decoding: at each drain boundary the host proposes up to k drafts a
+    live slot (:func:`~repro_torch.serve.speculate.propose_ngram`) and ONE
+    width-(k+1) verify forward scores them
+    (:meth:`DecodeRole.verify_fn`), emitting the accepted prefix + 1.
+    Attention-only models.
+  * ``EngineConfig(disaggregate=True)`` (paged pool) — the same loop
+    routed by role: admissions and prompt chunks belong to the prefill
+    role, decode to the decode role, and at a request's final prefill
+    chunk the scheduler's handover flips the slot's owner
+    (:meth:`PoolManager.transfer_ownership`, zero-copy); the decode role
+    uploads only the block-table rows it owns. Both roles issue on one
+    stream, as the reference issues them in one program; outputs are the
+    combined engine's, bit for bit.
+
 The drain-boundary discipline is the reference's: :meth:`EngineCore._fetch`
-is the only device->host read, counted in ``last_stats["host_syncs"]``. On
-the card every decode chunk runs under
+is the only device->host read, counted in ``last_stats["host_syncs"]`` (and
+by role when disaggregated: the decode role reads once a boundary, the
+prefill role only at boundaries that completed a prompt). On the card every
+decode and verify chunk runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so any hidden device->host
 sync inside a chunk raises — the counterpart of the reference's transfer
 guard.
 
-Not in this slice (ROADMAP A6.3-A6.5): speculative decoding,
-disaggregated roles, quantized tiers and host parking.
+Not in this slice (ROADMAP A6.5): quantized tiers and host parking.
 """
 
 from __future__ import annotations
@@ -46,7 +64,9 @@ import torch
 
 from repro_torch.models.api import Model, has_recurrent_state
 from repro_torch.serve import scheduler as sched_mod
-from repro_torch.serve.pool import PoolManager, PoolState, check_page_ids
+from repro_torch.serve import speculate as spec_mod
+from repro_torch.serve.pool import (DECODE_ROLE, PREFILL_ROLE, PoolManager,
+                                    PoolState, check_page_ids)
 
 __all__ = ["Engine", "EngineConfig", "EngineCore", "PrefillRole",
            "DecodeRole", "PoolState", "ServeReport"]
@@ -58,12 +78,31 @@ class EngineConfig:
     ``sync_interval`` is the decode-chunk length between host syncs;
     ``pad_token`` fills empty slots. Prompts prefill at their exact
     length: the reference's prompt bucketing exists only to bound XLA
-    compiles, and eager PyTorch has none."""
+    compiles, and eager PyTorch has none.
+
+    ``speculate_tokens`` (k) turns on speculative decoding in the serve
+    loops: one width-(k+1) verify forward a boundary instead of a
+    ``sync_interval``-step chunk; greedy outputs are those of
+    ``speculate_tokens=0``. Attention-only models; size k with
+    :func:`repro_torch.serve.scheduler.derive_speculate_tokens`.
+
+    ``disaggregate`` routes serving by prefill and decode roles over the
+    shared paged pool (see the module docstring); it requires the paged
+    pool.
+
+    ``phase_timing`` charges each phase's wall time (prefill / insert /
+    generate / drain / handover), blocked on the device, to
+    ``last_stats["phase_s"]`` and, by role, ``["role_s"]``: benchmark
+    mode only, since blocking serialises the host's issue ahead of the
+    device."""
 
     max_len: int
     eos_token: int = 1
     sync_interval: int = 8
     pad_token: int = 0
+    speculate_tokens: int = 0
+    phase_timing: bool = False
+    disaggregate: bool = False
 
 
 @dataclasses.dataclass
@@ -111,11 +150,34 @@ class EngineCore:
         self.plans = model.kernel_plans(ecfg.max_len, ecfg.max_len)
         self.last_stats: Dict[str, Any] = {}
 
-    def _fetch(self, tree):
+    def _fetch(self, tree, role: Optional[str] = None):
         """The ONLY device->host read path, issued at drain boundaries and
-        counted in ``last_stats["host_syncs"]``."""
+        counted in ``last_stats["host_syncs"]`` (and under ``role`` in
+        ``["host_syncs_by_role"]`` when serving disaggregated)."""
         self.last_stats["host_syncs"] = self.last_stats.get("host_syncs", 0) + 1
+        if role is not None:
+            by = self.last_stats.setdefault("host_syncs_by_role", {})
+            by[role] = by.get(role, 0) + 1
         return _to_host(tree)
+
+    def _timed(self, phase: str, fn, *args, role: Optional[str] = None):
+        """Run ``fn(*args)``; with ``phase_timing`` on, wait for the device
+        (``torch.cuda.synchronize`` on the card, after ``fn`` returns, so
+        never inside a chunk) and charge the wall time to
+        ``last_stats["phase_s"][phase]`` and ``["role_s"][role]``."""
+        if not self.ecfg.phase_timing:
+            return fn(*args)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        acc = self.last_stats.setdefault("phase_s", {})
+        acc[phase] = acc.get(phase, 0.0) + dt
+        if role is not None:
+            racc = self.last_stats.setdefault("role_s", {})
+            racc[role] = racc.get(role, 0.0) + dt
+        return out
 
     def tensor(self, data, dtype=torch.int32) -> torch.Tensor:
         """A host->device upload (never inside a decode chunk)."""
@@ -125,6 +187,8 @@ class EngineCore:
 
 class PrefillRole:
     """Admissions (whole-prompt, suffix-only and chunked) over the pool."""
+
+    name = PREFILL_ROLE
 
     def __init__(self, core: EngineCore, pools: PoolManager):
         self.core = core
@@ -305,7 +369,13 @@ class PrefillRole:
 
 
 class DecodeRole:
-    """Batched decode chunks: ``n`` steps on the device, no host read."""
+    """Batched decode and speculative-verify chunks over the pool: the
+    device's work between two drain boundaries, with no host read. In
+    disaggregated serving its block table carries only the rows it owns:
+    a done-masked slot it does not own writes its junk K/V to the null
+    page, never to that slot's pages."""
+
+    name = DECODE_ROLE
 
     def __init__(self, core: EngineCore, pools: PoolManager):
         self.core = core
@@ -368,12 +438,77 @@ class DecodeRole:
 
         return run
 
+    def verify_fn(self, k: int):
+        """The speculative boundary: ONE width-(k+1) verify forward over
+        ALL slots, folded into the pool's done-masked updates.
+
+        A slot's verify row is its last emitted token, then its k drafts
+        (``drafts`` ``(S, k)`` int32 on the device, ``dlen`` of them real),
+        so argmax column j is what the j-th sequential :meth:`pool_chunk`
+        step would give; :func:`~repro_torch.serve.speculate.
+        fold_acceptance` emits the longest agreeing prefix plus one token
+        and rolls ``cache_len`` back over the rest. Returns (pool, tokens,
+        valid), the last two ``(k+1, S)`` like :meth:`pool_chunk`'s. The
+        verify forward's attention takes the reference's multi-token
+        dispatch: gather + oracle on the paged pool, the masked oracle on
+        the slab."""
+        core = self.core
+        cfg, ecfg, plans = core.model.cfg, core.ecfg, core.plans
+
+        def run(params, pool: PoolState, drafts: torch.Tensor,
+                dlen: torch.Tensor):
+            with device_only(core.device):
+                tokens = torch.cat([pool.tok[:, None], drafts], dim=1)
+                logits, state = core.model.verify_step(
+                    params, tokens, pool.state, pool.cache_len, plans=plans,
+                    block_tables=pool.block_tables)
+                targets = torch.argmax(logits[:, :, :cfg.vocab_size],
+                                       dim=-1).to(torch.int32)  # (S, k+1)
+                fold = spec_mod.fold_acceptance(
+                    targets, drafts, dlen, done=pool.done, n_gen=pool.n_gen,
+                    budget=pool.budget, cache_len=pool.cache_len,
+                    max_len=ecfg.max_len, eos_token=ecfg.eos_token)
+                toks = torch.where(fold.valid, targets, ecfg.eos_token)
+                new = PoolState(state=state, tok=fold.tok,
+                                cache_len=fold.cache_len, done=fold.done,
+                                n_gen=fold.n_gen, budget=pool.budget,
+                                block_tables=pool.block_tables)
+            return new, toks.T, fold.valid.T
+
+        return run
+
+    def build_drafts(self, sch: sched_mod.Scheduler, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-side drafts for every live slot, from the slot's prompt and
+        emitted tokens (:func:`~repro_torch.serve.speculate.propose_ngram`).
+        Slots with nothing to propose from — free, mid-prefill, or admitted
+        at this boundary (first token still on the device) — get ``dlen =
+        0``, which the fold turns into an ordinary single-token step."""
+        drafts = np.zeros((sch.n_slots, k), np.int32)
+        dlen = np.zeros((sch.n_slots,), np.int32)
+        for slot, req in sch.active.items():
+            if req.status != sched_mod.DECODING or not req.tokens:
+                continue
+            ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                                  np.asarray(req.tokens, np.int32)])
+            d = spec_mod.propose_ngram(ctx, k)
+            drafts[slot, :d.shape[0]] = d
+            dlen[slot] = d.shape[0]
+        return drafts, dlen
+
 
 class Engine:
     """One :class:`EngineCore`, one :class:`PoolManager`, a
-    :class:`PrefillRole` and a :class:`DecodeRole`, plus the serve loop."""
+    :class:`PrefillRole` and a :class:`DecodeRole`, plus the serve loop.
+    With ``EngineConfig(disaggregate=True)`` (paged pool) the loop routes
+    work, host syncs and timing by role and executes the scheduler's page
+    handovers; otherwise both roles run as one engine."""
 
     def __init__(self, model: Model, params: Any, ecfg: EngineConfig):
+        if ecfg.speculate_tokens and has_recurrent_state(model.cfg):
+            raise ValueError(
+                "speculative decoding requires attention-only models: "
+                "recurrent SSM state cannot roll back rejected draft tokens")
         self.core = EngineCore(model, params, ecfg)
         self.pools = PoolManager(model, ecfg)
         self.prefill_role = PrefillRole(self.core, self.pools)
@@ -438,25 +573,66 @@ class Engine:
         return torch.cat(out, dim=1), state
 
     # ------------------------------------------------------------ serve
-    def _start_stats(self) -> None:
+    def _start_stats(self, disagg: bool) -> None:
         self.last_stats = {"host_syncs": 0, "decode_steps": 0, "chunks": 0,
                            "admissions": 0}
+        if disagg:
+            self.last_stats.update(
+                host_syncs_by_role={PREFILL_ROLE: 0, DECODE_ROLE: 0},
+                decode_tokens=0)
+        if self.ecfg.speculate_tokens:
+            self.last_stats.update(speculate_tokens=self.ecfg.speculate_tokens,
+                                   spec_proposed=0, spec_accepted=0)
 
     def _decode_and_drain(self, sch: sched_mod.Scheduler, pool: PoolState,
                           pending_first: List[Tuple[sched_mod.Request,
                                                     torch.Tensor]],
-                          step_clock: int) -> Tuple[PoolState, int, int]:
-        """One ``sync_interval`` decode chunk over every slot, then the
-        boundary's ONE host sync: the chunk's tokens, the done mask and any
-        pending first tokens. Drained slots are freed. Returns (pool, step
-        clock, tokens emitted at this boundary)."""
-        core, n = self.core, self.ecfg.sync_interval
-        pool, toks, valid = self.decode_role.pool_chunk(n)(core.params, pool)
-        step_clock += n
-        self.last_stats["decode_steps"] += n
-        self.last_stats["chunks"] += 1
-        toks_h, valid_h, done_h, firsts = core._fetch(
-            (toks, valid, pool.done, [f for _, f in pending_first]))
+                          step_clock: int, disagg: bool
+                          ) -> Tuple[PoolState, int, int, float]:
+        """The boundary's decode work — one ``sync_interval`` decode chunk,
+        or one verify forward when speculating — over every slot, then its
+        host sync: ONE fetch of the chunk's tokens, the done mask and any
+        pending first tokens; disaggregated, one decode-role fetch and a
+        prefill-role fetch only when a prompt completed. Drained slots are
+        freed. Returns (pool, step clock, tokens emitted, the decode role's
+        wall time: its dispatch and its drain)."""
+        core, dec, stats = self.core, self.decode_role, self.last_stats
+        spec_k = self.ecfg.speculate_tokens
+        dec_role = DECODE_ROLE if disagg else None
+        t_dec = time.perf_counter()
+        if spec_k:
+            # one verify forward replaces the sync_interval-step chunk; the
+            # boundary still costs exactly one host sync a role below
+            drafts, dlen = dec.build_drafts(sch, spec_k)
+            pool, toks, valid = core._timed(
+                "generate", dec.verify_fn(spec_k), core.params, pool,
+                core.tensor(drafts), core.tensor(dlen), role=dec_role)
+            step_clock += 1
+            stats["decode_steps"] += 1
+            stats["spec_proposed"] += int(dlen.sum())
+        else:
+            n = self.ecfg.sync_interval
+            pool, toks, valid = core._timed(
+                "generate", dec.pool_chunk(n), core.params, pool,
+                role=dec_role)
+            step_clock += n
+            stats["decode_steps"] += n
+        stats["chunks"] += 1
+        if disagg:
+            toks_h, valid_h, done_h = core._timed(
+                "drain", core._fetch, (toks, valid, pool.done), DECODE_ROLE,
+                role=DECODE_ROLE)
+            decode_wall = time.perf_counter() - t_dec
+            firsts = []
+            if pending_first:
+                firsts = core._timed(
+                    "drain", core._fetch, [f for _, f in pending_first],
+                    PREFILL_ROLE, role=PREFILL_ROLE)
+        else:
+            toks_h, valid_h, done_h, firsts = core._timed(
+                "drain", core._fetch,
+                (toks, valid, pool.done, [f for _, f in pending_first]))
+            decode_wall = time.perf_counter() - t_dec
         emitted = len(firsts)
         for (req, _), f in zip(pending_first, firsts):
             req.tokens.append(int(f))
@@ -469,34 +645,59 @@ class Engine:
             req.tokens.extend(
                 int(t) for t, v in zip(toks_h[:, slot], valid_h[:, slot])
                 if v)
-            emitted += len(req.tokens) - before
+            got = len(req.tokens) - before
+            emitted += got
+            if disagg:
+                stats["decode_tokens"] += got
+            if spec_k:
+                # accepted drafts + 1 correction token; a slot admitted at
+                # this boundary (dlen = 0) emits 1 and accepts 0
+                stats["spec_accepted"] += max(got - 1, 0)
             # a mid-prefill slot's done flag is still the free marker from
             # before its admission: only DECODING slots can drain
             if done_h[slot] and req.status != sched_mod.PREFILLING:
                 req.finish_step = step_clock
+                self.pools.release(slot)
                 sch.complete(slot)
-        return pool, step_clock, emitted
+        return pool, step_clock, emitted, decode_wall
 
     def _run_boundaries(self, sch: sched_mod.Scheduler, pool: PoolState,
-                        boundary, max_steps: Optional[int]) -> None:
+                        boundary, max_steps: Optional[int],
+                        disagg: bool = False) -> None:
         """The serve loop both pools share: ``boundary(pool, step_clock,
         pending_first)`` does a boundary's admissions and copies and
-        returns the pool, then one decode chunk and one drain."""
+        returns the pool, then the decode work and the drain."""
         pending_first: List[Tuple[sched_mod.Request, torch.Tensor]] = []
         boundary_wall: List[float] = []
         boundary_tokens: List[int] = []
+        decode_wall: List[float] = []
         step_clock = 0
         while sch.has_work():
             t0 = time.perf_counter()
             pool = boundary(pool, step_clock, pending_first)
-            pool, step_clock, emitted = self._decode_and_drain(
-                sch, pool, pending_first, step_clock)
+            pool, step_clock, emitted, t_dec = self._decode_and_drain(
+                sch, pool, pending_first, step_clock, disagg)
             boundary_wall.append(time.perf_counter() - t0)
             boundary_tokens.append(emitted)
+            decode_wall.append(t_dec)
             if max_steps is not None and step_clock >= max_steps:
                 break
         self.last_stats["boundary_wall_s"] = boundary_wall
         self.last_stats["boundary_tokens"] = boundary_tokens
+        if disagg:
+            # the inter-token clock a decode consumer sees when prefill runs
+            # on its own engine (meaningful under phase_timing)
+            self.last_stats["boundary_decode_wall_s"] = decode_wall
+        self._finish_spec_stats()
+
+    def _finish_spec_stats(self) -> None:
+        """Derive the acceptance summary once a serve run ends."""
+        stats = self.last_stats
+        if "spec_proposed" not in stats:
+            return
+        prop, acc = stats["spec_proposed"], stats["spec_accepted"]
+        stats["spec_rejected"] = prop - acc
+        stats["spec_acceptance_rate"] = acc / prop if prop else 0.0
 
     def _report(self, sch: sched_mod.Scheduler,
                 requests: List[sched_mod.Request]) -> ServeReport:
@@ -510,9 +711,9 @@ class Engine:
 
         Boundary order: admissions (an over-long prompt is rejected
         cleanly, without aborting the stream or leaking its slot) -> the
-        planned prefill chunks when chunking -> decode chunk -> ONE drain
-        fetch."""
-        if sch.disaggregate:
+        planned prefill chunks when chunking -> decode chunk or verify
+        forward -> ONE drain fetch."""
+        if self.ecfg.disaggregate or sch.disaggregate:
             raise ValueError(
                 "disaggregated serving requires the paged pool: page "
                 "handover moves block-table rows, which the dense "
@@ -522,8 +723,8 @@ class Engine:
             raise ValueError(
                 "chunked prefill requires attention-only models: recurrent "
                 "SSM state has no resumable KV prefix")
-        pre, max_len = self.prefill_role, self.ecfg.max_len
-        self._start_stats()
+        core, pre, max_len = self.core, self.prefill_role, self.ecfg.max_len
+        self._start_stats(False)
 
         def boundary(pool, step_clock, pending_first):
             for slot, req in sch.admit():
@@ -534,14 +735,16 @@ class Engine:
                     continue
                 if chunked:
                     continue        # prefills by chunks via plan_prefill
-                pool, first = pre.admit_into_slot(pool, slot, req.prompt,
-                                                  req.max_new_tokens)
+                pool, first = core._timed(
+                    "prefill", pre.admit_into_slot, pool, slot, req.prompt,
+                    req.max_new_tokens)
                 self.last_stats["admissions"] += 1
                 req.status = sched_mod.DECODING
                 pending_first.append((req, first))
             if chunked:
                 for step in sch.plan_prefill():
-                    pool, first = pre.exec_dense_chunk(pool, step)
+                    pool, first = core._timed("prefill", pre.exec_dense_chunk,
+                                              pool, step)
                     if step.final:
                         step.req.status = sched_mod.DECODING
                         pending_first.append((step.req, first))
@@ -551,6 +754,16 @@ class Engine:
                              max_steps)
         return self._report(sch, sch.drained + list(sch.active.values()))
 
+    @staticmethod
+    def _owner_role(req: sched_mod.Request) -> str:
+        """Which role a request's pool work belongs to: mid-prefill (the
+        cursor short of the prompt, or still PREFILLING) is prefill-role
+        work; everything decoding is decode-role work."""
+        if (req.status == sched_mod.PREFILLING
+                or 0 <= req.prefill_pos < req.prompt_len):
+            return PREFILL_ROLE
+        return DECODE_ROLE
+
     def _serve_paged(self, sch: sched_mod.Scheduler,
                      max_steps: Optional[int] = None) -> ServeReport:
         """Continuous batching over the paged two-tier pool.
@@ -558,13 +771,15 @@ class Engine:
         Boundary order: spills -> restores -> admissions (whole-prompt, or
         suffix-only for a prefix-index hit) -> the planned prefill chunks
         (each copy in plan order, so the in-place pools see exactly the
-        reference's sequence of functional updates) -> block-table upload
-        -> decode chunk -> ONE drain fetch of the chunk's tokens, the done
-        mask and any pending first tokens.
+        reference's sequence of functional updates) -> page handovers when
+        disaggregated -> block-table upload (the decode role's view when
+        disaggregated: only the rows it owns) -> decode chunk or verify
+        forward -> the drain fetch (one a role when disaggregated).
         """
-        if sch.disaggregate:
-            raise NotImplementedError(
-                "disaggregated roles are not ported yet (ROADMAP A6.4)")
+        core, pools, pre = self.core, self.pools, self.prefill_role
+        disagg = self.ecfg.disaggregate or sch.disaggregate
+        if disagg and not sch.disaggregate:
+            sch.enable_disaggregation()
         ssm = has_recurrent_state(self.model.cfg)
         if sch.prefix_index is not None and ssm:
             raise ValueError(
@@ -574,15 +789,19 @@ class Engine:
             raise ValueError(
                 "chunked prefill requires attention-only models: recurrent "
                 "SSM state has no resumable KV prefix")
-        core, pools, pre = self.core, self.pools, self.prefill_role
         geom = sch.pages
-        self._start_stats()
+        self._start_stats(disagg)
         pool, spill = pools.init_paged_pool(sch)
-        n, p_max = self.ecfg.sync_interval, geom.max_pages_per_slot
+        spec_k, p_max = self.ecfg.speculate_tokens, geom.max_pages_per_slot
+        pre_role = PREFILL_ROLE if disagg else None
+        # a speculative boundary advances a slot by up to k+1 tokens in its
+        # one verify forward, so page growth is planned for k+1
+        grow = spec_k + 1 if spec_k else self.ecfg.sync_interval
 
         def boundary(pool, step_clock, pending_first):
             nonlocal spill
-            plan = sch.plan_boundary(chunk_tokens=n, max_len=self.ecfg.max_len)
+            plan = sch.plan_boundary(chunk_tokens=grow,
+                                     max_len=self.ecfg.max_len)
             if plan.resumes:
                 raise NotImplementedError(
                     "host park/resume is not ported yet (ROADMAP A6.5)")
@@ -591,31 +810,47 @@ class Engine:
             # spills FIRST: they copy layer-0 pages that restores/admits
             # may reuse later this boundary
             for act in plan.spills:
-                spill = pools.exec_spill(pool, spill, act, p_max)
+                spill = core._timed(
+                    "insert", pools.exec_spill, pool, spill, act, p_max,
+                    role=self._owner_role(act.req) if disagg else None)
             for act in plan.restores:
-                pool = pools.exec_restore(pool, spill, act, p_max)
+                role = self._owner_role(act.req) if disagg else None
+                if disagg:
+                    pools.claim(act.slot, role)
+                pool = core._timed("insert", pools.exec_restore, pool, spill,
+                                   act, p_max, role=role)
             for slot, req in plan.admits:
                 req.admit_step = step_clock
+                if disagg:
+                    pools.claim(slot, PREFILL_ROLE)
                 if req.prefill_pos >= 0:
                     continue        # chunked admission: via prefill_steps
                 admit = (pre.shared_paged_admit if req.prefix_len
                          else pre.paged_admit)
-                pool, first = admit(pool, slot, req, geom)
+                pool, first = core._timed("prefill", admit, pool, slot, req,
+                                          geom, role=pre_role)
                 self.last_stats["admissions"] += 1
                 req.status = sched_mod.DECODING
                 pending_first.append((req, first))
             # chunk prefills AFTER every copy, in plan order; a final chunk
             # arms its slot like an admission
             for step in plan.prefill_steps:
-                pool, first = pre.exec_prefill_chunk(pool, step, geom)
+                pool, first = core._timed("prefill", pre.exec_prefill_chunk,
+                                          pool, step, geom, role=pre_role)
                 if step.final:
                     step.req.status = sched_mod.DECODING
                     pending_first.append((step.req, first))
-            table = check_page_ids(sch.block_table(), geom.n_pages,
-                                   "block table")
+            # page handover: a request whose prompt completed this boundary
+            # moves prefill -> decode by a zero-copy ownership flip; the
+            # decode role's table below carries its row from now on
+            for h in plan.handovers:
+                core._timed("handover", pools.transfer_ownership, h.slot,
+                            h.pages)
+            table = sch.block_table(role=DECODE_ROLE if disagg else None)
+            table = check_page_ids(table, geom.n_pages, "block table")
             return dataclasses.replace(pool, block_tables=core.tensor(table))
 
-        self._run_boundaries(sch, pool, boundary, max_steps)
+        self._run_boundaries(sch, pool, boundary, max_steps, disagg)
         return self._report(sch, sch.drained + list(sch.active.values())
                             + list(sch.queue))
 
@@ -629,8 +864,9 @@ class Engine:
         Loop invariant: between drain boundaries everything is on the
         device. Each iteration admits queued requests into free slots (and
         runs planned prefill chunks), runs one ``sync_interval`` decode
-        chunk over the whole pool, and performs ONE host sync to read the
-        chunk's tokens and done mask; drained slots are freed at once."""
+        chunk (or one verify forward) over the whole pool, and performs ONE
+        host sync (one a role when disaggregated) to read the chunk's
+        tokens and done mask; drained slots are freed at once."""
         sch = scheduler or sched_mod.Scheduler.for_model(
             self.model.cfg, self.ecfg.max_len)
         for req in requests:

@@ -1,4 +1,5 @@
-"""Pool ownership for the serving engine: construction and tier copies.
+"""Pool ownership for the serving engine: construction, tier copies and
+the slot-ownership map of disaggregated serving.
 
 The counterpart of ``src/repro/serve/pool.py`` for the fp16 (bf16 storage)
 codec. Two pools: the dense slot slab (one ``max_len``-deep KV row per
@@ -17,17 +18,26 @@ a spill copies its pages and its slot's row OUT of layer 0 (it never keeps
 a view of them), so a restore or an admission that reuses those layer-0
 pages or that slot later in the same boundary cannot change what was
 spilled.
+
+With disaggregated roles the pool stays one address space both roles
+compute against; :meth:`PoolManager.transfer_ownership` hands a slot from
+the prefill role to the decode role by flipping one entry of the ownership
+map. No KV byte moves: the decode role's next block-table upload carries
+the slot's row.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.serve import scheduler as sched_mod
+
+PREFILL_ROLE = sched_mod.PREFILL_ROLE
+DECODE_ROLE = sched_mod.DECODE_ROLE
 
 
 # ------------------------------------------------------------- tier codecs
@@ -101,13 +111,20 @@ class PoolState:
 
 
 class PoolManager:
-    """Owns PoolState construction and the layer-0 <-> layer-1 copies."""
+    """Owns PoolState construction, the layer-0 <-> layer-1 copies and slot
+    ownership. One PoolManager backs an engine, shared by its prefill and
+    decode roles."""
 
     def __init__(self, model: Any, ecfg: Any):
         self.model = model
         self.ecfg = ecfg
-        self.device = model.device
+        self.device = None if model is None else model.device
         self.geom: Optional[sched_mod.PageGeometry] = None  # paged pools
+        # disaggregated slot ownership (role name per occupied slot); empty
+        # in combined mode, where one engine owns everything
+        self.owner: Dict[int, str] = {}
+        self.handovers = 0
+        self.handover_pages = 0
 
     # ------------------------------------------------------- construction
     def _vectors(self, n_slots: int) -> Dict[str, torch.Tensor]:
@@ -193,7 +210,9 @@ class PoolManager:
     def exec_spill(self, pool: PoolState, spill: Dict[str, Any],
                    act: sched_mod.SpillAction, p_max: int) -> Dict[str, Any]:
         """Copy a preempted sequence's layer-0 pages into layer 1, and its
-        slot's recurrent row into its seat."""
+        slot's recurrent row into its seat. The slot frees, and with it its
+        owner entry."""
+        self.owner.pop(act.slot, None)
         geom = self.geom
         self._tier_copy(pool.state["caches"], spill, act.slot, act.seat,
                         self.pad_pages(act.src_pages, p_max,
@@ -227,3 +246,30 @@ class PoolManager:
         pool.n_gen[slot] = len(req.tokens)
         pool.budget[slot] = req.max_new_tokens
         return pool
+
+    # ---------------------------------------------------------- ownership
+    def claim(self, slot: int, role: str) -> None:
+        """Record which role issues a slot's work (disaggregated serving
+        only; a combined engine never fills the map)."""
+        self.owner[slot] = role
+
+    def release(self, slot: int) -> None:
+        self.owner.pop(slot, None)
+
+    def transfer_ownership(self, slot: int, pages: List[int], *,
+                           src: str = PREFILL_ROLE,
+                           dst: str = DECODE_ROLE) -> None:
+        """Hand a slot (and its mapped pages) from ``src`` to ``dst``: pure
+        bookkeeping, since the pages already live in the pool both roles
+        compute against. Raises if ``src`` does not own the slot (a
+        handover for a slot the prefill role lost to preemption would
+        corrupt routing)."""
+        cur = self.owner.get(slot)
+        if cur != src:
+            raise RuntimeError(
+                f"handover of slot {slot}: owned by {cur!r}, expected "
+                f"{src!r} — page handover must follow the final prefill "
+                f"chunk of the owning role")
+        self.owner[slot] = dst
+        self.handovers += 1
+        self.handover_pages += len(pages)

@@ -275,9 +275,15 @@ def derive_prefill_chunk(cfg: ModelConfig, *,
     largest power of two whose streamed bytes fit ``fraction`` of the
     level, so derived chunk lengths land exactly on the engine's bucketed
     jit variants (O(log) compiled shapes).
+
+    The level is the target's ``stream_level`` where it names one (L2 on
+    a GPU: a chunk's rows pass between kernels through L2, not through
+    one block's shared memory), else the scratchpad; only the level
+    differs from the reference's formula.
     """
     target = target or get_target()
-    level = target.hierarchy.level(target.scratchpad_level)
+    level = target.hierarchy.level(
+        target.stream_level or target.scratchpad_level)
     assert level.capacity_bytes is not None, level.name
     part = CapacityPartition(
         capacity_bytes=level.capacity_bytes, fraction=fraction, n_buffers=2,
@@ -305,10 +311,12 @@ def derive_speculate_tokens(cfg: ModelConfig, *,
     chunk does. The budget is the largest power of two that fits, so
     verify-chunk widths (k+1) land on a handful of compiled shapes; k=0
     on a target too small to fit even one draft token disables
-    speculation rather than thrashing the scratchpad.
+    speculation rather than thrashing the scratchpad. The level is
+    chosen as in :func:`derive_prefill_chunk`.
     """
     target = target or get_target()
-    level = target.hierarchy.level(target.scratchpad_level)
+    level = target.hierarchy.level(
+        target.stream_level or target.scratchpad_level)
     assert level.capacity_bytes is not None, level.name
     part = CapacityPartition(
         capacity_bytes=level.capacity_bytes, fraction=fraction, n_buffers=2,

@@ -57,6 +57,16 @@ def test_every_module_imports_with_jax_blocked():
                    cwd=str(ROOT), timeout=120)
 
 
+def test_the_serving_modes_are_among_the_checked_modules():
+    """The speculative proposer and fold are copies of a JAX-importing
+    reference module: they must be the port's own, and checked above."""
+    assert "repro_torch.serve.speculate" in MODULES
+    from repro_torch.serve import speculate
+    assert speculate.propose_ngram.__module__ == "repro_torch.serve.speculate"
+    assert speculate.fold_acceptance.__module__ == \
+        "repro_torch.serve.speculate"
+
+
 @pytest.mark.parametrize("path", FILES, ids=MODULES)
 def test_no_module_imports_jax_or_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))
