@@ -56,15 +56,26 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      chunked, so the second admission copies its frontier page on write
      (the launcher's unique tails never do); speculative decoding with the
      draft budget derived under ``h100`` (k = 8) on both pools, over the
-     launcher's repetitive stream; and the chunked paged stream again with
+     launcher's repetitive stream; the chunked paged stream again with
      disaggregated prefill/decode roles, which must equal the combined
      chunked paged stream token for token, in its counters and in its
-     launches, with one handover a request. Kernel launch counts must
+     launches, with one handover a request; the paged stream at
+     ``--kv-quant int8`` and ``fp8`` (first tokens equal to the fp16
+     stream's on at least 0.75 of requests; one decode step's largest
+     logit change against an fp16 pool printed), int8 at the squeezed
+     stream's layer-0 bytes (its pages and preemptions printed beside the
+     fp16 squeezed stream's) and fp8 at half those bytes (it must preempt,
+     so pages spill fp8 -> int8 and come back); ``--park-idle 16`` on the
+     fp16 paged stream (every token equal to the uninterrupted stream's,
+     parks == resumes > 0) and at int8 (every resumed page's codes and
+     scales byte-equal to the parked ones). Each stream's time is printed.
+     Kernel launch counts must
      match (admissions + prefill chunks) x layers for flash and decode
      steps x layers for paged decode (0 on the dense slab, whose decode is
-     the masked oracle by the reference's dispatch, and 0 in a
+     the masked oracle by the reference's dispatch, 0 in a
      speculative stream, whose multi-token verify forward takes gather +
-     oracle by the same dispatch); every decode and verify chunk runs with
+     oracle by the same dispatch, and 0 on a quantized pool, which gathers
+     and dequantizes as the reference does); every decode and verify chunk runs with
      device->host syncs made errors (the engine's guard); the host reads
      the device once a boundary (disaggregated: the decode role once a
      boundary, the prefill role only at boundaries that completed a
@@ -82,9 +93,10 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      scratchpad-fraction sweep at M = 8192, bf16 and f32, each plan held
      to the plain version) and ``repro_torch.benchmarks.kernel_bench
      --target h100``, with the matmul3d launches counted around both;
-  8. four chunks of the qwen2.5-3b stream and of the falcon-mamba-7b
-     stream under ``torch.profiler`` (CUDA activity only): device time by
-     kernel and the device's idle share;
+  8. four chunks of the qwen2.5-3b stream (fp16 and int8 pages) and of
+     the falcon-mamba-7b stream under ``torch.profiler`` (CUDA activity
+     only): device time by kernel, the device's idle share and the CUDA
+     kernels launched;
   9. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream), the card line, and the
      result line.
@@ -145,6 +157,9 @@ MAX_LEN = 512 + 64         # STREAM's prompt + generation depth
 SYSTEM_LEN = 256           # the prefix-shared stream's common prompt head
 CHUNK_TOKENS = 128         # the chunked streams' prefill budget a boundary
 SPEC_TOKENS = 8            # --speculate-tokens 0 derives this under h100
+#: the quantized streams' first tokens must agree with the fp16 stream's on
+#: this share of requests (the equivalence matrix's KVQ gate)
+KVQ_FIRST_TOKEN_AGREEMENT = 0.75
 #: (Sq, q_offset) of flash at the resumed prefill's serving shapes, over
 #: the slot's whole depth: a prefix-share suffix and a prefill chunk
 RESUMED_FLASH = {"suffix": (512 - SYSTEM_LEN, SYSTEM_LEN),
@@ -944,15 +959,19 @@ def run_stream(cfg, argv, label) -> dict:
     """A stream through the CLI, its launches counted around it: each
     whole-prompt or suffix admission and each prefill chunk launches flash
     once per attention layer; each decode step launches the paged kernel
-    once per attention layer on the paged pool and no kernel on the dense
-    slot slab (the reference's dispatch: slab decode is the masked
-    oracle); admissions and decode steps launch mamba_scan once per mamba
-    layer."""
+    once per attention layer on an fp16 paged pool and no kernel on the
+    dense slot slab or a quantized pool (the reference's dispatch: both
+    decode through the masked oracle); admissions and decode steps launch
+    mamba_scan once per mamba layer. Prints the stream's time."""
     from repro_torch.launch import serve as cli
     log(f"  {label}: " + " ".join(argv))
+    t0 = time.perf_counter()
     reset_counts()
     rec = cli.run(argv)
-    return check_stream(cfg, rec, read_counts(), label)
+    counts = read_counts()
+    log(f"  {label}: {time.perf_counter() - t0:.1f} s, build and weights "
+        f"included")
+    return check_stream(cfg, rec, counts, label)
 
 
 def check_stream(cfg, rec, counts, label) -> dict:
@@ -978,9 +997,10 @@ def check_stream(cfg, rec, counts, label) -> dict:
              f"{rec['chunks']}")
     adm, steps = rec["admissions"], rec["decode_steps_total"]
     chunks = rec["prefill_chunks"]
-    # a speculative stream's verify forwards are multi-token: gather +
-    # oracle, never the single-token paged kernel
-    paged_steps = rec["paged"] and not rec.get("speculate_tokens")
+    # a speculative stream's verify forwards are multi-token and a quantized
+    # pool's pages are not bf16: both gather + oracle, never the paged kernel
+    paged_steps = (rec["paged"] and not rec.get("speculate_tokens")
+                   and rec.get("layer0_codec") == "fp16")
     check_counts(label, counts, {
         "flash": (adm + chunks) * n_attn,
         "paged": steps * n_attn if paged_steps else 0,
@@ -1123,9 +1143,208 @@ def phase_stream(cfg) -> dict:
             teacher_forced_check(cfg, params, stream[rid]["prompt"],
                                  r["outputs"][rid], f"{name} request {rid}")
     recs.update(cow_streams(cfg, params))
+    free_memory()
+    recs.update(quantized_streams(cfg, params, recs))
+    recs.update(park_streams(cfg, params, recs))
     del params
     free_memory()
     return recs
+
+
+def first_token_agreement(label, rec, fp16) -> float:
+    """The share of requests whose first token is the fp16 paged
+    stream's; fails under KVQ_FIRST_TOKEN_AGREEMENT."""
+    agree = sum(rec["outputs"][rid][0] == toks[0]
+                for rid, toks in fp16["outputs"].items()) / len(fp16["outputs"])
+    if agree < KVQ_FIRST_TOKEN_AGREEMENT:
+        fail(f"{label}: first tokens agree with the fp16 paged stream on "
+             f"{agree:.3f} of requests (want >= {KVQ_FIRST_TOKEN_AGREEMENT})")
+    return agree
+
+
+def one_step_drift(cfg, params, prompt) -> dict:
+    """max |logit - fp16 logit| of one decode step after admitting
+    ``prompt`` into an int8 and an fp8 pool (printed, not gated: the
+    pinned bounds hold the tiny models of the tests)."""
+    import torch
+    from repro_torch.core.target import use_target
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.scheduler import Scheduler, derive_page_geometry
+    logits = {}
+    with use_target(SERVING_TARGET):
+        engine = Engine(build_model(cfg), params,
+                        EngineConfig(max_len=MAX_LEN, sync_interval=8))
+        for q in ("fp16", "int8", "fp8"):
+            geom = derive_page_geometry(cfg, MAX_LEN, page_tokens=16,
+                                        max_slots=1, kv_quant=q)
+            sch = Scheduler(n_slots=1, pages=geom)
+            sch.submit(prompt, 8)
+            plan = sch.plan_boundary(chunk_tokens=1, max_len=MAX_LEN)
+            pool, _ = engine.pools.init_paged_pool(sch)
+            slot, req = plan.admits[0]
+            pool, _ = engine.prefill_role.paged_admit(pool, slot, req, geom)
+            out, _ = engine.model.decode_step(
+                engine.params, pool.tok[:, None], pool.state, pool.cache_len,
+                plans=engine.plans,
+                block_tables=engine.core.tensor(sch.block_table()))
+            logits[q] = out[slot, 0, :cfg.vocab_size].float()
+            del pool
+    del engine
+    free_memory()
+    return {q: (logits[q] - logits["fp16"]).abs().max().item()
+            for q in ("int8", "fp8")}
+
+
+def quantized_streams(cfg, params, recs) -> dict:
+    """The paged stream at ``--kv-quant int8`` and ``fp8`` (flash as in the
+    fp16 stream, the paged kernel never: a quantized pool decodes by gather
+    + oracle, the reference's dispatch; first tokens agree with the fp16
+    stream on at least KVQ_FIRST_TOKEN_AGREEMENT of requests), int8 at the
+    squeezed stream's layer-0 bytes (about twice its pages) and fp8 at
+    half those bytes (it preempts and spills through the fp8 -> int8 ->
+    fp8 copies). The merge counters are checked after each."""
+    from repro_torch.serve.scheduler import kv_bytes_per_token
+    fp16, squeezed = recs["stream"], recs["squeezed"]
+    layer0 = kv_bytes_per_token(cfg) * 16 * SQUEEZED_PAGES
+    out = {}
+    for name, codec, extra in (
+            ("kv_int8", "int8", []), ("kv_fp8", "fp8", []),
+            ("squeezed_int8", "int8", ["--layer0-bytes", str(layer0)]),
+            ("squeezed_fp8", "fp8", ["--layer0-bytes", str(layer0 // 2)])):
+        label = name.replace("_", " ")
+        rec = run_stream(cfg, STREAM + ["--kv-quant", codec] + extra, label)
+        if rec["layer0_codec"] != codec or rec["launches"]["paged"] != 0:
+            fail(f"{label}: layer 0 {rec['layer0_codec']}, "
+                 f"{rec['launches']['paged']} paged launches (want {codec}, "
+                 f"0)")
+        if not extra and rec["launches"]["flash"] != fp16["launches"]["flash"]:
+            fail(f"{label}: {rec['launches']['flash']} flash launches, the "
+                 f"fp16 stream {fp16['launches']['flash']}")
+        agree = first_token_agreement(label, rec, fp16)
+        log(f"  {label}: layer0={rec['layer0_codec']} "
+            f"layer1={rec['layer1_codec']}, {rec['n_pages'] - 1} layer-0 "
+            f"pages in {rec['pool_bytes']} B, {rec['preemptions']} "
+            f"preemptions, {rec['spilled_pages']} pages spilled, first-token "
+            f"agreement {agree:.3f}; {rec['tok_per_s']:.1f} tok/s (fp16 "
+            f"{fp16['tok_per_s']:.1f})")
+        out[name] = rec
+        check_merge_counters(label)
+        free_memory()
+    sq8, sq_fp8 = out["squeezed_int8"], out["squeezed_fp8"]
+    log(f"  squeezed at {layer0} B: fp16 {squeezed['n_pages'] - 1} pages, "
+        f"{squeezed['preemptions']} preemptions; int8 {sq8['n_pages'] - 1} "
+        f"pages, {sq8['preemptions']} preemptions")
+    if sq_fp8["preemptions"] < 1 or sq_fp8["layer1_codec"] != "int8":
+        fail(f"squeezed fp8 at {layer0 // 2} B: {sq_fp8['preemptions']} "
+             f"preemptions, layer 1 {sq_fp8['layer1_codec']} (want >= 1, "
+             f"int8)")
+    drift = one_step_drift(cfg, params, synthetic_prompt(cfg))
+    log(f"  one decode step off a quantized pool vs the fp16 pool: max "
+        f"|d logit| int8 {drift['int8']:.4f}, fp8 {drift['fp8']:.4f} "
+        f"(printed, not gated)")
+    out["kv_int8"]["one_step_drift"] = drift["int8"]
+    out["kv_fp8"]["one_step_drift"] = drift["fp8"]
+    return out
+
+
+def synthetic_prompt(cfg):
+    from repro_torch.serve.scheduler import synthetic_stream
+    return synthetic_stream(8, 512, 64, cfg.vocab_size)[0]["prompt"]
+
+
+def park_streams(cfg, params, recs) -> dict:
+    """``--park-idle 16`` on the fp16 paged stream (tokens == the
+    uninterrupted stream's, bit for bit; parks == resumes > 0), and
+    ``--park-idle 16 --kv-quant int8`` through the launcher's run_stream
+    with an engine built here, so that each resumed session's pages can be
+    read: codes and scales byte-equal to the parked ones."""
+    import torch
+    from repro_torch.core.target import use_target
+    from repro_torch.kernels.paged_attention import as_bits
+    from repro_torch.launch import serve as cli
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import park as park_mod
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.scheduler import (Scheduler, derive_n_slots,
+                                             derive_page_geometry,
+                                             synthetic_stream)
+    out = {}
+    rec = run_stream(cfg, STREAM + ["--park-idle", "16"], "park")
+    differ = [rid for rid, toks in recs["stream"]["outputs"].items()
+              if rec["outputs"][rid] != toks]
+    if differ or not rec["parks"] == rec["park_resumes"] > 0:
+        fail(f"park stream: requests {differ} differ from the uninterrupted "
+             f"paged stream; {rec['parks']} parks, {rec['park_resumes']} "
+             f"resumes")
+    log(f"  park: {rec['parks']} sessions parked at step 16 and resumed; "
+        f"every token == the uninterrupted paged stream's; "
+        f"{rec['tok_per_s']:.1f} tok/s")
+    out["park"] = rec
+    check_merge_counters("park")
+    free_memory()
+
+    label = "park int8"
+    log(f"  {label}: run_stream(park_idle=16) over the paged stream at "
+        f"--kv-quant int8")
+    t0 = time.perf_counter()
+    with use_target(SERVING_TARGET):
+        engine = Engine(build_model(cfg), params,
+                        EngineConfig(max_len=MAX_LEN, sync_interval=8))
+        geom = derive_page_geometry(cfg, MAX_LEN, page_tokens=16,
+                                    max_slots=4, kv_quant="int8")
+        sch = Scheduler(n_slots=derive_n_slots(cfg, MAX_LEN, max_slots=4,
+                                               pages=geom), pages=geom)
+        staged, checked = {}, []
+        resume_parked, exec_resume = engine.resume_parked, engine._exec_resume
+
+        def on_resume_parked(s, blob):
+            req = resume_parked(s, blob)
+            staged[req.rid] = park_mod.unpack_parked(blob)[1]
+            return req
+
+        def on_exec_resume(pool, rs, g):
+            pool = exec_resume(pool, rs, g)
+            arrays, req = staged.pop(rs.req.rid), rs.req
+            k = min(next(v.shape[1] for key, v in arrays.items()
+                         if key.startswith("pages/")), len(req.pages))
+            priv = torch.as_tensor(req.pages[req.n_shared:k],
+                                   device="cuda").long()
+            for key, parked in arrays.items():
+                kind, gname, gkey, name = key.split("/")
+                if kind != "pages":
+                    continue
+                arr = pool.state["caches"][gname][gkey][name]
+                got = as_bits(arr)[:, priv]
+                want = as_bits(parked[:, req.n_shared:k]).contiguous().to(
+                    got.device)
+                if not torch.equal(got.view(torch.uint8),
+                                   want.view(torch.uint8)):
+                    fail(f"{label}: request {req.rid}'s {key} restored "
+                         f"unlike its parked bytes")
+            checked.append((req.rid, len(arrays), k - req.n_shared))
+            return pool
+
+        engine.resume_parked, engine._exec_resume = (on_resume_parked,
+                                                     on_exec_resume)
+        stream = synthetic_stream(8, 512, 64, cfg.vocab_size)
+        reset_counts()
+        rec = cli.run_stream(engine, sch, stream, park_idle=16)
+        rec = check_stream(cfg, rec, read_counts(), label)
+    if not (checked and rec["parks"] == rec["park_resumes"] == len(checked)
+            and rec["layer0_codec"] == "int8" and not staged):
+        fail(f"{label}: {rec['parks']} parks, {rec['park_resumes']} resumes, "
+             f"{len(checked)} resumes checked, layer 0 {rec['layer0_codec']}")
+    log(f"  {label}: {len(checked)} sessions resumed, every page leaf "
+        f"(codes and scales: {checked[0][1]} leaves, {sum(c[2] for c in checked)} "
+        f"pages) byte-equal to its parked copy; first-token agreement "
+        f"{first_token_agreement(label, rec, recs['stream']):.3f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["park_int8"] = rec
+    del engine
+    check_merge_counters(label)
+    free_memory()
+    return out
 
 
 def cow_streams(cfg, params) -> dict:
@@ -1275,9 +1494,10 @@ def phase_paper() -> dict:
     return {"launches": launches, "sweep": sweep}
 
 
-def phase_profile(cfg) -> None:
-    """Device time by kernel, and the device's idle share, over the first
-    PROFILE_STEPS decode steps of one more run of ``cfg``'s paged stream
+def phase_profile(cfg, kv_quant=None) -> None:
+    """Device time by kernel, the device's idle share and the CUDA kernels
+    launched, over the first PROFILE_STEPS decode steps of one more run of
+    ``cfg``'s paged stream (at the ``kv_quant`` tier codec when given)
     under ``torch.profiler`` with CUDA activity only (kernel launches made
     here are outside the counted main-path runs), under the launcher's
     target on the card."""
@@ -1290,10 +1510,11 @@ def phase_profile(cfg) -> None:
     from repro_torch.serve.scheduler import (Scheduler, derive_n_slots,
                                              derive_page_geometry,
                                              synthetic_stream)
-    log(f"  {cfg.name}: the first {PROFILE_STEPS} decode steps of its stream")
+    log(f"  {cfg.name}: the first {PROFILE_STEPS} decode steps of its stream"
+        + (f" at --kv-quant {kv_quant}" if kv_quant else ""))
     with use_target(SERVING_TARGET):
         geom = derive_page_geometry(cfg, MAX_LEN, page_tokens=16,
-                                    max_slots=4)
+                                    max_slots=4, kv_quant=kv_quant)
         n_slots = derive_n_slots(cfg, MAX_LEN, max_slots=4, pages=geom)
         model = build_model(cfg)
         engine = Engine(model, model.init(torch.Generator(device="cuda")
@@ -1318,7 +1539,8 @@ def phase_profile(cfg) -> None:
     log(f"  serve wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
         f"{stats['decode_steps']} decode steps in {stats['chunks']} chunks, "
-        f"{stats['admissions']} admissions")
+        f"{stats['admissions']} admissions; "
+        f"{sum(e.count for e in kernels)} CUDA kernels launched")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     # the top 12, then the port's own kernels wherever they rank
     shown = ranked[:12] + [e for e in ranked[12:]
@@ -1370,6 +1592,7 @@ def main() -> int:
     check_merge_counters("phase 7")
     log("[8/9] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
+    phase_profile(cfg, kv_quant="int8")
     phase_profile(fcfg)
     check_merge_counters("phase 8")
 

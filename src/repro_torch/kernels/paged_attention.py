@@ -18,8 +18,13 @@ block table (page 0 is the null page). This module owns the decode math:
     PyTorch version. :func:`split_geometry` sizes its grid and workspace.
   * :func:`paged_decode_attention` — the entry, with the reference's
     dispatch rule: a single-token causal decode over unquantized pages on a
-    CUDA tensor takes the kernel; multi-token queries, ``causal=False`` and
-    CPU tensors take gather + oracle. Quantized pools are not ported yet.
+    CUDA tensor takes the kernel; multi-token queries, ``causal=False``,
+    quantized pools and CPU tensors take gather + oracle.
+  * :func:`quantize_page_int8` / :func:`dequantize_page_int8` — the int8
+    tier codec: symmetric, one f32 scale (``amax / INT8_QMAX``) per page
+    per leaf. The fp8-e4m3 codec is a plain cast; fp8 pages move as their
+    ``uint8`` bits (:func:`as_bits`), so every fp8 copy is a bit copy and
+    arithmetic only ever sees an f32 upcast.
 
 The kernel reads each slot's frontier ``cache_len`` on the device, so no
 wrapper here reads a device value on the host: the grid and the partials'
@@ -47,6 +52,53 @@ MERGE_NODE = 16
 #: a call needs more. A launch on another stream never shares a buffer with
 #: one in flight.
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+INT8_QMAX = 127.0    # symmetric int8: codes in [-127, 127], -128 unused
+FP8 = torch.float8_e4m3fn
+
+
+# ------------------------------------------------------------ quantization
+
+
+def as_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for an fp8 tensor its ``uint8`` view: gathers,
+    scatters and copies of fp8 pages run on the bits, so they need no
+    Float8 kernel and cannot round."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
+def _expand(t: torch.Tensor, axes) -> torch.Tensor:
+    for a in sorted(axes):
+        t = t.unsqueeze(a)
+    return t
+
+
+def _axes(axes) -> Tuple[int, ...]:
+    return tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+
+
+def quantize_page_int8(x: torch.Tensor, axes) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Symmetric int8 with one scale per un-reduced index.
+
+    ``axes`` are the reduced (per-page) axes: the scale is ``amax(|x|,
+    axes) / 127`` and the codes ``round(x / scale)`` (half to even, as
+    ``jnp.round``) clipped to [-127, 127]. An all-zero page gets scale 0 and
+    zero codes. Returns ``(codes int8, scales f32)``."""
+    axes = _axes(axes)
+    xf = x.float()
+    scales = xf.abs().amax(dim=axes) / INT8_QMAX
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    codes = torch.clamp(torch.round(xf / _expand(safe, axes)),
+                        -INT8_QMAX, INT8_QMAX)
+    return codes.to(torch.int8), scales
+
+
+def dequantize_page_int8(codes: torch.Tensor, scales: torch.Tensor,
+                         axes) -> torch.Tensor:
+    """Inverse of :func:`quantize_page_int8` (f32 out); ``axes`` are the
+    page axes the scales were reduced over."""
+    return codes.float() * _expand(scales, _axes(axes))
 
 
 # ------------------------------------------------------------------ oracle
@@ -95,12 +147,13 @@ def gather_kv_pages(pages: torch.Tensor, block_tables: torch.Tensor, *,
     page_tokens``; ``block_tables`` is ``(B, P)``. Returns ``(B,
     *page_shape)`` with the seq axis widened to ``P * page_tokens``.
     Unmapped entries (null page 0) gather junk the frontier mask hides.
+    fp8 pages are gathered as their bits.
     """
-    gathered = pages[block_tables.long()]              # (B, P, *page_shape)
+    gathered = as_bits(pages)[block_tables.long()]     # (B, P, *page_shape)
     gathered = torch.movedim(gathered, 1, seq_axis + 1)
     shape = list(gathered.shape)
     merged = shape[:seq_axis + 1] + [shape[seq_axis + 1] * shape[seq_axis + 2]]
-    return gathered.reshape(merged + shape[seq_axis + 3:])
+    return gathered.reshape(merged + shape[seq_axis + 3:]).view(pages.dtype)
 
 
 # ---------------------------------------------------------- Hopper kernel
@@ -260,25 +313,46 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """Decode attention over the paged pool; the dense math is the oracle.
 
     ``impl="auto"`` walks pages with the Hopper kernel for a single-token
-    causal query on a CUDA tensor and takes gather +
+    causal query over bf16 pages on a CUDA tensor and takes gather +
     :func:`decode_attention_masked` otherwise (multi-token verify chunks,
-    CPU tensors); ``impl="kernel"`` always calls :func:`paged_flash_decode`
-    and ``impl="ref"`` always gathers. Quantized pools (int8 with
-    ``k_scale``/``v_scale``, fp8 pages) are a later slice of the port.
+    quantized pools, CPU tensors); ``impl="kernel"`` always calls
+    :func:`paged_flash_decode` and ``impl="ref"`` always gathers.
+
+    Quantized pools dequantize AFTER the block-table gather, as in the
+    reference: int8 pages carry per-page ``k_scale`` / ``v_scale``
+    ``(n_pages,)``, spread over each page's ``page_tokens`` positions;
+    fp8-e4m3 pages (detected by dtype) upcast to f32. The page-walk kernel
+    reads bf16 pages only, so a quantized pool never launches it and
+    ``impl="kernel"`` raises there.
     """
-    quantized = (k_scale is not None or v_scale is not None
+    quantized = (k_scale is not None
                  or k_pages.dtype not in (torch.bfloat16, torch.float16,
                                           torch.float32))
-    if quantized:
+    if quantized and impl == "kernel":
         raise NotImplementedError(
-            "quantized KV pools (int8/fp8 tier codecs) are not ported yet "
-            "(ROADMAP A6.5)")
+            "the paged decode kernel reads bf16 pages; quantized pools "
+            "dequantize on gather (impl='auto')")
     single = q.shape[2] == 1
-    use_kernel = impl == "kernel" or (impl == "auto" and q.is_cuda and single)
+    use_kernel = impl == "kernel" or (impl == "auto" and q.is_cuda and single
+                                      and not quantized)
     if use_kernel and causal:
         return paged_flash_decode(q, k_pages, v_pages, block_tables,
                                   cache_len, window=window)
     k = gather_kv_pages(k_pages, block_tables, seq_axis=1)
     v = gather_kv_pages(v_pages, block_tables, seq_axis=1)
+    if k_scale is not None:
+        # per-page scalar scales -> per-position columns of the gathered
+        # view (an expand, so no output size is read back from the device)
+        b, p_max = block_tables.shape
+        pt = k_pages.shape[2]
+
+        def columns(scale):
+            return scale[block_tables.long()][:, :, None].expand(
+                b, p_max, pt).reshape(b, 1, p_max * pt, 1)
+
+        k = k.float() * columns(k_scale)
+        v = v.float() * columns(v_scale)
+    elif quantized:
+        k, v = k.float(), v.float()
     return decode_attention_masked(q, k, v, cache_len, window=window,
                                    causal=causal)

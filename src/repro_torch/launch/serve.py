@@ -34,6 +34,15 @@ The counterpart of ``src/repro/launch/serve.py``, on the card by default
     chunk its pages hand over by a zero-copy ownership flip. Handover and
     per-role host-sync counters join the report; outputs are the
     combined engine's.
+  * ``--kv-quant {fp16,fp8,int8}`` (paged) — the tier codecs: fp16 is the
+    bit-exact identity; fp8 / int8 store about twice the pages in the same
+    layer-0 bytes at a bounded logit error, and the spill tier quantizes
+    at least as hard (fp8 spills as int8). Quantized pools decode by
+    gather + oracle, as the reference dispatches them.
+  * ``--park-idle N`` (paged) — after N decode steps, park every decoding
+    resident to the host tier, requeue mid-prefill ones, resume the
+    parked sessions and serve to the end; the counters of both phases are
+    summed, and the park counters join the report.
 
 Weights are random, made on the device from a fixed seed. The hardware
 target (``--target``, else ``REPRO_TARGET`` or the registry default) sizes
@@ -61,7 +70,8 @@ from repro_torch.core.target import (available_targets, get_target,
                                      use_target)
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.serve.engine import Engine, EngineConfig
-from repro_torch.serve.scheduler import (DRAINED, Scheduler, derive_n_slots,
+from repro_torch.serve.scheduler import (DECODING, DRAINED, PREFILLING,
+                                         Scheduler, derive_n_slots,
                                          derive_page_geometry,
                                          derive_prefill_chunk,
                                          derive_speculate_tokens, percentile,
@@ -83,15 +93,43 @@ def serving_target(device: torch.device) -> Optional[str]:
     return "h100" if device.type == "cuda" else None
 
 
-def run_stream(engine: Engine, scheduler: Scheduler, stream: list) -> dict:
-    """Drive a prepared request stream; return counters."""
-    for spec in stream:
-        scheduler.submit(spec["prompt"], spec["max_new_tokens"])
+def run_stream(engine: Engine, scheduler: Scheduler, stream: list, *,
+               park_idle: int = 0) -> dict:
+    """Drive a prepared request stream; return counters.
+
+    With ``park_idle`` the stream runs in two phases: serve ``park_idle``
+    decode steps, park every decoding resident to the host tier
+    (mid-prefill residents requeue from scratch: they have nothing to
+    resume), resume the parked blobs into the SAME scheduler and serve to
+    the end. The host syncs, decode steps, chunks and admissions of both
+    phases are summed. ``outputs`` maps each request's submission rid to
+    its tokens (a resumed session is queued under a new rid)."""
+    rids = [scheduler.submit(spec["prompt"], spec["max_new_tokens"]).rid
+            for spec in stream]
+    rid_map = {r: r for r in rids}
     t0 = time.monotonic()
+    pre_stats = None
+    if park_idle:
+        engine.serve(scheduler=scheduler, max_steps=park_idle)
+        pre_stats = dict(engine.last_stats)
+        blobs = []
+        for slot in sorted(scheduler.active):
+            req = scheduler.active[slot]
+            if req.status == DECODING:
+                blobs.append((req.rid, engine.park_request(scheduler,
+                                                           req.rid)))
+            elif req.status == PREFILLING:
+                scheduler.requeue(slot)
+        for old, blob in blobs:
+            rid_map[old] = engine.resume_parked(scheduler, blob).rid
     report = engine.serve(scheduler=scheduler)
     _wait(engine.core.device)
     dt = time.monotonic() - t0
     stats = report.stats
+    if pre_stats:
+        for k in ("host_syncs", "decode_steps", "chunks", "admissions"):
+            stats[k] = stats.get(k, 0) + pre_stats.get(k, 0)
+    outputs = report.outputs
     n_tokens = sum(len(r.tokens) for r in report.requests)
     served = [r for r in report.requests if r.status == DRAINED]
     decode_steps = [r.finish_step - r.admit_step for r in served
@@ -126,7 +164,7 @@ def run_stream(engine: Engine, scheduler: Scheduler, stream: list) -> dict:
         "prefill_chunks": stats["prefill_chunks"],
         "max_boundary_prefill_tokens": stats["max_boundary_prefill_tokens"],
         "paged": stats["paged"],
-        "outputs": report.outputs,
+        "outputs": {r: outputs[rid_map[r]] for r in rids},
     }
     if stats.get("speculate_tokens"):
         rec.update({k: stats[k] for k in (
@@ -143,7 +181,9 @@ def run_stream(engine: Engine, scheduler: Scheduler, stream: list) -> dict:
     if stats["paged"]:
         rec.update({k: stats[k] for k in (
             "page_tokens", "n_pages", "n_spill_pages", "pages_high_water",
-            "spill_high_water", "pool_bytes", "spill_bytes")})
+            "spill_high_water", "pool_bytes", "spill_bytes",
+            "layer0_codec", "layer1_codec", "parks", "park_resumes",
+            "resident_high_water")})
         if stats["prefix_sharing"]:
             rec.update({k: stats[k] for k in (
                 "prefix_hits", "prefix_misses", "shared_prefix_tokens",
@@ -156,6 +196,8 @@ def _print_stream(cfg, args, rec: dict, dev: torch.device) -> None:
             else "paged" if args.paged else "dense")
     if args.disaggregate:
         mode += "+disagg"
+    if args.kv_quant:
+        mode += f"+{args.kv_quant}"
     print(f"arch={cfg.name} stream={args.stream} mode={mode} "
           f"slots={rec['n_slots']} (max reuse {rec['max_slot_reuse']})"
           f" device={dev}")
@@ -202,6 +244,15 @@ def _print_stream(cfg, args, rec: dict, dev: torch.device) -> None:
           f"{rec['restores']} restores "
           f"(layer-1 high water {rec['spill_high_water']}/"
           f"{rec['n_spill_pages']})", flush=True)
+    if args.kv_quant:
+        print(f"tier codecs: layer0={rec['layer0_codec']} "
+              f"layer1={rec['layer1_codec']}; "
+              f"{rec['resident_high_water']} residents high water in "
+              f"{rec['pool_bytes']} B", flush=True)
+    if args.park_idle is not None:
+        print(f"host parking: {rec['parks']} parked at step "
+              f"{args.park_idle}, {rec['park_resumes']} resumed "
+              f"(re-admitted as resumes, not re-prefills)", flush=True)
     if args.prefix_share:
         hw = max(rec["pages_high_water"], 1)
         print(f"prefix sharing: {rec['prefix_hits']} hits / "
@@ -261,6 +312,19 @@ def parser() -> argparse.ArgumentParser:
                          "engines over the shared paged pool; pages hand "
                          "over at the final prefill chunk (requires "
                          "--paged; bit-identical outputs)")
+    ap.add_argument("--kv-quant", choices=["fp16", "fp8", "int8"],
+                    default=None,
+                    help="per-tier KV page codec (paged mode): fp16 is the "
+                         "bit-exact identity; fp8/int8 store more pages in "
+                         "the same layer-0 bytes at a bounded logit error, "
+                         "and the spill tier quantizes at least as hard "
+                         "(fp8 spills as int8)")
+    ap.add_argument("--park-idle", type=int, default=None, metavar="N",
+                    help="after N decode steps, park every decoding "
+                         "resident to the layer-2 host tier (zlib-coded "
+                         "page bytes + scheduler residue), then resume "
+                         "and serve to completion — bit-identical outputs "
+                         "at fp16 (paged mode)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "on the CPU)")
@@ -281,6 +345,12 @@ def run(argv=None) -> Dict[str, Any]:
     if args.disaggregate and not args.paged:
         ap.error("--disaggregate requires --paged (page handover moves "
                  "block-table rows, which the dense pool does not have)")
+    if args.kv_quant and not args.paged:
+        ap.error("--kv-quant requires --paged (tier codecs apply to the "
+                 "paged pool's page bytes)")
+    if args.park_idle is not None and not args.paged:
+        ap.error("--park-idle requires --paged (the layer-2 host tier "
+                 "serializes pages, which the dense pool does not have)")
     system_len = args.system_len or max(1, args.prompt_len // 2)
     if args.prefix_share and system_len >= args.prompt_len:
         ap.error("--system-len must leave room for a unique tail "
@@ -311,7 +381,8 @@ def run(argv=None) -> Dict[str, Any]:
                     cfg, max_len, page_tokens=args.page_tokens,
                     max_slots=max(2, args.batch),
                     layer0_bytes=args.layer0_bytes,
-                    layer1_bytes=args.layer1_bytes)
+                    layer1_bytes=args.layer1_bytes,
+                    kv_quant=args.kv_quant)
             n_slots = args.slots or derive_n_slots(
                 cfg, max_len, max_slots=max(2, args.batch), pages=pages)
             chunk = args.chunk_prefill_tokens
@@ -335,7 +406,8 @@ def run(argv=None) -> Dict[str, Any]:
             else:
                 stream = synthetic_stream(args.stream, args.prompt_len,
                                           args.gen_len, cfg.vocab_size)
-            rec = run_stream(engine, sched, stream)
+            rec = run_stream(engine, sched, stream,
+                             park_idle=args.park_idle or 0)
             _print_stream(cfg, args, rec, dev)
             return rec
 

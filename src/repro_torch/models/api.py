@@ -16,6 +16,9 @@ import torch
 
 from repro_torch.core.planner import KernelPlans, Mem3DPlanner
 from repro_torch.core.target import HardwareTarget
+from repro_torch.kernels.paged_attention import (as_bits,
+                                                 dequantize_page_int8,
+                                                 quantize_page_int8)
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
 
@@ -230,7 +233,11 @@ class Model:
         whose content the resumed prefill's causal mask hides. This is the
         read half of suffix prefill and of paged chunked prefill: shared
         prefix pages (and the copy-on-write source) are gathered into the
-        contiguous view the tail attends over. Attention-only models."""
+        contiguous view the tail attends over. Attention-only models.
+
+        Quantized pools dequantize here into bf16 rows (int8: codes x page
+        scale; fp8: upcast), so a resumed prefill computes exactly as on an
+        fp16 pool."""
         if has_recurrent_state(self.cfg):
             raise NotImplementedError(
                 "prefix sharing requires attention-only models: recurrent "
@@ -241,8 +248,15 @@ class Model:
             leaf = pool_state["caches"][gname][key]
             out = {}
             for name, pages in leaf.items():
-                sel = pages[:, rows]                  # (r, P, hkv, pt, hd)
-                r, p_max, hkv, _, hd = sel.shape
+                if name.endswith("_scale"):
+                    continue                    # read with their codes
+                sel = as_bits(pages)[:, rows].view(pages.dtype)
+                scale = leaf.get(name + "_scale")
+                if scale is not None:
+                    sel = dequantize_page_int8(sel, scale[:, rows], (2, 3, 4))
+                if sel.dtype != torch.bfloat16:
+                    sel = sel.to(torch.bfloat16)
+                r, p_max, hkv, _, hd = sel.shape    # (r, P, hkv, pt, hd)
                 out[name] = torch.movedim(sel, 1, 2).reshape(
                     r, hkv, p_max * page_tokens, hd)[:, None]
             caches.setdefault(gname, {})[key] = out
@@ -259,6 +273,11 @@ class Model:
         slot's block-table row; unmapped tail entries point at null page
         0, so their junk lands where no sequence reads). Recurrent SSM
         state is written to the slot's own row at ``slot``.
+
+        An int8 pool quantizes each page cut with FRESH per-page scales
+        written beside the codes (a re-scattered chunked-prefill frontier
+        page requantizes cleanly, and a reused page's stale scale never
+        leaks in); an fp8 pool casts the cut and writes it as bits.
         """
         p_max = block_row.shape[0]
         rows = block_row.long()
@@ -266,13 +285,22 @@ class Model:
             pool_leaf = pool_state["caches"][gname][key]
             row_leaf = row_state["caches"][gname][key]
             for name, pool in pool_leaf.items():
+                if name.endswith("_scale"):
+                    continue                       # written with the codes
                 row = row_leaf[name]
                 if not is_paged:                   # (r, 1, ...) -> slot
                     pool[:, slot] = row[:, 0].to(pool.dtype)
                     continue
                 r, _, hkv, _, hd = row.shape       # (r, 1, hkv, depth, hd)
-                cut = row[:, 0].reshape(r, hkv, p_max, page_tokens, hd)
-                pool[:, rows] = torch.movedim(cut, 2, 1).to(pool.dtype)
+                cut = torch.movedim(
+                    row[:, 0].reshape(r, hkv, p_max, page_tokens, hd), 2, 1)
+                scale = pool_leaf.get(name + "_scale")
+                if scale is not None:
+                    codes, scales = quantize_page_int8(cut, (2, 3, 4))
+                    pool[:, rows] = codes
+                    scale[:, rows] = scales
+                else:
+                    as_bits(pool)[:, rows] = as_bits(cut.to(pool.dtype))
         return pool_state
 
 

@@ -8,7 +8,10 @@ Two cache layouts share the math:
   * **paged pool** — ``(n_pages, Hkv, page_tokens, D)``, a flat page pool
     addressed through per-slot block tables. Writes resolve ``cache_len ->
     (physical page, offset)`` through the block table; reads walk the table
-    (:mod:`repro_torch.kernels.paged_attention`).
+    (:mod:`repro_torch.kernels.paged_attention`). A quantized pool stores
+    int8 codes with one f32 scale per page (sibling ``k_scale`` /
+    ``v_scale`` leaves) or fp8-e4m3 values, and its reads dequantize after
+    the gather.
 
 Unlike the reference's functional arrays, cache writes here update the
 cache tensors IN PLACE (they are views into the stacked per-group arrays,
@@ -29,7 +32,8 @@ import torch
 
 from repro_torch.core import tiling
 from repro_torch.kernels import ops
-from repro_torch.kernels.paged_attention import (decode_attention_masked,
+from repro_torch.kernels.paged_attention import (FP8, INT8_QMAX, as_bits,
+                                                 decode_attention_masked,
                                                  paged_decode_attention)
 from repro_torch.models import layers
 from repro_torch.models.config import LayerKind, ModelConfig
@@ -88,24 +92,76 @@ def _paged_cache_write(pages: torch.Tensor, new: torch.Tensor,
     ``j`` resolves ``cache_len + j -> (physical page, offset)`` through the
     row's block table; rows whose frontier is at or past the mapped depth
     write to the null page 0. Pages written here are private to the row by
-    scheduler invariant.
+    scheduler invariant. An fp8 pool takes the cast as its encode and is
+    written as bits.
     """
     pt = pages.shape[1 + axis]
     p_max = block_tables.shape[1]
     s = new.shape[1 + axis]
-    new = new.to(pages.dtype)
-    cache_len = cache_len.long()
+    new = as_bits(new.to(pages.dtype))
+    bits = as_bits(pages)
     for j in range(s):
-        pos = cache_len + j
-        logical = torch.clamp(pos // pt, max=p_max - 1)
-        phys = torch.gather(block_tables.long(), 1, logical[:, None])[:, 0]
-        phys = torch.where(pos < p_max * pt, phys, 0)
-        off = pos % pt
+        phys, off = _resolve(cache_len, j, block_tables, pt)
         if axis == 0:
-            pages[phys, off] = new[:, j]
+            bits[phys, off] = new[:, j]
         else:
-            pages[phys, :, off] = new[:, :, j]
+            bits[phys, :, off] = new[:, :, j]
     return pages
+
+
+def _resolve(cache_len: torch.Tensor, j: int, block_tables: torch.Tensor,
+             pt: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(physical page, in-page offset) of each row's position ``cache_len
+    + j``; positions past the mapped depth resolve to the null page 0."""
+    p_max = block_tables.shape[1]
+    pos = cache_len.long() + j
+    logical = torch.clamp(pos // pt, max=p_max - 1)
+    phys = torch.gather(block_tables.long(), 1, logical[:, None])[:, 0]
+    return torch.where(pos < p_max * pt, phys, 0), pos % pt
+
+
+def _paged_cache_write_q(pages: torch.Tensor, scales: torch.Tensor,
+                         new: torch.Tensor, cache_len: torch.Tensor,
+                         block_tables: torch.Tensor, axis: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8 block-table token append with a monotone per-page scale, in
+    place.
+
+    The same ``cache_len + j -> (page, offset)`` resolution as
+    :func:`_paged_cache_write`, over int8 codes plus one f32 amax-scale a
+    page. Per appended token: the page's scale grows to ``max(old,
+    amax(token) / 127)`` (monotone, so resident codes only get coarser and
+    never clip), the resident codes are requantized at the grown scale and
+    the token's codes land at its offset. At offset 0 the scale RESETS to
+    the token's own: the page was just (re)allocated, and the previous
+    tenant's amax must not coarsen this sequence. Junk rows resolve to
+    null page 0 and write ``scales[0]`` too; with several such rows the
+    scatter's winner there is unspecified, and nothing reads page 0.
+    """
+    pt = pages.shape[1 + axis]
+    s = new.shape[1 + axis]
+    newf = new.float()
+    ones = (1,) * (pages.ndim - 1)
+    iota = torch.arange(pt, device=pages.device).reshape(
+        (1,) * (1 + axis) + (pt,) + (1,) * (pages.ndim - 2 - axis))
+    for j in range(s):
+        phys, off = _resolve(cache_len, j, block_tables, pt)
+        tok = newf[:, j] if axis == 0 else newf[:, :, j]
+        fresh = tok.abs().amax(dim=tuple(range(1, tok.ndim))) / INT8_QMAX
+        old = scales[phys]
+        scl = torch.where(off == 0, fresh, torch.maximum(old, fresh))
+        safe = torch.where(scl > 0, scl, torch.ones_like(scl))
+        page_f = pages[phys].float() * old.reshape((-1,) + ones)
+        page_new = torch.clamp(torch.round(page_f / safe.reshape((-1,) + ones)),
+                               -INT8_QMAX, INT8_QMAX)
+        tok_codes = torch.clamp(
+            torch.round(tok / safe.reshape((-1,) + (1,) * (tok.ndim - 1))),
+            -INT8_QMAX, INT8_QMAX)
+        page_new = torch.where(iota == off.reshape((-1,) + ones),
+                               tok_codes.unsqueeze(1 + axis), page_new)
+        pages[phys] = page_new.to(torch.int8)
+        scales[phys] = scl
+    return pages, scales
 
 
 # ---------------------------------------------------------------------- GQA
@@ -136,11 +192,26 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def init_gqa_pages(cfg: ModelConfig, n_pages: int, page_tokens: int, device,
-                   dtype=torch.bfloat16) -> Dict:
-    """Flat page pool replacing the per-slot slab (page 0 = null page)."""
+                   dtype=torch.bfloat16, quant_scales: bool = False) -> Dict:
+    """Flat page pool replacing the per-slot slab (page 0 = null page), at
+    the tier codec's ``dtype``. With ``quant_scales`` (the int8 codec) each
+    page also carries one f32 amax scale a leaf, in sibling ``k_scale`` /
+    ``v_scale`` leaves of shape ``(n_pages,)`` that every tier copy and
+    park moves with their codes."""
     shape = (n_pages, cfg.n_kv_heads, page_tokens, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def zeros():
+        if dtype == FP8:            # made as bits: zero bits are +0.0
+            return torch.zeros(shape, dtype=torch.uint8,
+                               device=device).view(FP8)
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    out = {"k": zeros(), "v": zeros()}
+    if quant_scales:
+        for name in ("k_scale", "v_scale"):
+            out[name] = torch.zeros((n_pages,), dtype=torch.float32,
+                                    device=device)
+    return out
 
 
 def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
@@ -171,14 +242,21 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     k = layers.apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None and block_tables is not None:
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                "quantized KV pools are not ported yet (ROADMAP A6.5)")
-        _paged_cache_write(cache["k"], k, cache_len, block_tables, axis=1)
-        _paged_cache_write(cache["v"], v, cache_len, block_tables, axis=1)
+        # an int8 pool (sibling scale leaves) takes the scale-aware write
+        # and hands its scales to the dequantizing read; an fp8 pool needs
+        # neither: the write's cast encodes, the read's upcast decodes
+        scales = (cache.get("k_scale"), cache.get("v_scale"))
+        for name, new, scale in (("k", k, scales[0]), ("v", v, scales[1])):
+            if scale is None:
+                _paged_cache_write(cache[name], new, cache_len, block_tables,
+                                   axis=1)
+            else:
+                _paged_cache_write_q(cache[name], scale, new, cache_len,
+                                     block_tables, axis=1)
         out = paged_decode_attention(q, cache["k"], cache["v"], block_tables,
                                      cache_len, window=kind.window,
-                                     causal=causal)
+                                     causal=causal, k_scale=scales[0],
+                                     v_scale=scales[1])
         out = out.transpose(1, 2).reshape(b, s, hq * hd)
         return linear(out, p["wo"]), cache
 

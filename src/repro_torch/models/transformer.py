@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core.planner import KernelPlans
+from repro_torch.kernels.paged_attention import as_bits
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, ssm
 from repro_torch.models.config import LayerKind, ModelConfig
@@ -176,8 +177,8 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # -------------------------------------------------------------- caches
 
 def _stack(one: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
-    return {k: a.unsqueeze(0).repeat((n,) + (1,) * a.ndim)
-            for k, a in one.items()}
+    return {k: as_bits(a).unsqueeze(0).repeat((n,) + (1,) * a.ndim)
+            .view(a.dtype) for k, a in one.items()}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
@@ -196,17 +197,21 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
-                      page_tokens: int, device,
-                      dtype=torch.bfloat16) -> Dict[str, Any]:
+                      page_tokens: int, device, dtype=torch.bfloat16,
+                      quant_scales: bool = False) -> Dict[str, Any]:
     """Paged pool caches: every attention layer owns a flat page pool
     ``(n_repeat, n_pages, Hkv, page_tokens, D)`` (page 0 = null); recurrent
     SSM state stays a resident row per slot (``batch`` rows; in the spill
-    tier, one seat per spill page), exactly as in :func:`init_caches`."""
+    tier, one seat per spill page), exactly as in :func:`init_caches`.
+    ``dtype`` / ``quant_scales`` come from the tier's codec: an int8 tier
+    adds ``k_scale`` / ``v_scale`` leaves ``(n_repeat, n_pages)``, f32.
+    Recurrent state never quantizes (quantized geometries refuse recurrent
+    families upstream)."""
     return {group.name: {
         f"pos{pos}": _stack(
             ssm.init_mamba_cache(cfg, batch, device) if kind.attn == "mamba"
             else attn_mod.init_gqa_pages(cfg, n_pages, page_tokens, device,
-                                         dtype),
+                                         dtype, quant_scales),
             group.n_repeat)
         for pos, kind in enumerate(group.pattern)}
         for group in cfg.layer_groups()}

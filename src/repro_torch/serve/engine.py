@@ -40,6 +40,15 @@ Two more modes run on either pool's loop:
     stream, as the reference issues them in one program; outputs are the
     combined engine's, bit for bit.
 
+The paged pool's tiers store pages at the scheduler geometry's codecs
+(fp16, fp8-e4m3 or int8; :mod:`repro_torch.serve.pool`). Between
+:meth:`Engine.serve` calls an idle decoding session can leave the card
+altogether: :meth:`Engine.park_request` packs its pages (codes and scales,
+verbatim) and rows into a host blob (:mod:`repro_torch.serve.park`) and
+frees its slot and pages; :meth:`Engine.resume_parked` queues it again, and
+the boundary that re-admits it scatters the blob back into its private
+pages: a resume, never a re-prefill.
+
 The drain-boundary discipline is the reference's: :meth:`EngineCore._fetch`
 is the only device->host read, counted in ``last_stats["host_syncs"]`` (and
 by role when disaggregated: the decode role reads once a boundary, the
@@ -48,8 +57,6 @@ decode and verify chunk runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so any hidden device->host
 sync inside a chunk raises — the counterpart of the reference's transfer
 guard.
-
-Not in this slice (ROADMAP A6.5): quantized tiers and host parking.
 """
 
 from __future__ import annotations
@@ -63,6 +70,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.api import Model, has_recurrent_state
+from repro_torch.kernels.paged_attention import as_bits
+from repro_torch.models import transformer
+from repro_torch.serve import park as park_mod
 from repro_torch.serve import scheduler as sched_mod
 from repro_torch.serve import speculate as spec_mod
 from repro_torch.serve.pool import (DECODE_ROLE, PREFILL_ROLE, PoolManager,
@@ -513,6 +523,12 @@ class Engine:
         self.pools = PoolManager(model, ecfg)
         self.prefill_role = PrefillRole(self.core, self.pools)
         self.decode_role = DecodeRole(self.core, self.pools)
+        # the layer-2 host tier: the paged pool of the LAST serve() call,
+        # kept so idle sessions can park between calls, and the contents
+        # of resumed sessions by rid until a boundary re-admits them
+        self._last_pool: Optional[PoolState] = None
+        self._last_spill: Optional[Dict[str, Any]] = None
+        self._park_pending: Dict[int, Dict[str, torch.Tensor]] = {}
 
     @property
     def model(self) -> Model:
@@ -571,6 +587,108 @@ class Engine:
             if left > 0 and bool(self.core._fetch(done).all()):
                 break
         return torch.cat(out, dim=1), state
+
+    # ------------------------------------------- layer-2 host tier (park)
+    def park_request(self, sch: sched_mod.Scheduler, rid: int) -> bytes:
+        """Park an active DECODING session to the host tier, between
+        :meth:`serve` calls.
+
+        Reads the contents of every page the session maps (codes and
+        per-page scales, verbatim: lossless at any codec) and its per-slot
+        rows off the last serve()'s pool, packs them with the scheduler
+        residue (:func:`~repro_torch.serve.park.pack_parked`), then frees
+        the slot and its pages (:meth:`Scheduler.park`). This is a
+        device->host read, so it runs outside serve(), whose chunks make
+        such reads errors. Feed the blob to :meth:`resume_parked`."""
+        if has_recurrent_state(self.model.cfg):
+            raise ValueError(
+                "host parking requires attention-only models: recurrent SSM "
+                "state is per-slot, not paged")
+        slot = next((s for s, r in sch.active.items() if r.rid == rid), None)
+        if slot is None:
+            raise KeyError(f"rid {rid} is not active; only resident "
+                           f"sessions park")
+        req = sch.active[slot]
+        if req.status != sched_mod.DECODING:
+            raise ValueError(
+                "only decoding sessions park — a mid-prefill request has "
+                "no emitted token to resume from; requeue it instead")
+        if self._last_pool is None:
+            raise RuntimeError("park_request follows a serve() call — no "
+                               "paged pool state is staged")
+        caches = self._last_pool.state["caches"]
+        pages = torch.as_tensor(
+            check_page_ids(req.pages, sch.pages.n_pages, "park row"),
+            device=self.core.device).long()
+        arrays: Dict[str, torch.Tensor] = {}
+        for gname, gkey, is_paged in transformer.paged_cache_kinds(
+                self.model.cfg):
+            for name, arr in caches[gname][gkey].items():
+                key = f"{gname}/{gkey}/{name}"
+                if is_paged:
+                    arrays["pages/" + key] = as_bits(arr)[:, pages].view(
+                        arr.dtype)
+                else:
+                    arrays["rows/" + key] = arr[:, slot:slot + 1]
+        meta = {"prompt": [int(t) for t in req.prompt],
+                "tokens": [int(t) for t in req.tokens],
+                "max_new_tokens": int(req.max_new_tokens),
+                "cache_len": int(req.cache_len),
+                "n_pages": len(req.pages)}
+        blob = park_mod.pack_parked(meta, arrays)
+        sch.park(slot)
+        self.pools.release(slot)
+        return blob
+
+    def resume_parked(self, sch: sched_mod.Scheduler,
+                      blob: bytes) -> sched_mod.Request:
+        """Re-enter a parked session: rebuild its scheduler residue
+        (:meth:`Scheduler.submit_parked`) and stage its page contents for
+        the boundary that re-admits it."""
+        meta, arrays = park_mod.unpack_parked(blob)
+        req = sch.submit_parked(meta["prompt"], meta["max_new_tokens"],
+                                meta["tokens"])
+        self._park_pending[req.rid] = arrays
+        return req
+
+    def _exec_resume(self, pool: PoolState, rs: sched_mod.ResumeStep,
+                     geom: sched_mod.PageGeometry) -> PoolState:
+        """Scatter a parked session's staged contents into its freshly
+        mapped pages and re-arm its slot for decode.
+
+        Only PRIVATE logical pages are written: shared (prefix re-matched)
+        pages already hold the canonical bytes, at fp16 bit-identical to
+        the parked copies. Parked pages past the new mapping sit past the
+        KV frontier and are dropped; mapped pages past the parked coverage
+        stay as they are until decode writes them (an int8 page's scale
+        resets at offset 0). The page ids are checked on the host before
+        upload, as every other row is."""
+        req, slot = rs.req, rs.slot
+        arrays = self._park_pending.pop(req.rid)
+        n_shared = req.n_shared
+        parked_n = next((v.shape[1] for key, v in arrays.items()
+                         if key.startswith("pages/")), len(req.pages))
+        k = min(parked_n, len(req.pages)) - n_shared
+        priv = torch.as_tensor(
+            check_page_ids(req.pages[n_shared:n_shared + k], geom.n_pages,
+                           "resume row"), device=self.core.device).long()
+        caches = pool.state["caches"]
+        for gname, gkey, is_paged in transformer.paged_cache_kinds(
+                self.model.cfg):
+            for name, arr in caches[gname][gkey].items():
+                key = f"{gname}/{gkey}/{name}"
+                if is_paged:
+                    src = arrays["pages/" + key][:, n_shared:n_shared + k]
+                    as_bits(arr)[:, priv] = as_bits(src).to(arr.device)
+                else:
+                    arr[:, slot:slot + 1] = arrays["rows/" + key].to(
+                        arr.device)
+        pool.tok[slot] = int(req.tokens[-1])
+        pool.cache_len[slot] = req.cache_len
+        pool.done[slot] = False
+        pool.n_gen[slot] = len(req.tokens)
+        pool.budget[slot] = req.max_new_tokens
+        return pool
 
     # ------------------------------------------------------------ serve
     def _start_stats(self, disagg: bool) -> None:
@@ -663,10 +781,11 @@ class Engine:
 
     def _run_boundaries(self, sch: sched_mod.Scheduler, pool: PoolState,
                         boundary, max_steps: Optional[int],
-                        disagg: bool = False) -> None:
+                        disagg: bool = False) -> PoolState:
         """The serve loop both pools share: ``boundary(pool, step_clock,
         pending_first)`` does a boundary's admissions and copies and
-        returns the pool, then the decode work and the drain."""
+        returns the pool, then the decode work and the drain. Returns the
+        last pool."""
         pending_first: List[Tuple[sched_mod.Request, torch.Tensor]] = []
         boundary_wall: List[float] = []
         boundary_tokens: List[int] = []
@@ -689,6 +808,7 @@ class Engine:
             # on its own engine (meaningful under phase_timing)
             self.last_stats["boundary_decode_wall_s"] = decode_wall
         self._finish_spec_stats()
+        return pool
 
     def _finish_spec_stats(self) -> None:
         """Derive the acceptance summary once a serve run ends."""
@@ -768,8 +888,11 @@ class Engine:
                      max_steps: Optional[int] = None) -> ServeReport:
         """Continuous batching over the paged two-tier pool.
 
-        Boundary order: spills -> restores -> admissions (whole-prompt, or
-        suffix-only for a prefix-index hit) -> the planned prefill chunks
+        Boundary order: spills -> restores -> resumes of parked sessions
+        (before any admission: a resumed session's pages are in the prefix
+        index from plan time, so a same-boundary matcher must read settled
+        bytes) -> admissions (whole-prompt, or suffix-only for a
+        prefix-index hit) -> the planned prefill chunks
         (each copy in plan order, so the in-place pools see exactly the
         reference's sequence of functional updates) -> page handovers when
         disaggregated -> block-table upload (the decode role's view when
@@ -802,9 +925,6 @@ class Engine:
             nonlocal spill
             plan = sch.plan_boundary(chunk_tokens=grow,
                                      max_len=self.ecfg.max_len)
-            if plan.resumes:
-                raise NotImplementedError(
-                    "host park/resume is not ported yet (ROADMAP A6.5)")
             for req in plan.rejects:
                 req.finish_step = step_clock
             # spills FIRST: they copy layer-0 pages that restores/admits
@@ -819,6 +939,11 @@ class Engine:
                     pools.claim(act.slot, role)
                 pool = core._timed("insert", pools.exec_restore, pool, spill,
                                    act, p_max, role=role)
+            for rs in plan.resumes:
+                if disagg:
+                    pools.claim(rs.slot, DECODE_ROLE)
+                pool = core._timed("insert", self._exec_resume, pool, rs,
+                                   geom, role=DECODE_ROLE if disagg else None)
             for slot, req in plan.admits:
                 req.admit_step = step_clock
                 if disagg:
@@ -850,7 +975,11 @@ class Engine:
             table = check_page_ids(table, geom.n_pages, "block table")
             return dataclasses.replace(pool, block_tables=core.tensor(table))
 
-        self._run_boundaries(sch, pool, boundary, max_steps, disagg)
+        pool = self._run_boundaries(sch, pool, boundary, max_steps, disagg)
+        # staged for park_request between serve() calls: the next serve()
+        # builds a fresh pool, and parking is how a still-active session's
+        # KV survives the gap
+        self._last_pool, self._last_spill = pool, spill
         return self._report(sch, sch.drained + list(sch.active.values())
                             + list(sch.queue))
 

@@ -1,14 +1,21 @@
 """Pool ownership for the serving engine: construction, tier copies and
 the slot-ownership map of disaggregated serving.
 
-The counterpart of ``src/repro/serve/pool.py`` for the fp16 (bf16 storage)
-codec. Two pools: the dense slot slab (one ``max_len``-deep KV row per
+The counterpart of ``src/repro/serve/pool.py``. Two pools: the dense slot slab (one ``max_len``-deep KV row per
 slot, :meth:`PoolManager.init_pool`), and the paged pool, one device-side
 address space: a flat layer-0 page pool addressed through per-slot block
 tables, and a layer-1 spill tier the scheduler preempts into when layer 0
 runs out. Recurrent SSM state is not
 paged: layer 0 holds one row per slot and layer 1 one seat per spill page,
 and a spill or restore moves the row between the slot and its seat.
+
+Each paged tier stores its pages at its own codec (:data:`CODECS`): fp16
+(bf16 storage, the identity), fp8-e4m3 (a cast) or int8 (codes plus one
+f32 scale a page a leaf). A copy between tiers of one codec moves codes and
+scales verbatim, so spill -> restore is bit-exact at any codec; across
+codecs (the fp8 policy's fp8 layer 0 and int8 layer 1) each moved page is
+dequantized to f32 and re-encoded, with fresh scales for an int8
+destination.
 
 Unlike the reference's functional arrays, the pools here are updated IN
 PLACE. That is safe because the engine executes a boundary's copies in the
@@ -34,6 +41,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.paged_attention import (as_bits,
+                                                 dequantize_page_int8,
+                                                 quantize_page_int8)
 from repro_torch.serve import scheduler as sched_mod
 
 PREFILL_ROLE = sched_mod.PREFILL_ROLE
@@ -45,9 +55,10 @@ DECODE_ROLE = sched_mod.DECODE_ROLE
 
 @dataclasses.dataclass(frozen=True)
 class TierCodec:
-    """How one pool tier stores KV bytes. Only ``fp16`` (bf16 storage, the
-    bit-exact identity) is served by this slice; the int8 / fp8 codecs are
-    listed so the scheduler prices their pages as the reference does."""
+    """How one pool tier stores KV bytes. ``scaled`` codecs (int8) carry one
+    f32 scale per page per leaf in a sibling ``<leaf>_scale`` leaf;
+    unscaled codecs are a cast (fp8-e4m3) or the identity (fp16: bf16
+    storage, the bit-exact reference every quantized tier is held to)."""
 
     name: str
     dtype: Any
@@ -162,19 +173,23 @@ class PoolManager:
         geom = sch.pages
         if geom is None:
             raise ValueError("init_paged_pool needs a paged scheduler")
-        if (geom.layer0_codec, geom.layer1_codec) != ("fp16", "fp16"):
-            raise NotImplementedError(
-                "quantized KV tiers (int8/fp8) are not ported yet "
-                "(ROADMAP A6.5)")
         from repro_torch.models import transformer
+        from repro_torch.models.api import has_recurrent_state
         cfg, dev = self.model.cfg, self.device
+        l0, l1 = CODECS[geom.layer0_codec], CODECS[geom.layer1_codec]
+        if (l0.name, l1.name) != ("fp16", "fp16") and has_recurrent_state(cfg):
+            raise ValueError(
+                "quantized KV pages require attention-only models: "
+                "recurrent SSM state integrates every step and has no "
+                "bounded per-page error story (docs/SERVING.md)")
         self.geom = geom
         n_slots = sch.n_slots
         state = {"caches": transformer.init_paged_caches(
-            cfg, n_slots, geom.n_pages, geom.page_tokens, dev)}
+            cfg, n_slots, geom.n_pages, geom.page_tokens, dev,
+            dtype=l0.dtype, quant_scales=l0.scaled)}
         spill = transformer.init_paged_caches(
             cfg, geom.n_spill_pages, geom.n_spill_pages, geom.page_tokens,
-            dev)
+            dev, dtype=l1.dtype, quant_scales=l1.scaled)
 
         pool = PoolState(
             state=state, **self._vectors(n_slots),
@@ -184,19 +199,43 @@ class PoolManager:
 
     # -------------------------------------------------------- tier copies
     def _tier_copy(self, src_caches, dst_caches, row_src: int, row_dst: int,
-                   pages_src: torch.Tensor, pages_dst: torch.Tensor) -> None:
+                   pages_src: torch.Tensor, pages_dst: torch.Tensor,
+                   src_codec: str, dst_codec: str) -> None:
         """dst[:, pages_dst] = src[:, pages_src] for every paged leaf, and
         dst[:, row_dst] = src[:, row_src] for every recurrent (per-slot)
-        leaf. Padded page entries route through the null pages."""
+        leaf. Padded page entries route through the null pages.
+
+        Between tiers of one codec the page leaves (codes, and scales for
+        int8) move as bits, so spill -> restore is bit-exact. Across codecs
+        each moved page is dequantized to f32 and re-encoded at the
+        destination's codec, with fresh per-page scales when that is
+        int8."""
         from repro_torch.models import transformer
+        src_c, dst_c = CODECS[src_codec], CODECS[dst_codec]
         for gname, gkey, is_paged in transformer.paged_cache_kinds(
                 self.model.cfg):
             src_g, dst_g = src_caches[gname][gkey], dst_caches[gname][gkey]
             for name, dst in dst_g.items():
-                if is_paged:
-                    dst[:, pages_dst] = src_g[name][:, pages_src]
-                else:
+                if not is_paged:
                     dst[:, row_dst] = src_g[name][:, row_src]
+                elif src_codec == dst_codec:
+                    as_bits(dst)[:, pages_dst] = \
+                        as_bits(src_g[name])[:, pages_src]
+                elif not name.endswith("_scale"):
+                    src = src_g[name]
+                    sel = as_bits(src)[:, pages_src].view(src.dtype)
+                    if src_c.scaled:                   # (r, P, *page)
+                        sel = dequantize_page_int8(
+                            sel, src_g[name + "_scale"][:, pages_src],
+                            tuple(range(2, sel.ndim)))
+                    if dst_c.scaled:
+                        codes, scales = quantize_page_int8(
+                            sel, tuple(range(2, sel.ndim)))
+                        dst[:, pages_dst] = codes
+                        dst_g[name + "_scale"][:, pages_dst] = scales
+                    else:
+                        as_bits(dst)[:, pages_dst] = as_bits(
+                            sel.float().to(dst.dtype))
 
     def pad_pages(self, pages: Sequence[int], p_max: int,
                   n_pages: int) -> torch.Tensor:
@@ -218,7 +257,8 @@ class PoolManager:
                         self.pad_pages(act.src_pages, p_max,
                                        geom.n_pages).long(),
                         self.pad_pages(act.dst_pages, p_max,
-                                       geom.n_spill_pages).long())
+                                       geom.n_spill_pages).long(),
+                        geom.layer0_codec, geom.layer1_codec)
         return spill
 
     def exec_restore(self, pool: PoolState, spill: Dict[str, Any],
@@ -235,7 +275,8 @@ class PoolManager:
                         self.pad_pages(act.src_pages, p_max,
                                        geom.n_spill_pages).long(),
                         self.pad_pages(req.pages[:len(act.src_pages)],
-                                       p_max, geom.n_pages).long())
+                                       p_max, geom.n_pages).long(),
+                        geom.layer1_codec, geom.layer0_codec)
         slot = act.slot
         pool.cache_len[slot] = req.cache_len
         if req.status == sched_mod.PREFILLING:

@@ -3,7 +3,10 @@
 ``repro_torch`` must import on a machine without JAX (the GPU machine has
 none), so every module is imported in a subprocess where ``import jax``
 fails, and every source file is scanned for imports of ``jax`` or
-``repro``. Entry points run on the card unless the caller asks for the
+``repro``. Nor may it lean on the reference's serialization packages
+(``msgpack``, ``zstandard``, ``ml_dtypes``), which the GPU machine lacks
+too: every source file and ``chip_smoke.py`` are scanned for them, and a
+park blob round-trips in a subprocess where they fail to import. Entry points run on the card unless the caller asks for the
 CPU: without a card they raise, and so does a kernel wrapper handed a
 tensor that is neither on the CPU nor on a CUDA card.
 """
@@ -82,6 +85,58 @@ def test_no_module_imports_jax_or_repro(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), \
                 f"{path}:{node.lineno} imports {name}"
+
+
+#: the reference's park / checkpoint packages, absent on the GPU machine
+CODEC_PACKAGES = ("msgpack", "zstandard", "ml_dtypes")
+
+
+@pytest.mark.parametrize("path", FILES + [ROOT / "chip_smoke.py"],
+                         ids=MODULES + ["chip_smoke"])
+def test_no_module_imports_the_reference_codec_packages(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in CODEC_PACKAGES + ("jax", "jaxlib", "repro"), \
+                f"{path}:{node.lineno} imports {name}"
+
+
+def test_park_round_trips_with_the_codec_packages_blocked():
+    """A bf16, fp8, int8 and f32 park blob packs and unpacks bit for bit
+    where ``msgpack``, ``zstandard``, ``ml_dtypes`` and ``jax`` cannot be
+    imported."""
+    code = (
+        "import sys\n"
+        f"for name in {CODEC_PACKAGES + ('jax',)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from repro_torch.serve import park\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "x = torch.randn(3, 5, 7, generator=g)\n"
+        "arrays = {'pages/a/k': x.to(torch.bfloat16),\n"
+        "          'pages/a/v': x.to(torch.float8_e4m3fn),\n"
+        "          'pages/a/k_scale': x[0, 0],\n"
+        "          'rows/c': (x * 9).to(torch.int8)}\n"
+        "meta, back = park.unpack_parked(park.pack_parked({'t': [1]}, "
+        "arrays))\n"
+        "assert meta == {'t': [1]} and set(back) == set(arrays)\n"
+        "for k, t in arrays.items():\n"
+        "    b = back[k]\n"
+        "    assert b.dtype == t.dtype and b.shape == t.shape, k\n"
+        "    assert torch.equal(b.view(torch.uint8), t.view(torch.uint8)), k\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{CODEC_PACKAGES!r} and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=str(ROOT), timeout=120)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -363,7 +363,9 @@ def test_decode_attention_masked_matches_jax(s):
 
 def test_paged_multi_token_and_noncausal_take_the_oracle():
     """Multi-token queries and causal=False gather + oracle, as in the
-    reference's dispatch; quantized pools are not ported yet."""
+    reference's dispatch; so does a quantized pool (int8 codes with per-page
+    scales, dequantized after the gather, against the reference's same
+    path), and the paged kernel refuses one."""
     d, pt, p_max = 16, 8, 4
     q, kp, vp, bt, cl = _paged_inputs(2, 4, 2, d, pt, p_max, [5, 20], seed=1)
     q3 = np.concatenate([q, q, q], axis=2)
@@ -373,11 +375,19 @@ def test_paged_multi_token_and_noncausal_take_the_oracle():
         want = j_paged(jnp.asarray(qq), jnp.asarray(kp), jnp.asarray(vp),
                        jnp.asarray(bt), jnp.asarray(cl), causal=causal)
         _close(got, want)
+    codes = [np.clip(np.round(np.asarray(x, np.float32) * 40), -127,
+                     127).astype(np.int8) for x in (kp, vp)]
+    scales = [np.linspace(0.01, 0.03, kp.shape[0]).astype(np.float32)] * 2
+    got = paged_decode_attention(_t(q), *map(_t, codes), _t(bt), _t(cl),
+                                 k_scale=_t(scales[0]), v_scale=_t(scales[1]))
+    want = j_paged(jnp.asarray(q), *map(jnp.asarray, codes), jnp.asarray(bt),
+                   jnp.asarray(cl), k_scale=jnp.asarray(scales[0]),
+                   v_scale=jnp.asarray(scales[1]))
+    _close(got, want)
     with pytest.raises(NotImplementedError, match="quantized"):
-        paged_decode_attention(_t(q), _t(kp).to(torch.int8),
-                               _t(vp).to(torch.int8), _t(bt), _t(cl),
-                               k_scale=torch.ones(kp.shape[0]),
-                               v_scale=torch.ones(kp.shape[0]))
+        paged_decode_attention(_t(q), *map(_t, codes), _t(bt), _t(cl),
+                               k_scale=_t(scales[0]), v_scale=_t(scales[1]),
+                               impl="kernel")
 
 
 @pytest.mark.cuda
