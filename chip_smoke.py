@@ -33,7 +33,10 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      paged decode also at split (4-page) boundaries, windows across and
      emptying splits, and the long case (4 slots x 4096 positions, timed
      in GB/s), one CUDA kernel a call, each slot alone and a 64-page
-     null-padded table bit for bit equal to the batch of 4 over 36 pages;
+     null-padded table bit for bit equal to the batch of 4 over 36 pages,
+     and at serve_bench's 8-token pages (8 pages a split): its chunked
+     head-to-head's shape (8 slots over 514 pages, timed) and split edges
+     under a window;
      then every attention case is called REPEAT_ROUNDS more times, the
      cases interleaved, each call bit for bit equal to its first output;
      mamba_scan at falcon-mamba-7b's shapes
@@ -72,32 +75,45 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      Kernel launch counts must
      match (admissions + prefill chunks) x layers for flash and decode
      steps x layers for paged decode (0 on the dense slab, whose decode is
-     the masked oracle by the reference's dispatch, 0 in a
-     speculative stream, whose multi-token verify forward takes gather +
-     oracle by the same dispatch, and 0 on a quantized pool, which gathers
-     and dequantizes as the reference does); every decode and verify chunk runs with
+     the masked oracle by the reference's dispatch; k + 1 a layer for each
+     verify forward of a speculative paged stream, one launch per query
+     column; 0 on a quantized pool, which gathers and dequantizes as the
+     reference does); every decode and verify chunk runs with
      device->host syncs made errors (the engine's guard); the host reads
      the device once a boundary (disaggregated: the decode role once a
      boundary, the prefill role only at boundaries that completed a
      prompt); and requests 0 and 1 of every stream, and every request of
      the prefix-shared and copy-on-write streams, are held to the
      teacher-forced rule;
-  6. falcon-mamba-7b at full width: one-shot generate, the paged stream,
+  6. ``repro_torch.benchmarks.serve_bench``'s head-to-heads on
+     qwen2.5-3b at full width under the bench's h100 default, 16
+     requests, each run once: static / continuous / paged / paged+share,
+     the chunked-prefill stall (the reference's 4096-token prompt), the
+     speculative, disaggregated and int8 + host-parking head-to-heads.
+     For each run: tok/s, wall-clock inter-token p50/p95/p99 and TTFT,
+     TTFT in steps and at emission, host syncs against boundaries,
+     preemptions and spills; every request drains, at most one host sync
+     a boundary (a role a boundary when disaggregated), and the outputs
+     gates pass (disaggregated == combined exactly; sharing, chunking and
+     speculation by the teacher-forced rule; a failed gate fails the
+     script after phase 9, so that the later phases still report);
+     launches counted around the phase, and the phase's seconds printed;
+  7. falcon-mamba-7b at full width: one-shot generate, the paged stream,
      the dense slot-slab stream, the squeezed paged stream (so the
      recurrent rows spill to their seats and come back, and every request
      emits the roomy stream's tokens), the greedy tokens against
      teacher-forced passes at the served batch, and ``Model.loss``'s
      forward on 1 x 2048 tokens. Every forward call launches mamba_scan
      once per layer (64) and the plain scan never;
-  7. the paper path: ``repro_torch.launch.mempool_matmul`` (the
+  8. the paper path: ``repro_torch.launch.mempool_matmul`` (the
      scratchpad-fraction sweep at M = 8192, bf16 and f32, each plan held
      to the plain version) and ``repro_torch.benchmarks.kernel_bench
      --target h100``, with the matmul3d launches counted around both;
-  8. four chunks of the qwen2.5-3b stream (fp16 and int8 pages) and of
+  9. four chunks of the qwen2.5-3b stream (fp16 and int8 pages) and of
      the falcon-mamba-7b stream under ``torch.profiler`` (CUDA activity
      only): device time by kernel, the device's idle share and the CUDA
      kernels launched;
-  9. the ``kernels`` summary line (launches on the main path, the paged
+ 10. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream), the card line, and the
      result line.
 
@@ -138,7 +154,8 @@ F32_FLOPS = 67e12          # H100 SXM f32 peak outside the tensor cores
 N_TIMED = 25
 REPEAT_ROUNDS = 500        # phase 3's attention cases, each called again
 MATMUL_M = 8192            # the paper sweep's size (see mempool_matmul)
-PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 7
+PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 9
+PROFILE_TRIES = 6          # traces taken before the profiler is given up
 
 N_TIMED_PLAIN_SCAN = 3    # the plain scan is one Python step per position
 SCAN_TOL = 2e-4            # f32 y and final state (test_mamba_scan_sweep)
@@ -170,6 +187,14 @@ SQUEEZED_PAGES = 50        # layer-0 pages that make qwen's STREAM preempt
 FALCON_SQUEEZED_PAGES = 45
 LOSS_LEN = 2048
 LONG_TOKENS = 4096         # the long-context paged case: 4 slots x 4096
+BENCH_PAGE_TOKENS = 8      # serve_bench's default --page-tokens
+BENCH_REQUESTS = 16        # each serve_bench head-to-head's stream
+#: serve_bench's park step for its int8 head-to-head: the first boundary
+#: (4 steps), where no request is preempted, so the next serve() may run
+BENCH_PARK_IDLE = 4
+#: pages a slot in serve_bench's chunked head-to-head: its 4096-token
+#: prompt + 12 generated over 8-token pages
+BENCH_P_MAX = -(-(4096 + 12) // BENCH_PAGE_TOKENS)
 #: libraries whose SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
 TENSOR_CORE_KERNELS = ("matmul3d", "flash_attention")
 #: the port's kernels by name, as the profiler lists them
@@ -199,25 +224,33 @@ def device_profile(fn, kernel: str = "", n: int = N_TIMED) -> tuple:
     ``kernel`` (every kernel it launches when empty), over ``n`` calls
     under torch.profiler (CUDA activity only): the device's work alone,
     without the host's call path that CUDA events around one call also
-    count; and how many CUDA kernels of any name one call launches. A
-    trace that holds no kernel at all (the profiler now and then returns
-    an empty one) is taken again once; fails if the profiler saw no such
-    kernel."""
+    count; and how many CUDA kernels of any name one call launches.
+
+    The profiler now and then returns a trace that lost some or all of its
+    kernel records, a few in a row (on the H100: a partial trace, then two
+    empty ones). Every call of ``fn`` launches the same kernels, so a whole
+    trace holds each kernel a multiple of ``n`` times; any other trace is
+    taken again, up to PROFILE_TRIES traces. Fails if none was whole or
+    none held such a kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
         cuda = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
-        if cuda:
+        if cuda and all(e.count % n == 0 for e in cuda):
             break
-        log("  (the profiler returned an empty trace; tracing again)")
+        log(f"  (the profiler lost kernel records: {n} calls, "
+            f"{sum(e.count for e in cuda)} kernels traced; tracing again)")
+    else:
+        fail(f"the profiler returned no whole trace of {n} calls in "
+             f"{PROFILE_TRIES} tries")
     hits = [e for e in cuda if kernel in e.key]
     if not hits:
         fail(f"the profiler saw no {kernel or 'CUDA'} kernel")
@@ -298,7 +331,7 @@ def compare(name: str, got, want, tol: float = ATOL) -> float:
 
 def phase_environment() -> str:
     import torch
-    log(f"[1/9] environment: python {sys.version.split()[0]}, torch "
+    log(f"[1/10] environment: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -320,7 +353,7 @@ def phase_build() -> dict:
     (TMA loads). Returns {library: its SASS counts of HGMMA, UTMALDG and
     HMMA (``mma.sync``, the tensor cores without wgmma)}."""
     from repro_torch.kernels import build
-    log("[2/9] build: nvcc " + " ".join(build.NVCC_FLAGS))
+    log("[2/10] build: nvcc " + " ".join(build.NVCC_FLAGS))
     t0 = time.perf_counter()
     build.build_all()
     log(f"  built {', '.join(build.SOURCES)} in "
@@ -352,7 +385,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
     from repro_torch.benchmarks.common import median_ms
     from repro_torch.kernels.paged_attention import (paged_flash_decode,
                                                      paged_flash_decode_plain)
-    log(f"[3/9] kernels against their plain versions (attention: bf16, "
+    log(f"[3/10] kernels against their plain versions (attention: bf16, "
         f"atol = rtol = {ATOL})")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -425,13 +458,14 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                                             depth, off)
 
     # ---- paged decode: B slots walking P pages of pt tokens
-    def paged_case(b, p, lens, window=None, tag=""):
+    def paged_case(b, p, lens, window=None, tag="", page_tokens=pt):
         n_pages = b * p + 1
-        kp, vp = rnd(n_pages, hkv, pt, d), rnd(n_pages, hkv, pt, d)
+        kp = rnd(n_pages, hkv, page_tokens, d)
+        vp = rnd(n_pages, hkv, page_tokens, d)
         perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
         bt = perm[:b * p].reshape(b, p).to(torch.int32)
         # slots map only the pages their frontier reaches; the rest is null
-        mapped = (torch.arange(p, device=dev)[None, :] * pt
+        mapped = (torch.arange(p, device=dev)[None, :] * page_tokens
                   <= torch.as_tensor(lens, device=dev)[:, None])
         bt = torch.where(mapped, bt, 0).contiguous()
         cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
@@ -439,7 +473,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
         got = paged_flash_decode(q, kp, vp, bt, cl, window=window)
         want = paged_flash_decode_plain(q, kp, vp, bt, cl, window=window)
         torch.cuda.synchronize()
-        label = f"paged B={b} P={p} pt={pt} window={window} {tag}"
+        label = f"paged B={b} P={p} pt={page_tokens} window={window} {tag}"
         err = compare(label, got, want)
         repeats.append((label, functools.partial(
             paged_flash_decode, q, kp, vp, bt, cl, window=window), got))
@@ -514,6 +548,28 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
         f"{l_bytes / 1e6:.2f} MB at {l_gbps:.1f} GB/s "
         f"({l_gbps * 1e9 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s), bound "
         f"{l_bound:.4f} ms ({l_by})")
+    # 8-token pages, serve_bench's default: a 64-position split walks 8
+    # pages. Its chunked head-to-head's shape (8 slots over 514 pages: one
+    # 4099-token frontier among short ones) and edges at split boundaries
+    # under a window
+    e, (q, kp, vp, bt, cl) = paged_case(
+        8, BENCH_P_MAX, [4099, 27, 20, 63, 64, 0, 1, 2050], None,
+        "(serve_bench chunked shape)", page_tokens=BENCH_PAGE_TOKENS)
+    paged_err = max(paged_err, e)
+    e8, _ = paged_case(8, 40, [63, 64, 127, 128, 319, 7, 100, 200], 70,
+                       "(8-token pages, split edges)",
+                       page_tokens=BENCH_PAGE_TOKENS)
+    paged_err = max(paged_err, e8)
+    lens8 = [int(x) for x in cl.tolist()]
+    p8_ms = median_ms(lambda: paged_flash_decode(q, kp, vp, bt, cl), N_TIMED)
+    p8_dev = device_ms(lambda: paged_flash_decode(q, kp, vp, bt, cl),
+                       "paged_decode_kernel")
+    p8_plain = median_ms(
+        lambda: paged_flash_decode_plain(q, kp, vp, bt, cl), N_TIMED)
+    p8_bound, p8_by = bound_ms(*paged_work(lens8, q, bt, cl))
+    log(f"  paged B=8 P={BENCH_P_MAX} pt={BENCH_PAGE_TOKENS} lens={lens8}: "
+        f"kernel {p8_ms:.4f} ms (device {p8_dev:.4f} ms), plain "
+        f"{p8_plain:.4f} ms, bound {p8_bound:.4f} ms ({p8_by})")
     repeat_calls(repeats)
     del q, kp, vp, bt, cl, batch, repeats
     return {
@@ -528,7 +584,10 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                       library_ms=None, bound_ms=p_bound, bound_by=p_by,
                       extra=dict(cuda_kernels_per_call=p_kernels,
                                  long_device_ms=l_dev, long_bound_ms=l_bound,
-                                 long_gb_per_s=l_gbps)),
+                                 long_gb_per_s=l_gbps, pt8_ms=p8_ms,
+                                 pt8_device_ms=p8_dev, pt8_plain_ms=p8_plain,
+                                 pt8_bound_ms=p8_bound,
+                                 pt8_bound_by=p8_by)),
         "matmul3d": phase_matmul_kernel(),
         "mamba_scan": phase_scan_kernel(fcfg),
     }
@@ -843,25 +902,14 @@ def phase_scan_kernel(fcfg) -> dict:
 
 
 def teacher_forced_check(cfg, seed_params, prompt, tokens, label) -> float:
-    """Greedy ``tokens`` after ``prompt`` must each be within LOGIT_TOL of
-    the best logit of one full-sequence forward (no caches); returns the
-    worst gap."""
-    import torch
-    from repro_torch.models import layers, transformer
-    seq = torch.as_tensor(list(prompt) + list(tokens[:-1]), dtype=torch.int32,
-                          device="cuda")[None]
-    start, vocab = len(prompt) - 1, cfg.vocab_size
-    x, _ = transformer.forward(cfg, seed_params, seq)
-    logits = layers.unembed_logits(seed_params["tok"],
-                                   x[0, start:])[:, :vocab]
-    picked = logits.gather(1, torch.as_tensor(
-        list(tokens), device="cuda")[:, None].long())[:, 0]
-    gap = (logits.max(dim=1).values - picked).max().item()
+    """``repro_torch.serve.checks.teacher_forced_check`` (greedy ``tokens``
+    after ``prompt`` each within LOGIT_TOL of the best logit of one
+    full-sequence forward, no caches), logged; returns the worst gap."""
+    from repro_torch.serve import checks
+    gap = checks.teacher_forced_check(cfg, seed_params, prompt, tokens, label,
+                                      LOGIT_TOL)
     log(f"  {label}: {len(tokens)} tokens, worst gap to the teacher-forced "
         f"best logit {gap:.4f}")
-    if not gap <= LOGIT_TOL:
-        fail(f"{label}: a greedy token is {gap:.4f} below the teacher-forced "
-             f"best logit (tolerance {LOGIT_TOL})")
     return gap
 
 
@@ -949,7 +997,7 @@ def one_shot(cfg, argv, label) -> dict:
 
 
 def phase_one_shot(cfg) -> None:
-    log("[4/9] one-shot generate: " + " ".join(ONE_SHOT))
+    log("[4/10] one-shot generate: " + " ".join(ONE_SHOT))
     rec = one_shot(cfg, ONE_SHOT, "one-shot")
     teacher_forced_check(cfg, reference_params(cfg), one_shot_prompts(cfg)[0],
                          rec["tokens"].numpy()[0], "one-shot row 0")
@@ -959,7 +1007,8 @@ def run_stream(cfg, argv, label) -> dict:
     """A stream through the CLI, its launches counted around it: each
     whole-prompt or suffix admission and each prefill chunk launches flash
     once per attention layer; each decode step launches the paged kernel
-    once per attention layer on an fp16 paged pool and no kernel on the
+    once per attention layer on an fp16 paged pool (a verify forward k + 1
+    times: once per query column) and no kernel on the
     dense slot slab or a quantized pool (the reference's dispatch: both
     decode through the masked oracle); admissions and decode steps launch
     mamba_scan once per mamba layer. Prints the stream's time."""
@@ -997,13 +1046,14 @@ def check_stream(cfg, rec, counts, label) -> dict:
              f"{rec['chunks']}")
     adm, steps = rec["admissions"], rec["decode_steps_total"]
     chunks = rec["prefill_chunks"]
-    # a speculative stream's verify forwards are multi-token and a quantized
-    # pool's pages are not bf16: both gather + oracle, never the paged kernel
-    paged_steps = (rec["paged"] and not rec.get("speculate_tokens")
-                   and rec.get("layer0_codec") == "fp16")
+    # a speculative stream's verify forward walks pages once per query
+    # column (k + 1 a layer); a quantized pool's pages are not bf16: gather
+    # + oracle, never the paged kernel
+    columns = 1 + (rec.get("speculate_tokens") or 0)
+    paged_steps = rec["paged"] and rec.get("layer0_codec") == "fp16"
     check_counts(label, counts, {
         "flash": (adm + chunks) * n_attn,
-        "paged": steps * n_attn if paged_steps else 0,
+        "paged": steps * columns * n_attn if paged_steps else 0,
         "scan": (adm + steps) * n_ssm, "plain_scan": 0})
     log(f"  {label}: ok — {adm} admissions, {chunks} prefill chunks, "
         f"{steps} decode steps, {syncs}; launches {counts}; "
@@ -1073,7 +1123,7 @@ def phase_stream(cfg) -> dict:
                                              repetitive_stream,
                                              shared_prefix_stream,
                                              synthetic_stream)
-    log("[5/9] qwen2.5-3b streams (every decode and verify chunk under "
+    log("[5/10] qwen2.5-3b streams (every decode and verify chunk under "
         "set_sync_debug_mode('error')); the prefix-shared stream's requests "
         "are all held to the teacher-forced rule")
     recs = {"stream": run_stream(cfg, STREAM, "stream")}
@@ -1149,6 +1199,112 @@ def phase_stream(cfg) -> dict:
     del params
     free_memory()
     return recs
+
+
+def _bench_row(label: str, r: dict) -> None:
+    """One head-to-head run's wall-clock and step-clock latency, syncs and
+    pool counters; fails unless its host syncs are at most one a
+    boundary (one a role a boundary when disaggregated)."""
+    by_role = r.get("host_syncs_by_role")
+    syncs_ok = (all(n <= r["boundaries"] for n in by_role.values())
+                if by_role else r["host_syncs"] <= r["boundaries"])
+    if not syncs_ok:
+        fail(f"serve_bench {label}: host syncs {by_role or r['host_syncs']} "
+             f"over {r['boundaries']} boundaries")
+    steps = ("-" if r.get("ttft_steps_p50") is None else
+             f"{r['ttft_steps_p50']:.0f}/{r['ttft_steps_p95']:.0f}")
+    emit = ("-" if r.get("ttft_emit_p50") is None else
+            f"{r['ttft_emit_p50']:.0f}/{r['ttft_emit_p95']:.0f}")
+    log(f"  {label}: {r['tok_per_s']:.1f} tok/s; inter-token p50/p95/p99 "
+        f"{r['intertoken_p50_ms']:.2f}/{r['intertoken_p95_ms']:.2f}/"
+        f"{r['intertoken_p99_ms']:.2f} ms; TTFT wall p50/p95/p99 "
+        f"{r['ttft_wall_p50_ms']:.1f}/{r['ttft_wall_p95_ms']:.1f}/"
+        f"{r['ttft_wall_p99_ms']:.1f} ms, steps {steps}, at emission {emit}; "
+        f"host syncs {by_role or r['host_syncs']} over {r['boundaries']} "
+        f"boundaries; {r.get('preemptions', 0)} preemptions, "
+        f"{r.get('spilled_pages', 0)} pages spilled")
+
+
+def phase_serve_bench(cfg) -> dict:
+    """``repro_torch.benchmarks.serve_bench``'s five head-to-heads on
+    qwen2.5-3b at full width, under the bench's default target on the card
+    (h100), BENCH_REQUESTS requests, each run once (no warm-up pass,
+    repeats 1): sharing off vs on, the chunked-prefill stall with the
+    reference's 4096-token prompt, speculation off vs on, combined vs
+    disaggregated roles, fp16 vs int8 pages with host parking. Every
+    request drains; host syncs at most one a boundary (a role a boundary
+    when disaggregated); the outputs gates pass (exact for the roles, the
+    teacher-forced rule for sharing, chunking and speculation); launches
+    counted around the phase."""
+    from repro_torch.benchmarks import serve_bench as sb
+    from repro_torch.benchmarks.common import ARTIFACT_ROOT
+    log(f"[6/10] serve_bench head-to-heads: qwen2.5-3b --full, "
+        f"{BENCH_REQUESTS} requests, each run once")
+    t0 = time.perf_counter()
+    common = dict(arch="qwen2.5-3b", n_requests=BENCH_REQUESTS, full=True,
+                  warmup=False)
+    runs = [
+        ("share", "serve_bench.json",
+         ("static", "continuous", "paged", "prefix_share"),
+         lambda: sb.run(paged=True, prefix_share=True, **common)),
+        ("chunked", "serve_chunked_bench.json", None,
+         lambda: sb.run_chunked(repeats=1, **common)),
+        ("speculate", "serve_speculate.json", ("baseline", "speculate"),
+         lambda: sb.run_speculate(**common)),
+        ("disagg", "serve_disagg_bench.json", ("combined", "disaggregated"),
+         lambda: sb.run_disagg(**common)),
+        ("quant", "serve_quant_bench.json", ("base", "quant"),
+         lambda: sb.run_quant(kv_quant="int8", park_idle=BENCH_PARK_IDLE,
+                              **common)),
+    ]
+    reset_counts()
+    gates, failed = {}, []
+    for name, artifact, keys, fn in runs:
+        t = time.perf_counter()
+        path = os.path.join(ARTIFACT_ROOT, artifact)
+        if os.path.exists(path):
+            os.remove(path)
+        try:
+            for line in fn().splitlines():
+                log(f"    {line}")
+        except SystemExit as e:
+            # a failed outputs gate; the speculative head-to-head saves its
+            # artifact first, the others raise before they save one
+            failed.append(f"{name}: {e}")
+            log(f"  {name}: FAILED: {e}")
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            art = json.load(f)
+        recs = art["runs"] if keys is None else {k: art[k] for k in keys}
+        for label, r in recs.items():
+            # the chunked runs but the baseline add the long prompt
+            n = art["n_requests"] + (name == "chunked"
+                                     and label != "baseline")
+            if r["completed"] != n:
+                fail(f"serve_bench {name} {label}: {r['completed']}/{n} "
+                     f"requests drained")
+            _bench_row(f"{name} {label}", r)
+        gate = (art.get("share_gate") or art.get("chunk_gate")
+                or art.get("speculate_gate") or art.get("disagg_gate"))
+        if gate:
+            gates[name] = gate
+            log(f"  {name} gate: {gate['rule']}; {gate['parted']} requests "
+                f"parted, worst gap {gate['worst_gap']:.4f}"
+                + ("" if gate["passed"] else "  FAILED"))
+        log(f"  {name}: {time.perf_counter() - t:.1f} s")
+        check_merge_counters(f"serve_bench {name}")
+        free_memory()
+    counts = read_counts()
+    if not (counts["flash"] > 0 and counts["paged"] > 0
+            and counts["plain_scan"] == 0):
+        fail(f"serve_bench: launches {counts}")
+    log(f"  serve_bench: launches {counts}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s"
+        + (f"; FAILED gates (fatal after phase 9): {failed}" if failed
+           else ""))
+    return {"launches": counts, "gates": gates, "failed": failed,
+            "seconds": time.perf_counter() - t0}
 
 
 def first_token_agreement(label, rec, fp16) -> float:
@@ -1400,7 +1556,7 @@ def phase_falcon(fcfg) -> dict:
     from repro_torch.core.target import use_target
     from repro_torch.models.api import build_model
     from repro_torch.serve.scheduler import synthetic_stream
-    log("[6/9] falcon-mamba-7b at full width: " + " ".join(FALCON)
+    log("[7/10] falcon-mamba-7b at full width: " + " ".join(FALCON)
         + f" (the launcher's target on the card, {SERVING_TARGET}; every "
         "decode chunk under set_sync_debug_mode('error'))")
     n_ssm = layer_counts(fcfg)[1]
@@ -1471,7 +1627,7 @@ def phase_paper() -> dict:
     from repro_torch.kernels.matmul3d import matmul3d
     from repro_torch.launch import mempool_matmul
     from repro_torch.launch.mempool_matmul import REL_TOL
-    log("[7/9] the paper path: python -m repro_torch.launch.mempool_matmul; "
+    log("[8/10] the paper path: python -m repro_torch.launch.mempool_matmul; "
         "python -m repro_torch.benchmarks.kernel_bench --target h100")
     matmul3d.launches = 0
     rec = mempool_matmul.run([])
@@ -1520,22 +1676,36 @@ def phase_profile(cfg, kv_quant=None) -> None:
         engine = Engine(model, model.init(torch.Generator(device="cuda")
                                           .manual_seed(0)),
                         EngineConfig(max_len=MAX_LEN, sync_interval=8))
-        sch = Scheduler(n_slots=n_slots, pages=geom)
-        for spec in synthetic_stream(8, 512, 64, cfg.vocab_size):
-            sch.submit(spec["prompt"], spec["max_new_tokens"])
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.serve(scheduler=sch, max_steps=PROFILE_STEPS)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        # a trace that lost kernel records (see device_profile) traces the
+        # port's kernels fewer times than their wrappers launched them
+        for _ in range(PROFILE_TRIES):
+            sch = Scheduler(n_slots=n_slots, pages=geom)
+            for spec in synthetic_stream(8, 512, 64, cfg.vocab_size):
+                sch.submit(spec["prompt"], spec["max_new_tokens"])
+            before = read_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                engine.serve(scheduler=sch, max_steps=PROFILE_STEPS)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            launched = sum(read_counts()[k] - before[k]
+                           for k in ("flash", "paged", "scan"))
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            traced = sum(e.count for e in kernels
+                         if any(n in e.key for n in PORT_KERNELS))
+            if kernels and traced == launched:
+                break
+            log(f"  (the profiler lost kernel records: the port's kernels "
+                f"launched {launched} times, traced {traced}; tracing "
+                f"again)")
+        else:
+            fail(f"the profiler returned no whole trace in {PROFILE_TRIES} "
+                 f"tries")
     stats = engine.last_stats
     del engine, model
     free_memory()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
-        fail("the profiler recorded no device time")
     log(f"  serve wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
         f"{stats['decode_steps']} decode steps in {stats['chunks']} chunks, "
@@ -1586,17 +1756,22 @@ def main() -> int:
     check_merge_counters("phase 5")
     rec = streams["stream"]
     free_memory()
-    falcon = phase_falcon(fcfg)
+    bench = phase_serve_bench(cfg)
     check_merge_counters("phase 6")
-    paper = phase_paper()
+    free_memory()
+    falcon = phase_falcon(fcfg)
     check_merge_counters("phase 7")
-    log("[8/9] where the time goes: torch.profiler (CUDA activity)")
+    paper = phase_paper()
+    check_merge_counters("phase 8")
+    log("[9/10] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
     phase_profile(cfg, kv_quant="int8")
     phase_profile(fcfg)
-    check_merge_counters("phase 8")
+    check_merge_counters("phase 9")
+    if bench["failed"]:
+        fail(f"serve_bench outputs gates: {bench['failed']}")
 
-    log(f"[9/9] summary ({time.perf_counter() - t_start:.0f} s)")
+    log(f"[10/10] summary ({time.perf_counter() - t_start:.0f} s)")
     rows = [("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:30",
              rec["launches"]["flash"], timing["flash"]),
@@ -1630,6 +1805,7 @@ def main() -> int:
     by_path = {f"qwen {name}": r["launches"] for name, r in streams.items()}
     by_path.update({f"falcon {name}": falcon[name]["launches"]
                     for name in ("stream", "dense")})
+    by_path["qwen serve_bench"] = bench["launches"]
     for row, key in zip(kernels, ("flash", "paged", None, "scan")):
         if key:
             row["launches_by_path"] = {path: c[key]

@@ -16,10 +16,11 @@ block table (page 0 is the null page). This module owns the decode math:
     of one (slot, KV head), partials merged in split order inside the same
     launch) and, beside it, :func:`paged_flash_decode_plain`, its plain
     PyTorch version. :func:`split_geometry` sizes its grid and workspace.
-  * :func:`paged_decode_attention` — the entry, with the reference's
-    dispatch rule: a single-token causal decode over unquantized pages on a
-    CUDA tensor takes the kernel; multi-token queries, ``causal=False``,
-    quantized pools and CPU tensors take gather + oracle.
+  * :func:`paged_decode_attention` — the entry: a causal decode over
+    unquantized pages on a CUDA tensor takes the kernel, a multi-token
+    (verify) query one launch per query column; ``causal=False``,
+    quantized pools and CPU tensors take gather + oracle, the reference's
+    dispatch (which gathers multi-token queries too).
   * :func:`quantize_page_int8` / :func:`dequantize_page_int8` — the int8
     tier codec: symmetric, one f32 scale (``amax / INT8_QMAX``) per page
     per leaf. The fp8-e4m3 codec is a plain cast; fp8 pages move as their
@@ -312,11 +313,15 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            ) -> torch.Tensor:
     """Decode attention over the paged pool; the dense math is the oracle.
 
-    ``impl="auto"`` walks pages with the Hopper kernel for a single-token
-    causal query over bf16 pages on a CUDA tensor and takes gather +
-    :func:`decode_attention_masked` otherwise (multi-token verify chunks,
-    quantized pools, CPU tensors); ``impl="kernel"`` always calls
-    :func:`paged_flash_decode` and ``impl="ref"`` always gathers.
+    ``impl="auto"`` walks pages with the Hopper kernel for a causal query
+    over bf16 pages on a CUDA tensor and takes gather +
+    :func:`decode_attention_masked` otherwise (quantized pools, CPU
+    tensors); ``impl="kernel"`` always calls :func:`paged_flash_decode`
+    and ``impl="ref"`` always gathers. A multi-token query (a speculative
+    verify chunk, whose K/V rows are already written) takes one launch per
+    column ``j``: the single-token decode at position ``cache_len + j``.
+    So verify and decode attend with the same arithmetic on the card; the
+    reference gathers multi-token queries, and the CPU path still does.
 
     Quantized pools dequantize AFTER the block-table gather, as in the
     reference: int8 pages carry per-page ``k_scale`` / ``v_scale``
@@ -332,12 +337,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise NotImplementedError(
             "the paged decode kernel reads bf16 pages; quantized pools "
             "dequantize on gather (impl='auto')")
-    single = q.shape[2] == 1
-    use_kernel = impl == "kernel" or (impl == "auto" and q.is_cuda and single
+    use_kernel = impl == "kernel" or (impl == "auto" and q.is_cuda
                                       and not quantized)
     if use_kernel and causal:
-        return paged_flash_decode(q, k_pages, v_pages, block_tables,
-                                  cache_len, window=window)
+        if q.shape[2] == 1:
+            return paged_flash_decode(q, k_pages, v_pages, block_tables,
+                                      cache_len, window=window)
+        return torch.cat([
+            paged_flash_decode(q[:, :, j:j + 1], k_pages, v_pages,
+                               block_tables, cache_len + j, window=window)
+            for j in range(q.shape[2])], dim=2)
     k = gather_kv_pages(k_pages, block_tables, seq_axis=1)
     v = gather_kv_pages(v_pages, block_tables, seq_axis=1)
     if k_scale is not None:

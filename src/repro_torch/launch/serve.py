@@ -93,6 +93,15 @@ def serving_target(device: torch.device) -> Optional[str]:
     return "h100" if device.type == "cuda" else None
 
 
+def mesh_size(spec: str) -> int:
+    """The device count of a ``--mesh`` spec ('2', '1x2', ...); raises
+    ``ValueError`` for a malformed one."""
+    n = 1
+    for part in spec.split("x"):
+        n *= int(part)
+    return n
+
+
 def run_stream(engine: Engine, scheduler: Scheduler, stream: list, *,
                park_idle: int = 0) -> dict:
     """Drive a prepared request stream; return counters.
@@ -325,6 +334,14 @@ def parser() -> argparse.ArgumentParser:
                          "page bytes + scheduler residue), then resume "
                          "and serve to completion — bit-identical outputs "
                          "at fp16 (paged mode)")
+    ap.add_argument("--mesh", default="1",
+                    help="device mesh: one int or DxM sizes matching "
+                         "--mesh-axes; 1 (the default) is the single-device "
+                         "path, any size > 1 raises NotImplementedError "
+                         "(sharded serving is not ported yet: ROADMAP A13)")
+    ap.add_argument("--mesh-axes", default="data,model",
+                    help="comma-separated axis names the --mesh sizes bind "
+                         "to (default data,model)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "on the CPU)")
@@ -351,6 +368,15 @@ def run(argv=None) -> Dict[str, Any]:
     if args.park_idle is not None and not args.paged:
         ap.error("--park-idle requires --paged (the layer-2 host tier "
                  "serializes pages, which the dense pool does not have)")
+    try:
+        mesh_n = mesh_size(args.mesh)
+    except ValueError:
+        ap.error(f"--mesh {args.mesh!r}: expected one int or 'DxM' sizes")
+    if mesh_n != 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: sharded serving needs the port of "
+            f"distributed/ and launch/mesh.py, which is not done yet "
+            f"(ROADMAP A13); --mesh 1 is the single-device path")
     system_len = args.system_len or max(1, args.prompt_len // 2)
     if args.prefix_share and system_len >= args.prompt_len:
         ap.error("--system-len must leave room for a unique tail "

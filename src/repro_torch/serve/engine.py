@@ -459,9 +459,9 @@ class DecodeRole:
         fold_acceptance` emits the longest agreeing prefix plus one token
         and rolls ``cache_len`` back over the rest. Returns (pool, tokens,
         valid), the last two ``(k+1, S)`` like :meth:`pool_chunk`'s. The
-        verify forward's attention takes the reference's multi-token
-        dispatch: gather + oracle on the paged pool, the masked oracle on
-        the slab."""
+        verify forward attends as a decode step does: on the card the paged
+        kernel walks the pool once per query column (the reference gathers
+        + runs the oracle), the masked oracle covers the slab."""
         core = self.core
         cfg, ecfg, plans = core.model.cfg, core.ecfg, core.plans
 
@@ -706,14 +706,15 @@ class Engine:
                           pending_first: List[Tuple[sched_mod.Request,
                                                     torch.Tensor]],
                           step_clock: int, disagg: bool
-                          ) -> Tuple[PoolState, int, int, float]:
+                          ) -> Tuple[PoolState, int, Tuple[int, int], float]:
         """The boundary's decode work — one ``sync_interval`` decode chunk,
         or one verify forward when speculating — over every slot, then its
         host sync: ONE fetch of the chunk's tokens, the done mask and any
         pending first tokens; disaggregated, one decode-role fetch and a
         prefill-role fetch only when a prompt completed. Drained slots are
-        freed. Returns (pool, step clock, tokens emitted, the decode role's
-        wall time: its dispatch and its drain)."""
+        freed. Returns (pool, step clock, (tokens emitted, requests that
+        received one), the decode role's wall time: its dispatch and its
+        drain)."""
         core, dec, stats = self.core, self.decode_role, self.last_stats
         spec_k = self.ecfg.speculate_tokens
         dec_role = DECODE_ROLE if disagg else None
@@ -752,10 +753,13 @@ class Engine:
                 (toks, valid, pool.done, [f for _, f in pending_first]))
             decode_wall = time.perf_counter() - t_dec
         emitted = len(firsts)
+        t_drained = time.perf_counter()
+        fed = set()         # rids that received a token at this boundary
         for (req, _), f in zip(pending_first, firsts):
             req.tokens.append(int(f))
             # the first token becomes real only at THIS drain
-            req.first_step = step_clock
+            req.first_step, req.first_wall = step_clock, t_drained
+            fed.add(req.rid)
         pending_first.clear()
         for slot in sorted(sch.active):
             req = sch.active[slot]
@@ -765,6 +769,8 @@ class Engine:
                 if v)
             got = len(req.tokens) - before
             emitted += got
+            if got:
+                fed.add(req.rid)
             if disagg:
                 stats["decode_tokens"] += got
             if spec_k:
@@ -777,7 +783,7 @@ class Engine:
                 req.finish_step = step_clock
                 self.pools.release(slot)
                 sch.complete(slot)
-        return pool, step_clock, emitted, decode_wall
+        return pool, step_clock, (emitted, len(fed)), decode_wall
 
     def _run_boundaries(self, sch: sched_mod.Scheduler, pool: PoolState,
                         boundary, max_steps: Optional[int],
@@ -789,20 +795,27 @@ class Engine:
         pending_first: List[Tuple[sched_mod.Request, torch.Tensor]] = []
         boundary_wall: List[float] = []
         boundary_tokens: List[int] = []
+        boundary_streams: List[int] = []
         decode_wall: List[float] = []
         step_clock = 0
         while sch.has_work():
             t0 = time.perf_counter()
             pool = boundary(pool, step_clock, pending_first)
-            pool, step_clock, emitted, t_dec = self._decode_and_drain(
-                sch, pool, pending_first, step_clock, disagg)
+            pool, step_clock, (emitted, streams), t_dec = \
+                self._decode_and_drain(sch, pool, pending_first, step_clock,
+                                       disagg)
             boundary_wall.append(time.perf_counter() - t0)
             boundary_tokens.append(emitted)
+            boundary_streams.append(streams)
             decode_wall.append(t_dec)
             if max_steps is not None and step_clock >= max_steps:
                 break
         self.last_stats["boundary_wall_s"] = boundary_wall
         self.last_stats["boundary_tokens"] = boundary_tokens
+        # requests that received a token at each boundary, a request's first
+        # token counted with it: the speculative inter-token clock (a verify
+        # forward emits a varying number of tokens a stream)
+        self.last_stats["boundary_streams"] = boundary_streams
         if disagg:
             # the inter-token clock a decode consumer sees when prefill runs
             # on its own engine (meaningful under phase_timing)
@@ -912,6 +925,17 @@ class Engine:
             raise ValueError(
                 "chunked prefill requires attention-only models: recurrent "
                 "SSM state has no resumable KV prefix")
+        # every serve() builds a fresh spill tier: a request still preempted
+        # into layer 1 by an earlier call would be restored from zeros
+        stranded = [r.rid for r in sch.queue
+                    if r.status == sched_mod.PREEMPTED]
+        if stranded:
+            raise ValueError(
+                f"requests {stranded} are still preempted into the layer-1 "
+                f"spill tier of an earlier serve() call, which this call "
+                f"does not keep: their restore would read zeros. Serve the "
+                f"stream to the end in one call, or park sessions only when "
+                f"no request is preempted")
         geom = sch.pages
         self._start_stats(disagg)
         pool, spill = pools.init_paged_pool(sch)

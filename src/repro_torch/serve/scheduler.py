@@ -86,6 +86,9 @@ class Request:
     submit_step: int = 0
     admit_step: int = -1
     first_step: int = -1                # first output token produced
+    # host clock (time.perf_counter) at the drain that delivered the first
+    # output token: the benchmark's wall-clock TTFT
+    first_wall: float = -1.0
     finish_step: int = -1
     # chunked prefill (DESIGN.md §Chunked prefill): how many prompt tokens
     # (including any shared prefix) have KV cached so far. -1 = unchunked

@@ -7,7 +7,8 @@ fails, and every source file is scanned for imports of ``jax`` or
 (``msgpack``, ``zstandard``, ``ml_dtypes``), which the GPU machine lacks
 too: every source file and ``chip_smoke.py`` are scanned for them, and a
 park blob round-trips in a subprocess where they fail to import. Entry points run on the card unless the caller asks for the
-CPU: without a card they raise, and so does a kernel wrapper handed a
+CPU (the launcher, the serving benchmark and the benchmark runner among
+them): without a card they raise, and so does a kernel wrapper handed a
 tensor that is neither on the CPU nor on a CUDA card.
 """
 
@@ -149,6 +150,26 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--prompt-len", "4", "--gen-len", "2"])
     assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_the_benchmark_scripts_are_among_the_checked_modules():
+    for name in ("serve_bench", "check_cli", "run"):
+        assert f"repro_torch.benchmarks.{name}" in MODULES
+
+
+def test_benchmark_entry_points_raise_without_a_card(monkeypatch, tmp_path,
+                                                    capsys):
+    """Without a card the serving benchmark and the benchmark runner
+    raise unless given ``--device cpu``."""
+    from repro_torch.benchmarks import common, run, serve_bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(common, "ARTIFACT_ROOT", str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_bench.main(["--requests", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main([])
+    assert serve_bench.main(["--device", "cpu", "--requests", "2"]) == 0
+    assert "(tpu-v5e, cpu)" in capsys.readouterr().out
 
 
 def test_wrappers_refuse_other_devices():

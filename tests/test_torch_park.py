@@ -25,11 +25,14 @@ gives the reference's ``parks``, ``park_resumes``, preemptions, spills,
 restores, chunks and prefill chunks, and its tokens up to the reference's
 measured near-ties (``TIE_TOL = 2e-2``, as in ``test_torch_serve_modes``).
 The CLI serves ``--park-idle`` on ``--device cpu`` and refuses it without
-``--paged``. The ``cuda``-marked case parks a stream on the card at fp16
+``--paged``. A second ``serve()`` on a scheduler that still holds a request
+preempted into layer 1 raises, naming it: every call builds a fresh spill
+tier, and the request would be restored from zeros. The ``cuda``-marked case parks a stream on the card at fp16
 (tokens == uninterrupted), int8 and fp8.
 """
 
 import dataclasses
+import re
 
 import jax
 import numpy as np
@@ -46,7 +49,8 @@ from repro_torch.serve import park as park_mod
 from repro_torch.serve import scheduler as sm
 from repro_torch.serve.engine import Engine, EngineConfig
 
-from test_torch_serve_modes import _assert_tokens_match, engines  # noqa: F401
+from test_torch_serve_modes import (CONFIGS, _assert_tokens_match,  # noqa: F401
+                                    engines)
 
 torch.set_num_threads(1)
 MAX_LEN, PT = 64, 8
@@ -401,3 +405,24 @@ def test_park_stream_on_the_card(kv_quant):
     assert all(len(o) > 0 for o in outs_p)
     if kv_quant is None:
         assert outs_p == outs_u
+
+
+def test_a_second_serve_refuses_requests_stranded_in_layer_1():
+    """Every serve() builds a fresh layer-1 spill tier. One that stops
+    (``max_steps``) while a request is preempted into layer 1 strands it:
+    the next serve() on that scheduler raises ``ValueError`` naming it,
+    where it would restore the request's KV from zeros."""
+    cfg = CONFIGS["tiny-eq"][0]
+    model = build_model(cfg, device="cpu")
+    eng = Engine(model, model.init(torch.Generator().manual_seed(0)),
+                 EngineConfig(max_len=MAX_LEN, sync_interval=4))
+    sch = sm.Scheduler(3, pages=_geometry(sm, cfg, 8),
+                       chunk_prefill_tokens=6)
+    for prompt, gen in REQS:
+        sch.submit(prompt, gen)
+    eng.serve(scheduler=sch, max_steps=25)
+    stranded = [r.rid for r in sch.queue if r.status == sm.PREEMPTED]
+    assert stranded and sch.preemptions >= 1
+    with pytest.raises(ValueError, match=re.escape(
+            f"requests {stranded} are still preempted into the layer-1")):
+        eng.serve(scheduler=sch)
