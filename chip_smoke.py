@@ -24,7 +24,12 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      ``transpose(1, 2)`` views models/attention.py passes, and at the
      resumed prefill's serving shapes (a 256-row prefix-share suffix at
      ``q_offset`` 256 and a 128-row chunk at 384, over the slot's 576
-     positions; timed beside SDPA with the same mask); matmul3d at
+     positions; timed beside SDPA with the same mask), at D = Dv = 128
+     bit for bit equal to the kernel before its (D, Dv) template
+     (FLASH_DIGESTS), and at multi-head latent attention's D = 192, Dv =
+     128 with 128 heads (deepseek-v2's one-shot admission 4 x 256, timed
+     beside SDPA, over its 288 positions, ragged at an offset, and on the
+     model's own K and V views); matmul3d at
      ``tests/test_kernels.py``'s tolerances (f32 2e-4, bf16 2e-2) at
      small and ragged shapes (bf16 with f32 and bf16 out), and at M = 8192
      within ``mempool_matmul.REL_TOL`` of the plain version's largest
@@ -96,7 +101,7 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      a boundary (a role a boundary when disaggregated), and the outputs
      gates pass (disaggregated == combined exactly; sharing, chunking and
      speculation by the teacher-forced rule; a failed gate fails the
-     script after phase 9, so that the later phases still report);
+     script after phase 11, so that the later phases still report);
      launches counted around the phase, and the phase's seconds printed;
   7. falcon-mamba-7b at full width: one-shot generate, the paged stream,
      the dense slot-slab stream, the squeezed paged stream (so the
@@ -105,17 +110,38 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      teacher-forced passes at the served batch, and ``Model.loss``'s
      forward on 1 x 2048 tokens. Every forward call launches mamba_scan
      once per layer (64) and the plain scan never;
-  8. the paper path: ``repro_torch.launch.mempool_matmul`` (the
+  8. qwen3-moe-30b-a3b at its published widths, 16 of 48 layers (its f32
+     init must fit the card), through the launcher given the cut config:
+     the grouped MoE (bf16 experts) against the plain one (f32, every
+     expert on every token) at one full-width layer, T = 1024 and T = 4,
+     each grouped call under the sync guard (no count read to the host),
+     within MOE_TOL and with the same aux loss; the one-shot (flash 16 a
+     admission) and the paged stream (paged 16 a decode step, host syncs
+     once a chunk, decode chunks under the sync guard); every greedy token
+     of the one-shot and of the stream's 8 requests held to teacher-forced
+     passes at the served batch and pool; a full-sequence forward on the
+     step-by-step pass's routes held to that pass within FORCED_ROUTE_TOL,
+     and two control faults in the decode steps alone (K and V
+     projections traded; ``wo`` rounded through fp8) that must fail that
+     gate; the phase's seconds;
+  9. deepseek-v2-236b the same way at 3 of 60 layers (the dense first
+     layer, then 2 MLA + MoE layers): flash at D = 192, Dv = 128 3 a
+     admission, the paged kernel never (MLA decodes in latent space, as
+     the reference does), the paged stream over the latent pool and again
+     at ``--kv-quant int8`` (first tokens against the fp16 stream's); its
+     K / V control trades the K and V parts of ``wkv_b``;
+ 10. the paper path: ``repro_torch.launch.mempool_matmul`` (the
      scratchpad-fraction sweep at M = 8192, bf16 and f32, each plan held
      to the plain version) and ``repro_torch.benchmarks.kernel_bench
      --target h100``, with the matmul3d launches counted around both;
-  9. four chunks of the qwen2.5-3b stream (fp16 and int8 pages) and of
+ 11. four chunks of the qwen2.5-3b stream (fp16 and int8 pages) and of
      the falcon-mamba-7b stream under ``torch.profiler`` (CUDA activity
      only): device time by kernel, the device's idle share and the CUDA
      kernels launched;
- 10. the ``kernels`` summary line (launches on the main path, the paged
-     qwen stream, and by path for every stream), the card line, and the
-     result line.
+ 12. the ``kernels`` summary line (launches on the main path, the paged
+     qwen stream, and by path for every stream; flash at D = 192 a row of
+     its own, launched by deepseek-v2's paged stream), the card line, and
+     the result line.
 
 After every phase from 3 on, every counter buffer of paged decode's
 in-launch merge (one per device and stream) must read all zeros: each
@@ -128,8 +154,15 @@ full-sequence forward (no caches). For falcon-mamba-7b it is the model's
 own prefill and decode steps at the served batch, so that every GEMM sees
 as many rows as it did in the served run; a stateless forward over the
 whole sequence feeds the GEMMs other row counts, and through 64 bf16
-layers that moves falcon's logits by more than ``LOGIT_TOL``. The
-squeezed falcon stream must also emit the roomy stream's tokens bit for
+layers that moves falcon's logits by more than ``LOGIT_TOL``. The MoE
+models take the same passes, the stream's over a paged pool as it was
+served: a full-sequence forward computes the same function through other
+GEMM shapes (and, for MLA, through decompressed bf16 heads where decode
+reads the f32 latent), and a router near-tie that it flips moves the
+logits by up to 0.41 (deepseek-v2 at 3 layers, measured). Such a forward,
+its routes forced to the step-by-step pass's, is held to that pass
+within ``FORCED_ROUTE_TOL``: the one check of the MoE paths on the card
+that does not replay the served code. The squeezed falcon stream must also emit the roomy stream's tokens bit for
 bit: its recurrent rows only move between slots and f32 seats.
 """
 
@@ -154,7 +187,7 @@ F32_FLOPS = 67e12          # H100 SXM f32 peak outside the tensor cores
 N_TIMED = 25
 REPEAT_ROUNDS = 500        # phase 3's attention cases, each called again
 MATMUL_M = 8192            # the paper sweep's size (see mempool_matmul)
-PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 9
+PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 11
 PROFILE_TRIES = 6          # traces taken before the profiler is given up
 
 N_TIMED_PLAIN_SCAN = 3    # the plain scan is one Python step per position
@@ -195,6 +228,42 @@ BENCH_PARK_IDLE = 4
 #: pages a slot in serve_bench's chunked head-to-head: its 4096-token
 #: prompt + 12 generated over 8-token pages
 BENCH_P_MAX = -(-(4096 + 12) // BENCH_PAGE_TOKENS)
+#: flash at D = Dv = 128 on numpy-seeded inputs (``flash_digest_inputs``):
+#: the first 16 hex digits of each output's sha256, as the kernel before
+#: its (D, Dv) template (commit 1a1021e) printed them on an NVIDIA H100
+#: 80GB HBM3.
+#: The template must not move a bit.
+FLASH_DIGESTS = {"admission": "2be6a11c2e88583d", "ragged": "df2f42699612d5ac",
+                 "views": "1aa9d5a8e277dfce", "window": "2e440388610f8045",
+                 "offset": "1eb79b3a10b47377", "mha": "329f070aa7763e0a",
+                 "noncausal": "63d113eb070f630c"}
+#: (B, Hq, Hkv, Sq, Skv, kwargs, transposed views) of each digest case
+FLASH_DIGEST_CASES = {
+    "admission": (4, 16, 2, 256, 256, {}, False),
+    "ragged": (1, 16, 2, 300, 333, {}, False),
+    "views": (2, 16, 2, 200, 256, {}, True),
+    "window": (1, 16, 2, 512, 576, {"window": 64}, False),
+    "offset": (1, 16, 2, 37, 576, {"q_offset": 16}, False),
+    "mha": (1, 16, 16, 512, 576, {}, False),
+    "noncausal": (1, 8, 2, 100, 130, {"causal": False}, False),
+}
+#: the MoE family at published widths, depth cut so the f32 init fits the
+#: card (PERF.md section 4): (arch, layers kept of the published)
+QWEN_MOE = ("qwen3-moe-30b-a3b", 16)
+DEEPSEEK = ("deepseek-v2-236b", 3)
+#: the grouped MoE (bf16 experts) against the plain one (f32 experts) at
+#: one full-width layer: bf16 operand rounding (tests/test_torch_moe.py)
+MOE_TOL = 3e-2
+#: one full-width MoE layer's token counts: a one-shot admission's prefill
+#: (4 x 256) and a decode step over the 4 slots
+MOE_TOKENS = {"prefill": 1024, "decode": 4}
+#: a MoE model's step-by-step pass against a full-sequence forward on the
+#: same routes (forced_routes), max |d logit| over the generated
+#: positions, by arch: about 2.3x the sound runs' readings (up to 0.041
+#: and 0.110: GEMM shapes, and for MLA bf16 heads against the f32 latent)
+#: and at most half the weaker control's (0.206 and 0.988: ``wo`` through
+#: fp8 in the decode steps). NVIDIA H100 80GB HBM3, PERF.md section 6
+FORCED_ROUTE_TOL = {"qwen3-moe-30b-a3b": 0.1, "deepseek-v2-236b": 0.25}
 #: libraries whose SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
 TENSOR_CORE_KERNELS = ("matmul3d", "flash_attention")
 #: the port's kernels by name, as the profiler lists them
@@ -264,11 +333,14 @@ def device_ms(fn, kernel: str = "", n: int = N_TIMED) -> float:
 
 
 def layer_counts(cfg) -> tuple:
-    """(attention layers, mamba layers) of ``cfg``'s stack."""
+    """(attention layers, mamba layers, GQA layers) of ``cfg``'s stack.
+    Every attention layer's prefill launches flash (a GQA layer at D =
+    128, an MLA layer at D = 192); only a GQA layer's decode walks pages with the paged kernel (MLA decodes in latent
+    space: einsums, as the reference does)."""
     kinds = [k for g in cfg.layer_groups() for _ in range(g.n_repeat)
              for k in g.pattern]
     ssm = sum(k.attn == "mamba" for k in kinds)
-    return len(kinds) - ssm, ssm
+    return len(kinds) - ssm, ssm, sum(k.attn == "gqa" for k in kinds)
 
 
 def reset_counts() -> None:
@@ -277,19 +349,27 @@ def reset_counts() -> None:
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
     from repro_torch.kernels.paged_attention import paged_flash_decode
     flash_attention.launches = paged_flash_decode.launches = 0
+    flash_attention.launches_by_dims.update(
+        dict.fromkeys(flash_attention.launches_by_dims, 0))
     mamba_scan.launches = mamba_scan_plain.calls = 0
 
 
 def read_counts() -> dict:
+    """Each kernel's launches; flash by instance: ``flash`` at D = Dv =
+    128, ``flash_d192`` at D = 192, Dv = 128."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
     from repro_torch.kernels.paged_attention import paged_flash_decode
-    return {"flash": flash_attention.launches,
+    by_dims = flash_attention.launches_by_dims
+    return {"flash": by_dims[128, 128], "flash_d192": by_dims[192, 128],
             "paged": paged_flash_decode.launches,
             "scan": mamba_scan.launches, "plain_scan": mamba_scan_plain.calls}
 
 
 def check_counts(label: str, got: dict, want: dict) -> None:
+    """``got`` must equal ``want``; a kernel ``want`` does not name must
+    not have launched."""
+    want = {**dict.fromkeys(got, 0), **want}
     if got != want:
         fail(f"{label}: launches {got}, want {want}")
 
@@ -331,7 +411,7 @@ def compare(name: str, got, want, tol: float = ATOL) -> float:
 
 def phase_environment() -> str:
     import torch
-    log(f"[1/10] environment: python {sys.version.split()[0]}, torch "
+    log(f"[1/12] environment: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -353,7 +433,7 @@ def phase_build() -> dict:
     (TMA loads). Returns {library: its SASS counts of HGMMA, UTMALDG and
     HMMA (``mma.sync``, the tensor cores without wgmma)}."""
     from repro_torch.kernels import build
-    log("[2/10] build: nvcc " + " ".join(build.NVCC_FLAGS))
+    log("[2/12] build: nvcc " + " ".join(build.NVCC_FLAGS))
     t0 = time.perf_counter()
     build.build_all()
     log(f"  built {', '.join(build.SOURCES)} in "
@@ -385,7 +465,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
     from repro_torch.benchmarks.common import median_ms
     from repro_torch.kernels.paged_attention import (paged_flash_decode,
                                                      paged_flash_decode_plain)
-    log(f"[3/10] kernels against their plain versions (attention: bf16, "
+    log(f"[3/12] kernels against their plain versions (attention: bf16, "
         f"atol = rtol = {ATOL})")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -456,6 +536,8 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
     for label, (sq, off) in RESUMED_FLASH.items():
         resumed[label] = time_resumed_flash(label, rnd, hq, hkv, d, sq,
                                             depth, off)
+    check_flash_digests()
+    flash_mla = flash_mla_cases(rnd, repeats)
 
     # ---- paged decode: B slots walking P pages of pt tokens
     def paged_case(b, p, lens, window=None, tag="", page_tokens=pt):
@@ -579,6 +661,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                       extra={f"{label}_{key}": row[key]
                              for label, row in resumed.items()
                              for key in row}),
+        "flash_mla": flash_mla,
         "paged": dict(err=paged_err, ms=p_ms, device_ms=p_dev,
                       plain_ms=p_plain,
                       library_ms=None, bound_ms=p_bound, bound_by=p_by,
@@ -649,6 +732,116 @@ def time_resumed_flash(label, rnd, hq, hkv, d, sq, skv, q_offset) -> dict:
         f"(mask) {lib:.4f} ms, bound {bound:.4f} ms ({by})")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
                 bound_ms=bound, bound_by=by)
+
+
+def flash_digest_inputs(case: str, seed: int):
+    """q, k, v and kwargs of one FLASH_DIGEST_CASES case, from a numpy
+    seed (bf16 on the card)."""
+    import numpy as np
+    import torch
+    b, hq, hkv, sq, skv, kw, views = FLASH_DIGEST_CASES[case]
+    rng = np.random.RandomState(seed)
+
+    def t(bb, h, seq):
+        shape = (bb, seq, h, 128) if views else (bb, h, seq, 128)
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            torch.bfloat16).cuda()
+        return x.transpose(1, 2) if views else x
+
+    return t(b, hq, sq), t(b, hkv, skv), t(b, hkv, skv), kw
+
+
+def check_flash_digests() -> None:
+    """Flash at D = Dv = 128 equals, bit for bit, what the kernel printed
+    before its (D, Dv) template: FLASH_DIGESTS."""
+    import hashlib
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    got = {}
+    for i, case in enumerate(FLASH_DIGEST_CASES):
+        q, k, v, kw = flash_digest_inputs(case, 100 + i)
+        out = flash_attention(q, k, v, **kw)
+        got[case] = hashlib.sha256(
+            out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+    differ = [case for case in got if got[case] != FLASH_DIGESTS[case]]
+    if differ:
+        fail(f"flash (128, 128): cases {differ} differ from the kernel "
+             f"before the template: {got}")
+    log(f"  flash (128, 128): {len(got)} cases bit for bit equal to the "
+        f"kernel before its (D, Dv) template (sha256 digests)  ok")
+
+
+def flash_mla_cases(rnd, repeats) -> dict:
+    """Flash at multi-head latent attention's prefill widths (D = nope +
+    rope = 192, Dv = 128, 128 heads, deepseek-v2): the one-shot admission
+    (4 x 256 over 256, timed beside the plain version and SDPA, which takes
+    Dv != D), over the one-shot's 288 positions, a ragged tile at an offset
+    and the model's own views (K the concatenation of the decompressed
+    nope heads and the shared rope head, V a strided view of the
+    decompressed heads). Each case joins the repeat set."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.common import median_ms
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cfg = get_config(DEEPSEEK[0])
+    h, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    vdim, d = cfg.v_head_dim, nope + rope
+    scale = d ** -0.5
+
+    def dense(b, sq, skv):
+        return rnd(b, h, sq, d), rnd(b, h, skv, d), rnd(b, h, skv, vdim)
+
+    def model_views(b, sq, skv):
+        kv = rnd(b, skv, h, nope + vdim)
+        k_rope = rnd(b, skv, rope)
+        k = torch.cat([kv[..., :nope].transpose(1, 2),
+                       k_rope[:, None].expand(b, h, skv, rope)], dim=-1)
+        return rnd(b, h, sq, d), k, kv[..., nope:].transpose(1, 2)
+
+    err = 0.0
+    for b, sq, skv, kw, make in ((4, 256, 256, {}, dense),
+                                 (4, 256, 288, {}, model_views),
+                                 (1, 37, 300, {"q_offset": 40}, dense),
+                                 (2, 300, 333, {"q_offset": 33},
+                                  model_views)):
+        q, k, v = make(b, sq, skv)
+        got = flash_attention(q, k, v, causal=True, scale=scale, **kw)
+        want = flash_attention_plain(q, k, v, causal=True, scale=scale, **kw)
+        torch.cuda.synchronize()
+        label = (f"flash D={d} Dv={vdim} B={b} H={h} Sq={sq} Skv={skv} {kw}"
+                 + (" (model views)" if make is model_views else ""))
+        err = max(err, compare(label, got, want))
+        repeats.append((label, functools.partial(
+            flash_attention, q, k, v, causal=True, scale=scale, **kw), got))
+    q, k, v = dense(4, 256, 256)
+
+    def kernel():
+        return flash_attention(q, k, v, causal=True, scale=scale)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale)
+
+    compare("flash D=192: SDPA (Dv != D) vs the plain version", sdpa(),
+            flash_attention_plain(q, k, v, causal=True, scale=scale))
+    ms = median_ms(kernel, N_TIMED)
+    dev_ms = device_ms(kernel, "flash_fwd_kernel")
+    plain = median_ms(lambda: flash_attention_plain(q, k, v, causal=True,
+                                                    scale=scale), N_TIMED)
+    lib = median_ms(sdpa, N_TIMED)
+    lib_dev = device_ms(sdpa)
+    pairs = 4 * sum(min(i + 1, 256) for i in range(256))
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + 4 * h * 256 * vdim)
+    bound, by = bound_ms(n_bytes, 2.0 * (d + vdim) * h * pairs)
+    log(f"  flash D={d} Dv={vdim} 4 x 256 over 256, {h} heads: kernel "
+        f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain:.4f} ms, sdpa "
+        f"{lib:.4f} ms (device {lib_dev:.4f} ms), bound {bound:.4f} ms "
+        f"({by}, {n_bytes / 1e6:.1f} MB)")
+    return dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
+                bound_by=by)
 
 
 def phase_matmul_kernel() -> dict:
@@ -913,16 +1106,22 @@ def teacher_forced_check(cfg, seed_params, prompt, tokens, label) -> float:
     return gap
 
 
-def served_batch_check(model, params, prompts, tokens, rows, label) -> float:
+def served_batch_check(model, params, prompts, tokens, rows, label, *,
+                       depth=None, page_tokens=0) -> float:
     """Greedy ``tokens`` (b, T) after ``prompts`` (b, L) must each be
     within LOGIT_TOL of the best logit of a teacher-forced pass through
     ``model.prefill`` and ``model.decode_step`` at the served batch: the b
-    prompts prefill together, as the server prefilled them, each row is
-    repeated up to ``rows`` (the server's decode batch) and every step
-    feeds the served tokens. A row is checked up to its first EOS (after
-    it the server fills EOS). Returns the worst gap."""
+    prompts prefill together at ``depth`` (default L + T), as the server
+    prefilled them, each row is repeated up to ``rows`` (the server's
+    decode batch) and every step feeds the served tokens. With
+    ``page_tokens`` the steps decode over a paged pool, as a served stream
+    does: each of the ``rows`` slots holds its prompt's row cut into its
+    own pages at the pool's page-aligned ``depth``, with per-slot
+    frontiers. A row is checked up to its first EOS (after it the server
+    fills EOS). Returns the worst gap."""
     import numpy as np
     import torch
+    from repro_torch.models import transformer
     from repro_torch.serve.engine import EngineConfig
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                               device="cuda")
@@ -930,29 +1129,54 @@ def served_batch_check(model, params, prompts, tokens, rows, label) -> float:
                              device="cuda")
     (b, length), n, vocab = prompts.shape, tokens.shape[1], model.cfg.vocab_size
     k = rows // b
+    depth = depth or length + n
+
+    def take(tree, i):
+        if isinstance(tree, dict):
+            return {name: take(leaf, i) for name, leaf in tree.items()}
+        return tree[:, i:i + 1]
 
     def widen(tree):
         if isinstance(tree, dict):
             return {name: widen(leaf) for name, leaf in tree.items()}
         return tree.repeat_interleave(k, dim=1)
 
-    logits, state = model.prefill(params, {"tokens": prompts}, length + n)
-    logits, state = logits.repeat_interleave(k, dim=0), {
-        "caches": widen(state["caches"])}
+    logits, state = model.prefill(params, {"tokens": prompts}, depth)
+    logits = logits.repeat_interleave(k, dim=0)
+    tables = None
+    if page_tokens:
+        p_max = depth // page_tokens
+        tables = (torch.arange(rows * p_max, dtype=torch.int32,
+                               device="cuda") + 1).reshape(rows, p_max)
+        pool = {"caches": transformer.init_paged_caches(
+            model.cfg, rows, rows * p_max + 1, page_tokens, "cuda")}
+        for slot in range(rows):
+            model.slot_update_paged(pool, {"caches": take(
+                state["caches"], slot // k)}, slot, tables[slot], page_tokens)
+        state = pool
+    else:
+        state = {"caches": widen(state["caches"])}
     steps = torch.repeat_interleave(tokens, k, dim=0).to(torch.int32)
     gaps = []
     for t in range(n):
         lg = logits[::k, -1, :vocab]
         gaps.append(lg.max(dim=1).values - lg.gather(1, tokens[:, t:t + 1])[:, 0])
         if t + 1 < n:
+            cache_len = (torch.full((rows,), length + t, dtype=torch.int32,
+                                    device="cuda") if page_tokens
+                         else torch.tensor(length + t, dtype=torch.int32,
+                                           device="cuda"))
             logits, state = model.decode_step(
-                params, steps[:, t:t + 1], state,
-                torch.tensor(length + t, dtype=torch.int32, device="cuda"))
+                params, steps[:, t:t + 1], state, cache_len,
+                block_tables=tables)
     is_eos = (tokens == EngineConfig.eos_token).int()
     after_eos = (is_eos.cumsum(1) - is_eos) > 0
     gap = torch.stack(gaps, 1).masked_fill(after_eos, 0).max().item()
-    log(f"  {label}: {b} x {n} tokens, prefill batch {b}, decode batch "
-        f"{rows}; worst gap to the teacher-forced best logit {gap:.4f}")
+    pool_kind = (f"paged ({page_tokens}-token pages)" if page_tokens
+                 else "dense")
+    log(f"  {label}: {b} x {n} tokens, prefill batch {b} at depth {depth}, "
+        f"decode batch {rows} over the {pool_kind} pool; worst gap to the "
+        f"teacher-forced best logit {gap:.4f}")
     if not gap <= LOGIT_TOL:
         fail(f"{label}: a greedy token is {gap:.4f} below the teacher-forced "
              f"best logit (tolerance {LOGIT_TOL})")
@@ -979,17 +1203,18 @@ def one_shot(cfg, argv, label) -> dict:
     per attention layer, and the prefill and every decode step launch
     mamba_scan once per mamba layer."""
     from repro_torch.launch import serve as cli
-    n_attn, n_ssm = layer_counts(cfg)
+    n_attn, n_ssm, n_gqa = layer_counts(cfg)
     reset_counts()
-    rec = cli.run(argv)
+    rec = cli.run(argv, cfg=cfg)
     counts = read_counts()
     toks = rec["tokens"].numpy()
     if toks.shape != (4, 32) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         fail(f"{label}: tokens shape {toks.shape}, range "
              f"[{toks.min()}, {toks.max()}]")
     check_counts(label, counts, {
-        "flash": n_attn, "paged": 0, "plain_scan": 0,
-        "scan": n_ssm * (1 + rec["decode_steps"])})
+        "flash": n_gqa, "flash_d192": n_attn - n_gqa, "paged": 0,
+        "plain_scan": 0, "scan": n_ssm * (1 + rec["decode_steps"])})
+    rec["launches"] = counts
     log(f"  {label}: tok/s {rec['tok_per_s']:.1f}, host_syncs "
         f"{rec['host_syncs']}, {rec['decode_steps']} decode steps; launches "
         f"{counts}")
@@ -997,7 +1222,7 @@ def one_shot(cfg, argv, label) -> dict:
 
 
 def phase_one_shot(cfg) -> None:
-    log("[4/10] one-shot generate: " + " ".join(ONE_SHOT))
+    log("[4/12] one-shot generate: " + " ".join(ONE_SHOT))
     rec = one_shot(cfg, ONE_SHOT, "one-shot")
     teacher_forced_check(cfg, reference_params(cfg), one_shot_prompts(cfg)[0],
                          rec["tokens"].numpy()[0], "one-shot row 0")
@@ -1016,7 +1241,7 @@ def run_stream(cfg, argv, label) -> dict:
     log(f"  {label}: " + " ".join(argv))
     t0 = time.perf_counter()
     reset_counts()
-    rec = cli.run(argv)
+    rec = cli.run(argv, cfg=cfg)
     counts = read_counts()
     log(f"  {label}: {time.perf_counter() - t0:.1f} s, build and weights "
         f"included")
@@ -1025,7 +1250,7 @@ def run_stream(cfg, argv, label) -> dict:
 
 def check_stream(cfg, rec, counts, label) -> dict:
     """A stream's completions, host syncs and launches (see run_stream)."""
-    n_attn, n_ssm = layer_counts(cfg)
+    n_attn, n_ssm, n_gqa = layer_counts(cfg)
     rec["launches"] = counts
     if rec["completed"] != rec["n_requests"]:
         fail(f"{label}: {rec['completed']}/{rec['n_requests']} completed")
@@ -1052,8 +1277,9 @@ def check_stream(cfg, rec, counts, label) -> dict:
     columns = 1 + (rec.get("speculate_tokens") or 0)
     paged_steps = rec["paged"] and rec.get("layer0_codec") == "fp16"
     check_counts(label, counts, {
-        "flash": (adm + chunks) * n_attn,
-        "paged": steps * columns * n_attn if paged_steps else 0,
+        "flash": (adm + chunks) * n_gqa,
+        "flash_d192": (adm + chunks) * (n_attn - n_gqa),
+        "paged": steps * columns * n_gqa if paged_steps else 0,
         "scan": (adm + steps) * n_ssm, "plain_scan": 0})
     log(f"  {label}: ok — {adm} admissions, {chunks} prefill chunks, "
         f"{steps} decode steps, {syncs}; launches {counts}; "
@@ -1087,7 +1313,7 @@ def check_disaggregated(rec, combined) -> None:
     request."""
     keys = ("chunks", "decode_steps_total", "prefill_chunks", "admissions")
     differ = [k for k in keys if rec[k] != combined[k]]
-    differ += [f"launches[{k}]" for k in ("flash", "paged")
+    differ += [f"launches[{k}]" for k in combined["launches"]
                if rec["launches"][k] != combined["launches"][k]]
     differ += [f"request {rid}" for rid, toks in combined["outputs"].items()
                if rec["outputs"].get(rid) != toks]
@@ -1123,7 +1349,7 @@ def phase_stream(cfg) -> dict:
                                              repetitive_stream,
                                              shared_prefix_stream,
                                              synthetic_stream)
-    log("[5/10] qwen2.5-3b streams (every decode and verify chunk under "
+    log("[5/12] qwen2.5-3b streams (every decode and verify chunk under "
         "set_sync_debug_mode('error')); the prefix-shared stream's requests "
         "are all held to the teacher-forced rule")
     recs = {"stream": run_stream(cfg, STREAM, "stream")}
@@ -1238,7 +1464,7 @@ def phase_serve_bench(cfg) -> dict:
     counted around the phase."""
     from repro_torch.benchmarks import serve_bench as sb
     from repro_torch.benchmarks.common import ARTIFACT_ROOT
-    log(f"[6/10] serve_bench head-to-heads: qwen2.5-3b --full, "
+    log(f"[6/12] serve_bench head-to-heads: qwen2.5-3b --full, "
         f"{BENCH_REQUESTS} requests, each run once")
     t0 = time.perf_counter()
     common = dict(arch="qwen2.5-3b", n_requests=BENCH_REQUESTS, full=True,
@@ -1301,7 +1527,7 @@ def phase_serve_bench(cfg) -> dict:
         fail(f"serve_bench: launches {counts}")
     log(f"  serve_bench: launches {counts}; the phase took "
         f"{time.perf_counter() - t0:.1f} s"
-        + (f"; FAILED gates (fatal after phase 9): {failed}" if failed
+        + (f"; FAILED gates (fatal after phase 11): {failed}" if failed
            else ""))
     return {"launches": counts, "gates": gates, "failed": failed,
             "seconds": time.perf_counter() - t0}
@@ -1556,7 +1782,7 @@ def phase_falcon(fcfg) -> dict:
     from repro_torch.core.target import use_target
     from repro_torch.models.api import build_model
     from repro_torch.serve.scheduler import synthetic_stream
-    log("[7/10] falcon-mamba-7b at full width: " + " ".join(FALCON)
+    log("[7/12] falcon-mamba-7b at full width: " + " ".join(FALCON)
         + f" (the launcher's target on the card, {SERVING_TARGET}; every "
         "decode chunk under set_sync_debug_mode('error'))")
     n_ssm = layer_counts(fcfg)[1]
@@ -1620,6 +1846,254 @@ def phase_falcon(fcfg) -> dict:
             "loss": loss, "loss_ms": loss_ms, "stream": rec, "dense": dense}
 
 
+def check_grouped_moe(cfg) -> dict:
+    """The grouped MoE (the card's, bf16 experts) against the plain one
+    (f32 experts, every expert on every token) at one full-width layer,
+    random weights: T = 1024 (a one-shot admission's prefill) and T = 4 (a
+    decode step over the 4 slots). The grouped call runs under
+    ``set_sync_debug_mode("error")`` (it reads nothing to the host) and
+    must agree within MOE_TOL, with the same aux loss. Returns {label:
+    (max |d|, grouped ms, plain ms)}."""
+    import torch
+    from repro_torch.benchmarks.common import median_ms
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p = {k: (v[0] if torch.is_tensor(v) else {n: t[0] for n, t in v.items()})
+         for k, v in moe.init_moe(cfg, gen).items()}
+    served = {k: (v.to(torch.bfloat16) if k.startswith("we_") else v)
+              for k, v in p.items()}
+    out = {}
+    for label, t in MOE_TOKENS.items():
+        x = torch.randn((1, t, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+
+        def grouped():
+            return moe.moe_block(served, x, cfg=cfg, impl="grouped")
+
+        def plain():
+            return moe.moe_block(p, x, cfg=cfg, impl="dense")
+
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, aux = grouped()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        want, aux_want = plain()
+        err = compare(f"grouped MoE {label} T={t} (no host read) vs the "
+                      f"plain version", got, want, MOE_TOL)
+        if not torch.allclose(aux, aux_want, rtol=1e-5):
+            fail(f"grouped MoE {label}: aux {aux.item()} against the plain "
+                 f"version's {aux_want.item()}")
+        out[label] = (err, median_ms(grouped, 5), median_ms(plain, 3))
+        log(f"  grouped MoE {label} T={t}: {out[label][1]:.3f} ms, plain "
+            f"{out[label][2]:.3f} ms (host clock, events)")
+    del p, served
+    free_memory()
+    return out
+
+
+def swap_kv(params, cfg):
+    """``params`` with every attention layer's K and V projections traded
+    (GQA: ``wk`` and ``wv``; MLA: the K (nope) and V parts of each head's
+    ``wkv_b`` columns, one width in deepseek-v2): a control fault for
+    forced_routes, given to the decode steps only."""
+    import torch
+    out = {}
+    for name, leaf in params.items():
+        if not isinstance(leaf, dict):
+            out[name] = leaf
+        elif name != "attn":
+            out[name] = swap_kv(leaf, cfg)
+        elif "wkv_b" in leaf:
+            w, nope = leaf["wkv_b"], cfg.qk_nope_head_dim
+            heads = w.reshape(*w.shape[:-1], cfg.n_heads, -1)
+            out[name] = {**leaf, "wkv_b": torch.cat(
+                [heads[..., nope:], heads[..., :nope]], -1).reshape(w.shape)}
+        else:
+            out[name] = {**leaf, "wk": leaf["wv"], "wv": leaf["wk"]}
+    return out
+
+
+def fp8_wo(params, cfg=None):
+    """``params`` with every attention output projection ``wo`` rounded
+    through fp8-e4m3: a subtler control fault for forced_routes, given to
+    the decode steps only."""
+    import torch
+    return {name: (fp8_wo(leaf) if isinstance(leaf, dict)
+                   else leaf.to(torch.float8_e4m3fn).to(leaf.dtype)
+                   if name == "wo" else leaf)
+            for name, leaf in params.items()}
+
+
+def forced_routes(model, params, prompt, tokens, decode_params=None) -> tuple:
+    """A full-sequence forward (no caches) against the step-by-step pass
+    (prefill, then one decode step a token, batch 1; the steps given
+    ``decode_params`` when set) over the same tokens, with the forward's
+    routes forced to the steps': each MoE layer takes, at each position,
+    the experts the step-by-step pass chose there, gated by its own router
+    probabilities. The two then compute one function through other GEMM
+    shapes (and, for MLA, decompressed bf16 heads where decode reads the
+    f32 latent), and differ only by rounding. Returns (max |d logit| over
+    the generated positions, the positions of the whole sequence where
+    the forward's own router would have chosen other experts in some MoE
+    layer, the largest k-th to (k+1)-th router probability margin among
+    them)."""
+    import torch
+    from repro_torch.models import layers, moe, transformer
+    cfg, k = model.cfg, model.cfg.top_k
+    route = moe._route
+    seen = []
+
+    def recording(w, xt, top_k):
+        out = route(w, xt, top_k)
+        seen.append(out[1])
+        return out
+
+    seq = torch.as_tensor(list(prompt) + list(tokens[:-1]), dtype=torch.int32,
+                          device="cuda")[None]
+    n, start = len(tokens), len(prompt) - 1
+    moe._route = recording
+    try:
+        logits, state = model.prefill(params, {"tokens": seq[:, :start + 1]},
+                                      start + n)
+        steps = [logits[0, -1]]
+        per_layer = [[i] for i in seen]
+        for t in range(n - 1):
+            seen.clear()
+            logits, state = model.decode_step(
+                decode_params or params, seq[:, start + 1 + t:start + 2 + t],
+                state,
+                torch.tensor(start + 1 + t, dtype=torch.int32, device="cuda"))
+            steps.append(logits[0, -1])
+            for layer, i in enumerate(seen):
+                per_layer[layer].append(i)
+        chosen = iter([torch.cat(i) for i in per_layer])
+        parted = torch.zeros(seq.shape[1], dtype=torch.bool, device="cuda")
+        margin = torch.zeros((), device="cuda")
+
+        def forcing(w, xt, top_k):
+            nonlocal parted, margin
+            _, own, probs = route(w, xt, top_k)
+            idx = next(chosen)
+            differ = (own.sort(1).values != idx.sort(1).values).any(1)
+            top = probs.topk(top_k + 1, dim=1).values
+            gap = torch.where(differ, top[:, top_k - 1] - top[:, top_k], 0.0)
+            parted, margin = parted | differ, torch.maximum(margin, gap.max())
+            gates = probs.gather(1, idx)
+            return gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                       min=1e-9), idx, probs
+
+        moe._route = forcing
+        x, _, _ = transformer.forward(cfg, params, seq)
+    finally:
+        moe._route = route
+    whole = layers.unembed_logits(params["tok"], x[0, start:])
+    vocab = cfg.vocab_size
+    d = (torch.stack(steps)[:, :vocab] - whole[:, :vocab]).abs().max()
+    return float(d), int(parted.sum()), float(margin)
+
+
+def phase_moe(arch: str, n_layers: int, phase: int) -> dict:
+    """One MoE model at its published widths, ``n_layers`` deep, through
+    the launcher (``cli.run(argv, cfg=...)``) under its h100 default: the
+    grouped MoE against the plain one at one layer, the one-shot and the
+    paged stream (deepseek-v2 also at ``--kv-quant int8``), launches
+    counted around each (flash once per attention layer and admission;
+    the paged kernel once per GQA layer and decode step, never for MLA,
+    whose decode runs in latent space), host syncs once a chunk, and every
+    greedy token of the one-shot and of the stream held to teacher-forced
+    passes at the served batch and pool, a full-sequence forward on the
+    same routes held to the step-by-step pass, and the controls that must
+    fail that gate. Prints the phase's seconds."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.scheduler import synthetic_stream
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    groups = ", ".join(f"{g.name} x {g.n_repeat}" for g in cfg.layer_groups())
+    argv = ["--arch", arch, "--full"]
+    log(f"[{phase}/12] {arch} at its published widths, {n_layers} of "
+        f"{full.n_layers} layers ({groups}): " + " ".join(argv))
+    moe_check = check_grouped_moe(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    recs = {"one_shot": one_shot(cfg, argv + ONE_SHOT_ARGS, "one-shot")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  one-shot: peak device memory {peak:.1f} GB (the f32 init and "
+        f"its bf16 serving copy)")
+    free_memory()
+    recs["stream"] = run_stream(cfg, argv + STREAM_ARGS, "stream")
+    free_memory()
+    if cfg.use_mla:
+        rec = run_stream(cfg, argv + STREAM_ARGS + ["--kv-quant", "int8"],
+                         "kv int8")
+        agree = first_token_agreement("kv int8", rec, recs["stream"])
+        log(f"  kv int8: {rec['n_pages'] - 1} latent pages in "
+            f"{rec['pool_bytes']} B (fp16: {recs['stream']['n_pages'] - 1} "
+            f"in {recs['stream']['pool_bytes']} B), first-token agreement "
+            f"{agree:.3f}; {rec['tok_per_s']:.1f} tok/s (fp16 "
+            f"{recs['stream']['tok_per_s']:.1f})")
+        recs["kv_int8"] = rec
+        check_merge_counters("kv int8")
+        free_memory()
+    # the teacher-forced passes run the served batch and pool (as falcon's
+    # do): a full-sequence forward computes the same function through other
+    # GEMM shapes and, for MLA, decompressed bf16 heads instead of the f32
+    # latent, and a router near-tie it flips moves the logits by more than
+    # LOGIT_TOL. With its routes forced to the step-by-step pass's it is
+    # held to that pass within FORCED_ROUTE_TOL
+    model = build_model(cfg)
+    params = reference_params(cfg)
+    stream = synthetic_stream(8, 512, 64, cfg.vocab_size)
+    served_batch_check(model, params, one_shot_prompts(cfg),
+                       recs["one_shot"]["tokens"].numpy(), 4, "one-shot")
+    for rid in range(len(stream)):
+        served_batch_check(model, params, [stream[rid]["prompt"]],
+                           [recs["stream"]["outputs"][rid]], 4,
+                           f"stream request {rid}", depth=MAX_LEN,
+                           page_tokens=16)
+    worst, tol = 0.0, FORCED_ROUTE_TOL[arch]
+    for label, prompt, toks in (
+            ("one-shot row 0", one_shot_prompts(cfg)[0],
+             recs["one_shot"]["tokens"].numpy()[0]),
+            ("stream request 0", stream[0]["prompt"],
+             recs["stream"]["outputs"][0]),
+            ("stream request 1", stream[1]["prompt"],
+             recs["stream"]["outputs"][1])):
+        d, parts, margin = forced_routes(model, params, prompt, toks)
+        log(f"  {label}: a full-sequence forward on the step-by-step pass's "
+            f"routes (its own would part at {parts} positions, largest "
+            f"margin {margin:.2e}): max |d logit| {d:.4f} (gated at "
+            f"{tol})")
+        if not d <= tol:
+            fail(f"{arch} {label}: a full-sequence forward on the same "
+                 f"routes parts from the step-by-step pass by {d:.4f}")
+        worst = max(worst, d)
+    # the controls: a fault in the decode steps alone must fail the gate
+    controls = {}
+    for fault, what in ((swap_kv, "K and V projections traded"),
+                        (fp8_wo, "wo rounded through fp8-e4m3")):
+        d, parts, _ = forced_routes(
+            model, params, stream[0]["prompt"], recs["stream"]["outputs"][0],
+            decode_params=fault(params, cfg))
+        controls[fault.__name__] = d
+        log(f"  control (stream request 0, the decode steps' {what}): max "
+            f"|d logit| {d:.4f} ({parts} positions' own routes part)")
+        if d <= tol:
+            fail(f"{arch}: the forced-route gate passes its control ({what})")
+    del params, model
+    free_memory()
+    seconds = time.perf_counter() - t0
+    log(f"  {arch}: the phase took {seconds:.1f} s")
+    return {"recs": recs, "moe": moe_check, "forced_route_gap": worst,
+            "forced_route_controls": controls, "peak_gb": peak,
+            "seconds": seconds}
+
+
 def phase_paper() -> dict:
     """The paper path on the card, through the entry points a user runs;
     the matmul3d launches are counted around both."""
@@ -1627,7 +2101,7 @@ def phase_paper() -> dict:
     from repro_torch.kernels.matmul3d import matmul3d
     from repro_torch.launch import mempool_matmul
     from repro_torch.launch.mempool_matmul import REL_TOL
-    log("[8/10] the paper path: python -m repro_torch.launch.mempool_matmul; "
+    log("[10/12] the paper path: python -m repro_torch.launch.mempool_matmul; "
         "python -m repro_torch.benchmarks.kernel_bench --target h100")
     matmul3d.launches = 0
     rec = mempool_matmul.run([])
@@ -1689,7 +2163,7 @@ def phase_profile(cfg, kv_quant=None) -> None:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             launched = sum(read_counts()[k] - before[k]
-                           for k in ("flash", "paged", "scan"))
+                           for k in ("flash", "flash_d192", "paged", "scan"))
             kernels = [e for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA]
             traced = sum(e.count for e in kernels
@@ -1761,17 +2235,22 @@ def main() -> int:
     free_memory()
     falcon = phase_falcon(fcfg)
     check_merge_counters("phase 7")
+    free_memory()
+    moe_runs = {}
+    for phase, (arch, n_layers) in ((8, QWEN_MOE), (9, DEEPSEEK)):
+        moe_runs[arch] = phase_moe(arch, n_layers, phase)
+        check_merge_counters(f"phase {phase}")
     paper = phase_paper()
-    check_merge_counters("phase 8")
-    log("[9/10] where the time goes: torch.profiler (CUDA activity)")
+    check_merge_counters("phase 10")
+    log("[11/12] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
     phase_profile(cfg, kv_quant="int8")
     phase_profile(fcfg)
-    check_merge_counters("phase 9")
+    check_merge_counters("phase 11")
     if bench["failed"]:
         fail(f"serve_bench outputs gates: {bench['failed']}")
 
-    log(f"[10/10] summary ({time.perf_counter() - t_start:.0f} s)")
+    log(f"[12/12] summary ({time.perf_counter() - t_start:.0f} s)")
     rows = [("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:30",
              rec["launches"]["flash"], timing["flash"]),
@@ -1781,7 +2260,12 @@ def main() -> int:
             ("matmul3d", "matmul3d", "src/repro/kernels/matmul3d.py:32",
              paper["launches"], timing["matmul3d"]),
             ("mamba_scan", "mamba_scan", "src/repro/kernels/mamba_scan.py:29",
-             falcon["launches"], timing["mamba_scan"])]
+             falcon["launches"], timing["mamba_scan"]),
+            # the same kernel at MLA's widths: deepseek-v2's paged stream
+            ("flash_attention_d192_dv128", "flash_attention",
+             "src/repro/kernels/flash_attention.py:30",
+             moe_runs[DEEPSEEK[0]]["recs"]["stream"]["launches"]["flash_d192"],
+             timing["flash_mla"])]
     kernels = []
     for name, lib, replaces, launches, t in rows:
         row = {"name": name, "route": "cuda",
@@ -1806,7 +2290,11 @@ def main() -> int:
     by_path.update({f"falcon {name}": falcon[name]["launches"]
                     for name in ("stream", "dense")})
     by_path["qwen serve_bench"] = bench["launches"]
-    for row, key in zip(kernels, ("flash", "paged", None, "scan")):
+    by_path.update({f"{arch} {name}": r["launches"]
+                    for arch, run in moe_runs.items()
+                    for name, r in run["recs"].items()})
+    for row, key in zip(kernels, ("flash", "paged", None, "scan",
+                                  "flash_d192")):
         if key:
             row["launches_by_path"] = {path: c[key]
                                        for path, c in by_path.items()}

@@ -35,9 +35,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 #: Pointers and the stream are c_void_p, so none is cut to 32 bits.
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "flash_attention": {
-        "flash_attention_bf16": (_I, [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F]
+        "flash_attention_bf16": (_I, [_P] * 4 + [_I] * 7 + [_L] * 9 + [_F]
                                  + [_I] * 4 + [_P]),
-        "flash_attention_head_dim": (_I, []),
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "paged_attention": {

@@ -35,10 +35,21 @@
 // tiles are fixed constants: sizing them from the h100 planner is later
 // work. Shared memory: Q 16 KB + 2 x (K 16 KB + V 16 KB) = 80 KB.
 //
-// Layout: q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v (B,Hkv,Skv,D) with batch/head/
+// Layout: q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v (B,Hkv,Skv,DV) with batch/head/
 // seq strides that are multiples of 8 elements (16 bytes, as TMA needs),
-// unit stride on D and 16-byte aligned bases (the wrapper copies anything
-// else); o is contiguous (B,Hq,Sq,D). Grid: (ceil(Sq/64), Hq, B).
+// unit stride on the last axis and 16-byte aligned bases (the wrapper
+// copies anything else); o is contiguous (B,Hq,Sq,DV). Grid: (ceil(Sq/64),
+// Hq, B).
+//
+// Head dims: the kernel is a template on (D, DV), built at (128, 128) (the
+// GQA families) and (192, 128) (multi-head latent attention's prefill:
+// nope 128 + rope 64 for Q and K, 128 for V). A Q or K tile of D = 192 is
+// three 128-byte-swizzled chunks of 64 columns, the Q K^T wgmma takes 12
+// k16 steps instead of 8, and V and P V stay n128. Shared memory at
+// (192, 128): Q 24 KB + 2 x (K 24 KB + V 16 KB) = 104 KB. At deepseek-v2's
+// one-shot admission (4 x 256 over 256 positions, 128 heads, causal) the
+// bytes (Q, K, V and O: 168 MB, 0.050 ms at 3.35 TB/s) bound it above the
+// operations (11 GFLOP over the causal band, 0.011 ms).
 
 #include <math.h>
 
@@ -46,18 +57,27 @@
 
 namespace {
 
-constexpr int D = 128;        // head dim (q/k and v)
 constexpr int BQ = 64;        // query rows per CTA (one warpgroup)
 constexpr int BK = 64;        // keys per KV tile
 constexpr int CW = 64;        // columns per 128B-swizzled chunk
 constexpr int STAGES = 2;     // K/V ring depth
 constexpr int WG = 128;       // threads per warpgroup
 constexpr int NT = WG + 32;   // consumer warpgroup + producer warp
-constexpr int TILE_BYTES = 64 * D * 2;  // one 64-row tile of Q, K or V
 constexpr int CHUNK_BYTES = 64 * CW * 2;
-constexpr size_t kSmemBytes =
-    size_t(TILE_BYTES) * (1 + 2 * STAGES) + 8 * (1 + 2 * STAGES);
 
+// Tile sizes of one (D, DV) instance: a 64-row tile of Q or K is D wide,
+// one of V is DV wide; every tile is a whole number of 1024-byte chunks.
+template <int D, int DV>
+struct Tiles {
+  static_assert(D % CW == 0 && DV == 128, "D a multiple of 64, DV = 128");
+  static constexpr int QK_BYTES = 64 * D * 2;
+  static constexpr int V_BYTES = 64 * DV * 2;
+  static constexpr size_t SMEM = size_t(QK_BYTES) * (1 + STAGES)
+                                 + size_t(V_BYTES) * STAGES
+                                 + 8 * (1 + 2 * STAGES);
+};
+
+template <int D, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -65,11 +85,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  __nv_bfloat16* __restrict__ o, int hq, int hkv, int sq,
                  int skv, float scale_log2, int causal, int has_window,
                  int window, int q_offset) {
+  constexpr int QK_BYTES = Tiles<D, DV>::QK_BYTES;
+  constexpr int V_BYTES = Tiles<D, DV>::V_BYTES;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* q_s = smem;
-  unsigned char* k_s = q_s + TILE_BYTES;             // [STAGES] tiles
-  unsigned char* v_s = k_s + STAGES * TILE_BYTES;    // [STAGES] tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + STAGES * TILE_BYTES);
+  unsigned char* k_s = q_s + QK_BYTES;               // [STAGES] tiles
+  unsigned char* v_s = k_s + STAGES * QK_BYTES;      // [STAGES] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + STAGES * V_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
 
@@ -103,20 +125,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (tid >= WG) {  // the producer warp: one lane issues every load
     if (tid == WG) {
-      hopper::mbar_expect_tx(q_full, TILE_BYTES);
+      hopper::mbar_expect_tx(q_full, QK_BYTES);
       for (int ch = 0; ch < D / CW; ++ch)
         hopper::tma_load_4d(q_s + ch * CHUNK_BYTES, &map_q, q_full, ch * CW,
                             q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, k0 = (t_begin + i) * BK;
         if (i >= STAGES) hopper::mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
-        hopper::mbar_expect_tx(&full[s], 2 * TILE_BYTES);
-        for (int ch = 0; ch < D / CW; ++ch) {
-          hopper::tma_load_4d(k_s + s * TILE_BYTES + ch * CHUNK_BYTES, &map_k,
+        hopper::mbar_expect_tx(&full[s], QK_BYTES + V_BYTES);
+        for (int ch = 0; ch < D / CW; ++ch)
+          hopper::tma_load_4d(k_s + s * QK_BYTES + ch * CHUNK_BYTES, &map_k,
                               &full[s], ch * CW, k0, hk, b);
-          hopper::tma_load_4d(v_s + s * TILE_BYTES + ch * CHUNK_BYTES, &map_v,
+        for (int ch = 0; ch < DV / CW; ++ch)
+          hopper::tma_load_4d(v_s + s * V_BYTES + ch * CHUNK_BYTES, &map_v,
                               &full[s], ch * CW, k0, hk, b);
-        }
       }
     }
     return;
@@ -126,17 +148,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   // + e holds row 16 warp + lane / 4 + 8 r, column 8 j + 2 (lane % 4) + e.
   const int warp = tid / 32, lane = tid % 32;
   const int row_in = 16 * warp + lane / 4, col_in = 2 * (lane % 4);
-  float acc_o[D / 2];
+  float acc_o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc_o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of each row's sum
 
   hopper::mbar_wait(q_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % STAGES, k0 = (t_begin + i) * BK;
-    const unsigned char* ks = k_s + s * TILE_BYTES;
-    const unsigned char* vs = v_s + s * TILE_BYTES;
+    const unsigned char* ks = k_s + s * QK_BYTES;
+    const unsigned char* vs = v_s + s * V_BYTES;
     hopper::mbar_wait(&full[s], (i / STAGES) & 1);
 
     float sc[BK / 2];  // S = Q K^T, 64 x 64
@@ -197,18 +219,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
           *reinterpret_cast<const uint32_t*>(&pk);
     }
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc_o[j] *= alpha[(j / 2) % 2];
+    for (int j = 0; j < DV / 2; ++j) acc_o[j] *= alpha[(j / 2) % 2];
 
-    hopper::reg_fence<D / 2>(acc_o);
+    hopper::reg_fence<DV / 2>(acc_o);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      hopper::Wgmma<D>::rs(acc_o, pa[kk],
-                           hopper::desc(vs + kk * 16 * CW * 2, CW,
-                                        CHUNK_BYTES), 1);
+      hopper::Wgmma<DV>::rs(acc_o, pa[kk],
+                            hopper::desc(vs + kk * 16 * CW * 2, CW,
+                                         CHUNK_BYTES), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
-    hopper::reg_fence<D / 2>(acc_o);
+    hopper::reg_fence<DV / 2>(acc_o);
     hopper::mbar_arrive(&empty[s]);
   }
 
@@ -224,20 +246,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int r = 0; r < 2; ++r) {
     const int row = row_in + 8 * r;
     if (row >= nq) continue;
-    __nv_bfloat16* orow = o + ((size_t(b) * hq + h) * sq + q0 + row) * D;
+    __nv_bfloat16* orow = o + ((size_t(b) * hq + h) * sq + q0 + row) * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col_in) =
           __floats2bfloat162_rn(acc_o[4 * j + 2 * r] * inv[r],
                                 acc_o[4 * j + 2 * r + 1] * inv[r]);
   }
 }
 
-// The (D, S, H, B) map of a (B, H, S, D) tensor read in 64-row boxes of one
+// The (W, S, H, B) map of a (B, H, S, W) tensor read in 64-row boxes of one
 // 128-byte chunk; strides in elements.
-cudaError_t make_map(CUtensorMap* map, const void* base, int batch, int heads,
-                     int seq, long long sb, long long sh, long long ss) {
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(seq),
+cudaError_t make_map(CUtensorMap* map, const void* base, int width, int batch,
+                     int heads, int seq, long long sb, long long sh,
+                     long long ss) {
+  const cuuint64_t dims[4] = {cuuint64_t(width), cuuint64_t(seq),
                               cuuint64_t(heads), cuuint64_t(batch)};
   const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2,
                                  cuuint64_t(sb) * 2};
@@ -250,48 +273,69 @@ bool tma_ok(const void* p, long long sb, long long sh, long long ss) {
          ss > 0 && sb % 8 == 0 && sh % 8 == 0 && ss % 8 == 0;
 }
 
+template <int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int hq, int hkv, int sq, int skv, long long q_sb, long long q_sh,
+           long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+           long long v_sb, long long v_sh, long long v_ss, float scale,
+           int causal, int has_window, int window, int q_offset,
+           void* stream) {
+  constexpr size_t smem = Tiles<D, DV>::SMEM;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = make_map(&map_q, q, D, batch, hq, sq, q_sb, q_sh, q_ss);
+  if (err == cudaSuccess)
+    err = make_map(&map_k, k, D, batch, hkv, skv, k_sb, k_sh, k_ss);
+  if (err == cudaSuccess)
+    err = make_map(&map_v, v, DV, batch, hkv, skv, v_sb, v_sh, v_ss);
+  if (err != cudaSuccess) return int(err);
+  dim3 grid((sq + BQ - 1) / BQ, hq, batch);
+  flash_fwd_kernel<D, DV>
+      <<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+          map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), hq, hkv, sq,
+          skv, scale * 1.4426950408889634f, causal, has_window, window,
+          q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
-
-int flash_attention_head_dim() { return D; }
 
 const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for strides or bases TMA cannot read.
+// cudaErrorInvalidValue for a (d, dv) pair that is not built or strides or
+// bases TMA cannot read.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int batch, int hq, int hkv, int sq, int skv,
-                         long long q_sb, long long q_sh, long long q_ss,
-                         long long k_sb, long long k_sh, long long k_ss,
-                         long long v_sb, long long v_sh, long long v_ss,
-                         float scale, int causal, int has_window, int window,
-                         int q_offset, void* stream) {
+                         int batch, int hq, int hkv, int sq, int skv, int d,
+                         int dv, long long q_sb, long long q_sh,
+                         long long q_ss, long long k_sb, long long k_sh,
+                         long long k_ss, long long v_sb, long long v_sh,
+                         long long v_ss, float scale, int causal,
+                         int has_window, int window, int q_offset,
+                         void* stream) {
   if (!tma_ok(q, q_sb, q_sh, q_ss) || !tma_ok(k, k_sb, k_sh, k_ss) ||
       !tma_ok(v, v_sb, v_sh, v_ss) || hkv <= 0 || hq % hkv || skv <= 0)
     return int(cudaErrorInvalidValue);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  CUtensorMap map_q, map_k, map_v;
-  cudaError_t err = make_map(&map_q, q, batch, hq, sq, q_sb, q_sh, q_ss);
-  if (err == cudaSuccess)
-    err = make_map(&map_k, k, batch, hkv, skv, k_sb, k_sh, k_ss);
-  if (err == cudaSuccess)
-    err = make_map(&map_v, v, batch, hkv, skv, v_sb, v_sh, v_ss);
-  if (err != cudaSuccess) return int(err);
-  dim3 grid((sq + BQ - 1) / BQ, hq, batch);
-  flash_fwd_kernel<<<grid, NT, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), hq, hkv, sq, skv,
-      scale * 1.4426950408889634f, causal, has_window, window, q_offset);
-  return static_cast<int>(cudaGetLastError());
+  if (d == 128 && dv == 128)
+    return launch<128, 128>(q, k, v, o, batch, hq, hkv, sq, skv, q_sb, q_sh,
+                            q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
+                            causal, has_window, window, q_offset, stream);
+  if (d == 192 && dv == 128)
+    return launch<192, 128>(q, k, v, o, batch, hq, hkv, sq, skv, q_sb, q_sh,
+                            q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
+                            causal, has_window, window, q_offset, stream);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -17,7 +17,9 @@ are never repeated in memory. KV tiles wholly past the causal diagonal or
 behind the window are skipped, and ragged ``Sq``/``Skv`` edges are zero
 filled by TMA and masked: unlike the TPU kernel, no length has to divide a
 block. The tiles are fixed (64 x 64); sizing them from the ``h100``
-planner is ROADMAP work.
+planner is ROADMAP work. The kernel is built at two head-dim pairs
+(:data:`HEAD_DIMS`): D = Dv = 128 (the GQA families) and D = 192, Dv = 128
+(multi-head latent attention's prefill: nope 128 + rope 64 for Q and K).
 
 TMA reads the tensors through their own strides, so the model's
 ``transpose(1, 2)`` views go in without a copy; a tensor whose batch, head
@@ -37,6 +39,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 _LIB = "flash_attention"
+#: the (D, Dv) pairs the kernel is built at (``csrc/flash_attention.cu``)
+HEAD_DIMS = ((128, 128), (192, 128))
 
 
 def tma_strides(t: torch.Tensor) -> tuple:
@@ -60,24 +64,15 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                              scale=scale, q_offset=q_offset)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None,
-                    scale: Optional[float] = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv).
-
-    On a CUDA tensor: bf16 in and out, D = Dv = 128, unit stride on the
-    last axis, an int ``q_offset``; anything else raises. A CPU tensor
-    takes :func:`flash_attention_plain`.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def check_inputs(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> tuple:
+    """Raise for q / k / v the kernel does not take: bf16 on one device,
+    unit stride on the last axis, (D, Dv) in :data:`HEAD_DIMS`, K and V of
+    one (batch, head, sequence) shape, a batch and GQA grouping q shares.
+    Returns the output's shape ``(B, Hq, Sq, Dv)``."""
     b, hq, sq, d = q.shape
     bk, hkv, skv, dk = k.shape
+    dv = v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash_attention takes bf16 {name}, got {t.dtype}")
@@ -86,22 +81,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention needs unit stride on the last "
                              f"axis of {name}")
-    lib = build.library(_LIB)
-    head_dim = lib.flash_attention_head_dim()
-    if d != head_dim or dk != d or v.shape != k.shape:
-        raise ValueError(f"flash_attention takes D = Dv = {head_dim}, got q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+    if (d, dv) not in HEAD_DIMS or dk != d or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention takes (D, Dv) in {HEAD_DIMS}, got "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     if bk != b or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"share a batch / GQA grouping")
+    return b, hq, sq, dv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv).
+
+    On a CUDA tensor: what :func:`check_inputs` takes and an int
+    ``q_offset``; anything else raises. A CPU tensor takes
+    :func:`flash_attention_plain`.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    out_shape = check_inputs(q, k, v)
+    b, hq, sq, dv = out_shape
+    hkv, skv, d = k.shape[1], k.shape[2], q.shape[-1]
     if not isinstance(q_offset, int) or q_offset < 0:
         raise TypeError(f"flash_attention takes a non-negative int q_offset, "
                         f"got {q_offset!r}")
     if window is not None and window < 0:
         raise ValueError(f"window must be None or >= 0, got {window}")
+    lib = build.library(_LIB)
     scale = scale if scale is not None else d ** -0.5
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
     if skv == 0:
@@ -116,12 +132,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (q, qs), (k, ks), (v, vs) = views
     rc = lib.flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, skv, *qs, *ks, *vs,
+        b, hq, hkv, sq, skv, d, dv, *qs, *ks, *vs,
         float(scale), int(causal), int(window is not None), window or 0,
         q_offset, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(_LIB, rc)
     flash_attention.launches += 1
+    flash_attention.launches_by_dims[d, dv] += 1
     return out
 
 
+#: launches of every instance, and of each (D, Dv) instance
 flash_attention.launches = 0
+flash_attention.launches_by_dims = dict.fromkeys(HEAD_DIMS, 0)

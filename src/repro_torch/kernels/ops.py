@@ -101,7 +101,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_offset: Union[int, torch.Tensor] = 0,
               plan: Optional[tiling.AttentionPlan] = None,
               impl: Impl = "auto") -> torch.Tensor:
-    """Blockwise attention; q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D).
+    """Blockwise attention; q (B,Hq,Sq,D), k (B,Hkv,Skv,D), v
+    (B,Hkv,Skv,Dv); the output is (B,Hq,Sq,Dv). On the card the flash
+    kernel takes (D, Dv) in ``flash_attention.HEAD_DIMS`` and raises for
+    any other pair.
 
     A tensor-valued ``q_offset`` (chunked prefill resuming at a device-side
     cursor) takes the oracle, as in the reference: the offset only enters

@@ -69,6 +69,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.target import (available_targets, get_target,
                                      use_target)
 from repro_torch.models.api import build_model, resolve_device
+from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.serve.scheduler import (DECODING, DRAINED, PREFILLING,
                                          Scheduler, derive_n_slots,
@@ -348,8 +349,10 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(argv=None) -> Dict[str, Any]:
-    """Parse ``argv``, serve, print the report; return its record."""
+def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
+    """Parse ``argv``, serve, print the report; return its record. A given
+    ``cfg`` is served in place of the one ``--arch`` / ``--full`` name (a
+    caller's depth cut of a published config, for instance)."""
     ap = parser()
     args = ap.parse_args(argv)
     if args.speculate_tokens is not None and not args.stream:
@@ -381,7 +384,8 @@ def run(argv=None) -> Dict[str, Any]:
     if args.prefix_share and system_len >= args.prompt_len:
         ap.error("--system-len must leave room for a unique tail "
                  "(< --prompt-len)")
-    cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    if cfg is None:
+        cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
     dev = resolve_device(args.device)
     target = args.target or serving_target(dev)
     tgt_ctx = use_target(target) if target else contextlib.nullcontext()

@@ -1,8 +1,8 @@
 """Model facade: init / loss / prefill / decode_step / verify_step / the
 row moves.
 
-The counterpart of ``src/repro/models/api.py`` for ``family="dense"`` and
-``family="ssm"``.
+The counterpart of ``src/repro/models/api.py`` for ``family="dense"``,
+``family="moe"`` (GQA or MLA attention) and ``family="ssm"``.
 A :class:`Model` lives on one device: CUDA unless the caller passes
 ``device="cpu"``. With no card and no explicit CPU it raises — the port
 never drops to the CPU silently.
@@ -39,18 +39,25 @@ def resolve_device(device: Device = None) -> torch.device:
 #: (``src/repro/models/ssm.py``); ``a_log``, ``dt_bias`` and ``ssm_d`` stay f32
 _MAMBA_MATRICES = ("in_proj", "x_proj", "dt_proj", "out_proj", "conv_w",
                    "conv_b")
+#: the routed experts' weights: the grouped MoE (the card's) casts them to
+#: bf16 inside every call, the plain one (the CPU's) computes in f32
+_EXPERT_MATRICES = ("we_gate", "we_up", "we_down")
 
 
-def _is_matrix(name: str) -> bool:
+def _is_matrix(name: str, grouped_moe: bool) -> bool:
     """Leaves the reference casts to bf16 inside every op: projection
-    matrices (``w*``), the embedding tables and the mamba projections and
-    conv weights."""
+    matrices (``w*``; the routed experts' only where the grouped MoE runs
+    them), the embedding tables and the mamba projections and conv
+    weights. The MoE router (``router``) stays f32 everywhere."""
+    if name in _EXPERT_MATRICES:
+        return grouped_moe
     return (name.startswith("w") or name in ("embed", "unembed")
             or name in _MAMBA_MATRICES)
 
 
 class Model:
-    """Facade over the dense GQA and Mamba-1 substrate on one device.
+    """Facade over the dense / MoE transformer and Mamba-1 substrate on one
+    device.
 
     The model owns a :class:`Mem3DPlanner` for the given hardware target
     (default: the process-wide current target), as in the reference.
@@ -70,10 +77,14 @@ class Model:
         """Capacity-partitioned block plans for this arch at one shape cell."""
         cfg = self.cfg
         seq_kv = seq_q if seq_kv is None else seq_kv
+        if cfg.use_mla:
+            head_dim = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                        + cfg.v_head_dim) // 2
+        else:
+            head_dim = cfg.head_dim if cfg.n_heads else 0
         return self.planner.plan_for(
             d_model=cfg.d_model, d_ff=max(cfg.d_ff, cfg.moe_d_ff),
-            seq_q=max(seq_q, 1), seq_kv=max(seq_kv, 1),
-            head_dim=cfg.head_dim if cfg.n_heads else 0,
+            seq_q=max(seq_q, 1), seq_kv=max(seq_kv, 1), head_dim=head_dim,
             tokens_per_device=max(tokens or seq_q, 1),
             ssm_d_inner=cfg.ssm_d_inner if cfg.ssm_d_state else 0,
             ssm_d_state=cfg.ssm_d_state)
@@ -91,10 +102,17 @@ class Model:
         """The serving copy of ``params``: matrices cast to bf16 ONCE
         (the reference casts them inside every op; the cast is
         deterministic, so the results are bit-identical), vectors (biases,
-        norm scales) left f32."""
+        norm scales) and the MoE router left f32. The routed experts'
+        weights follow the MoE the model's device runs
+        (:func:`repro_torch.models.moe.moe_block`): bf16 for the card's
+        grouped version, f32 for the CPU's plain one, which computes in f32
+        as the reference's ``_moe_dense`` does."""
+        grouped = self.device.type == "cuda"
+
         def walk(tree):
             return {k: (walk(v) if isinstance(v, dict)
-                        else layers.cast(v) if _is_matrix(k) else v)
+                        else layers.cast(v) if _is_matrix(k, grouped)
+                        else v)
                     for k, v in tree.items()}
         return walk(params)
 
@@ -243,8 +261,9 @@ class Model:
                 "prefix sharing requires attention-only models: recurrent "
                 "SSM state is per-sequence, not per-page")
         rows = block_row.long()
+        p_max = rows.shape[0]
         caches: Dict[str, Any] = {}
-        for gname, key, _ in transformer.paged_cache_kinds(self.cfg):
+        for gname, key, attn in transformer.cache_attn_kinds(self.cfg):
             leaf = pool_state["caches"][gname][key]
             out = {}
             for name, pages in leaf.items():
@@ -253,10 +272,16 @@ class Model:
                 sel = as_bits(pages)[:, rows].view(pages.dtype)
                 scale = leaf.get(name + "_scale")
                 if scale is not None:
-                    sel = dequantize_page_int8(sel, scale[:, rows], (2, 3, 4))
+                    sel = dequantize_page_int8(sel, scale[:, rows],
+                                               tuple(range(2, sel.ndim)))
                 if sel.dtype != torch.bfloat16:
                     sel = sel.to(torch.bfloat16)
-                r, p_max, hkv, _, hd = sel.shape    # (r, P, hkv, pt, hd)
+                if attn == "mla":               # (r, P, pt, width)
+                    r = sel.shape[0]
+                    out[name] = sel.reshape(r, p_max * page_tokens,
+                                            -1)[:, None]
+                    continue
+                r, _, hkv, _, hd = sel.shape    # (r, P, hkv, pt, hd)
                 out[name] = torch.movedim(sel, 1, 2).reshape(
                     r, hkv, p_max * page_tokens, hd)[:, None]
             caches.setdefault(gname, {})[key] = out
@@ -281,22 +306,27 @@ class Model:
         """
         p_max = block_row.shape[0]
         rows = block_row.long()
-        for gname, key, is_paged in transformer.paged_cache_kinds(self.cfg):
+        for gname, key, attn in transformer.cache_attn_kinds(self.cfg):
             pool_leaf = pool_state["caches"][gname][key]
             row_leaf = row_state["caches"][gname][key]
             for name, pool in pool_leaf.items():
                 if name.endswith("_scale"):
                     continue                       # written with the codes
                 row = row_leaf[name]
-                if not is_paged:                   # (r, 1, ...) -> slot
+                if attn == "mamba":                # (r, 1, ...) -> slot
                     pool[:, slot] = row[:, 0].to(pool.dtype)
                     continue
-                r, _, hkv, _, hd = row.shape       # (r, 1, hkv, depth, hd)
-                cut = torch.movedim(
-                    row[:, 0].reshape(r, hkv, p_max, page_tokens, hd), 2, 1)
+                if attn == "mla":                  # (r, 1, depth, width)
+                    cut = row[:, 0].reshape(row.shape[0], p_max,
+                                            page_tokens, -1)
+                else:                              # (r, 1, hkv, depth, hd)
+                    r, _, hkv, _, hd = row.shape
+                    cut = torch.movedim(row[:, 0].reshape(
+                        r, hkv, p_max, page_tokens, hd), 2, 1)
                 scale = pool_leaf.get(name + "_scale")
                 if scale is not None:
-                    codes, scales = quantize_page_int8(cut, (2, 3, 4))
+                    codes, scales = quantize_page_int8(
+                        cut, tuple(range(2, cut.ndim)))
                     pool[:, rows] = codes
                     scale[:, rows] = scales
                 else:

@@ -1,7 +1,8 @@
-"""GQA attention (+ sliding window, RoPE) with in-place KV caches.
+"""GQA attention (+ sliding window, RoPE) and multi-head latent attention
+(MLA) with in-place KV caches.
 
-The counterpart of the GQA branch of ``src/repro/models/attention.py``.
-Two cache layouts share the math:
+The counterpart of ``src/repro/models/attention.py``'s GQA and MLA
+branches. Two cache layouts share the math:
 
   * **dense slot slab** — ``(B, Hkv, max_len, D)``, one worst-case-deep
     slab per row. This is the oracle path.
@@ -19,8 +20,10 @@ so a write lands in the pool the caller holds) and the same dict is
 returned. Everything the caller needs for ordering is that a write happens
 before the attention that reads it, which program order gives.
 
-MLA (``deepseek-v2``), M-RoPE (``qwen2-vl``) and cross-attention are later
-slices (ROADMAP A7).
+MLA caches only the compressed latent (``ckv``) and the one shared RoPE
+key head (``krope``): ``(B, max_len, width)`` on the slab, ``(n_pages,
+page_tokens, width)`` in the pool. M-RoPE (``qwen2-vl``) and
+cross-attention are later slices (ROADMAP A7, A10).
 """
 
 from __future__ import annotations
@@ -34,10 +37,11 @@ from repro_torch.core import tiling
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (FP8, INT8_QMAX, as_bits,
                                                  decode_attention_masked,
+                                                 gather_kv_pages,
                                                  paged_decode_attention)
 from repro_torch.models import layers
 from repro_torch.models.config import LayerKind, ModelConfig
-from repro_torch.models.layers import linear, randn
+from repro_torch.models.layers import cast, linear, randn
 
 
 def _cache_write(cache_arr: torch.Tensor, new: torch.Tensor, cache_len,
@@ -191,27 +195,34 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _page_leaves(shapes: Dict[str, Tuple[int, ...]], device, dtype,
+                 quant_scales: bool) -> Dict:
+    """Zeroed page leaves of ``shapes`` (each ``(n_pages, ...)``) at the
+    tier codec's ``dtype``; with ``quant_scales`` (the int8 codec) one f32
+    amax scale a page and leaf, in a sibling ``<leaf>_scale`` leaf of shape
+    ``(n_pages,)`` that every tier copy and park moves with its codes."""
+    out = {}
+    for name, shape in shapes.items():
+        if dtype == FP8:            # made as bits: zero bits are +0.0
+            out[name] = torch.zeros(shape, dtype=torch.uint8,
+                                    device=device).view(FP8)
+        else:
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+    if quant_scales:
+        for name, shape in shapes.items():
+            out[name + "_scale"] = torch.zeros(
+                (shape[0],), dtype=torch.float32, device=device)
+    return out
+
+
 def init_gqa_pages(cfg: ModelConfig, n_pages: int, page_tokens: int, device,
                    dtype=torch.bfloat16, quant_scales: bool = False) -> Dict:
     """Flat page pool replacing the per-slot slab (page 0 = null page), at
-    the tier codec's ``dtype``. With ``quant_scales`` (the int8 codec) each
-    page also carries one f32 amax scale a leaf, in sibling ``k_scale`` /
-    ``v_scale`` leaves of shape ``(n_pages,)`` that every tier copy and
-    park moves with their codes."""
+    the tier codec's ``dtype``: ``k`` / ``v`` of ``(n_pages, Hkv,
+    page_tokens, D)``, plus ``k_scale`` / ``v_scale`` for int8."""
     shape = (n_pages, cfg.n_kv_heads, page_tokens, cfg.head_dim)
-
-    def zeros():
-        if dtype == FP8:            # made as bits: zero bits are +0.0
-            return torch.zeros(shape, dtype=torch.uint8,
-                               device=device).view(FP8)
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    out = {"k": zeros(), "v": zeros()}
-    if quant_scales:
-        for name in ("k_scale", "v_scale"):
-            out[name] = torch.zeros((n_pages,), dtype=torch.float32,
-                                    device=device)
-    return out
+    return _page_leaves({"k": shape, "v": shape}, device, dtype,
+                        quant_scales)
 
 
 def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
@@ -276,3 +287,160 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                             q_offset=q_offset, plan=plan)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return linear(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------- MLA
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator, n: int = 1) -> Dict:
+    """MLA weights in the reference's tree, stacked ``n`` deep."""
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope_d, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+    lora, q_lora = cfg.kv_lora_rank, cfg.q_lora_rank
+    p = {}
+    if q_lora:
+        p["wq_a"] = randn(gen, (n, d, q_lora), 1.0 / math.sqrt(d))
+        p["q_norm"] = {"scale": torch.ones((n, q_lora), dtype=torch.float32,
+                                           device=gen.device)}
+        p["wq_b"] = randn(gen, (n, q_lora, h * (nope + rope_d)),
+                          1.0 / math.sqrt(q_lora))
+    else:
+        p["wq_b"] = randn(gen, (n, d, h * (nope + rope_d)),
+                          1.0 / math.sqrt(d))
+    p["wkv_a"] = randn(gen, (n, d, lora + rope_d), 1.0 / math.sqrt(d))
+    p["kv_norm"] = {"scale": torch.ones((n, lora), dtype=torch.float32,
+                                        device=gen.device)}
+    p["wkv_b"] = randn(gen, (n, lora, h * (nope + vdim)),
+                       1.0 / math.sqrt(lora))
+    p["wo"] = randn(gen, (n, h * vdim, d), 1.0 / math.sqrt(h * vdim))
+    return p
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                   dtype=torch.bfloat16) -> Dict:
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def init_mla_pages(cfg: ModelConfig, n_pages: int, page_tokens: int, device,
+                   dtype=torch.bfloat16, quant_scales: bool = False) -> Dict:
+    """Paged latent pool: ``ckv`` ``(n_pages, page_tokens, kv_lora)`` and
+    ``krope`` ``(n_pages, page_tokens, rope)``, plus ``ckv_scale`` /
+    ``krope_scale`` for int8 (see :func:`_page_leaves`)."""
+    return _page_leaves(
+        {"ckv": (n_pages, page_tokens, cfg.kv_lora_rank),
+         "krope": (n_pages, page_tokens, cfg.qk_rope_head_dim)},
+        device, dtype, quant_scales)
+
+
+def _gather_latent(cache: Dict, name: str,
+                   block_tables: torch.Tensor) -> torch.Tensor:
+    """One latent leaf of the paged pool as each slot's contiguous ``(B,
+    P * page_tokens, width)`` view: int8 codes times their page's scale, an
+    fp8 page upcast to f32, bf16 as stored."""
+    pages = cache[name]
+    out = gather_kv_pages(pages, block_tables, seq_axis=0)
+    scales = cache.get(name + "_scale")
+    if scales is not None:
+        pt = pages.shape[1]
+        return out.float() * torch.repeat_interleave(
+            scales[block_tables.long()], pt, dim=1)[:, :, None]
+    if out.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        return out.float()
+    return out
+
+
+def mla_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
+                  kind: LayerKind,
+                  positions: torch.Tensor,
+                  cache: Optional[Dict] = None,
+                  cache_len=None,
+                  plan: Optional[tiling.AttentionPlan] = None,
+                  block_tables: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Multi-head latent attention. x: (B, S, d). Returns (out, cache).
+
+    The cache holds only the latent: the slab or pool is written in place,
+    then read back whole (the pool through the block tables: gathered,
+    dequantized on the gather when int8, upcast when fp8). With a tensor
+    ``cache_len`` and one token a row, or per-slot offsets (the verify
+    chunk), attention runs in latent space, the reference's absorbed
+    decode: ``q_nope`` folds through ``wkv_b``'s K half, scores and values
+    are f32 einsums over the latent, and no per-head K/V is made. Otherwise
+    (prefill, resumed prefill at a host-int offset, no cache) the latent
+    decompresses through ``wkv_b`` into per-head K (nope + rope) and V and
+    goes to :func:`repro_torch.kernels.ops.attention`: the flash kernel at
+    D = nope + rope, Dv = v on the card."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+    lora = cfg.kv_lora_rank
+
+    if cfg.q_lora_rank:
+        q = linear(layers.rmsnorm(p["q_norm"], linear(x, p["wq_a"])),
+                   p["wq_b"])
+    else:
+        q = linear(x, p["wq_b"])
+    q = q.reshape(b, s, h, nope + rope_d).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = linear(x, p["wkv_a"])                        # (B, S, lora + rope)
+    ckv = layers.rmsnorm(p["kv_norm"], kv_a[..., :lora])
+    k_rope = layers.apply_rope(kv_a[..., lora:][:, None], positions,
+                               cfg.rope_theta)[:, 0]   # one shared head
+
+    q_offset = 0
+    if cache is not None and block_tables is not None:
+        for name, new in (("ckv", ckv), ("krope", k_rope)):
+            scale = cache.get(name + "_scale")
+            if scale is None:
+                _paged_cache_write(cache[name], new, cache_len, block_tables,
+                                   axis=0)
+            else:
+                _paged_cache_write_q(cache[name], scale, new, cache_len,
+                                     block_tables, axis=0)
+        ckv = _gather_latent(cache, "ckv", block_tables)
+        k_rope = _gather_latent(cache, "krope", block_tables)
+        q_offset = cache_len
+    elif cache is not None:
+        ckv = _cache_write(cache["ckv"], ckv, cache_len, axis=1)
+        k_rope = _cache_write(cache["krope"], k_rope, cache_len, axis=1)
+        q_offset = cache_len
+
+    scale = (nope + rope_d) ** -0.5
+    if cache is not None and torch.is_tensor(q_offset) and (
+            s == 1 or q_offset.ndim == 1):
+        w = cast(p["wkv_b"]).float().reshape(lora, h, nope + vdim)
+        wk, wv = w[..., :nope], w[..., nope:]           # (l, h, n) / (l, h, v)
+        q_lat = torch.einsum("bhsn,lhn->bhsl", q_nope.float(), wk)
+        ckv_f, kr_f = ckv.float(), k_rope.float()       # (B, T, l) / (B, T, r)
+        scores = (torch.einsum("bhsl,btl->bhst", q_lat, ckv_f)
+                  + torch.einsum("bhsr,btr->bhst", q_rope.float(), kr_f)
+                  ) * scale
+        t_pos = torch.arange(ckv.shape[1], device=x.device)[None, :]
+        if q_offset.ndim == 1:                          # per-slot (B,)
+            q_offset = q_offset.reshape(b, 1, 1, 1)
+        q_pos = q_offset + torch.arange(s, device=x.device)[:, None]
+        scores = torch.where(t_pos <= q_pos, scores, -torch.inf)
+        probs = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhst,btl->bhsl", probs, ckv_f)
+        out = torch.einsum("bhsl,lhv->bhsv", o_lat, wv).to(x.dtype)
+    else:
+        kv = linear(ckv, p["wkv_b"]).reshape(*ckv.shape[:2], h, nope + vdim)
+        k_nope = kv[..., :nope].transpose(1, 2)         # (B, H, Skv, nope)
+        v = kv[..., nope:].transpose(1, 2)              # (B, H, Skv, v)
+        k = torch.cat([k_nope, k_rope[:, None].expand(
+            b, h, *k_rope.shape[1:])], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = ops.attention(q_full, k, v, causal=True, window=kind.window,
+                            scale=scale, q_offset=q_offset, plan=plan)
+    out = out.transpose(1, 2).reshape(b, s, h * vdim)
+    return linear(out, p["wo"]), cache
+
+
+INIT = {"gqa": init_gqa, "mla": init_mla}
+APPLY = {"gqa": gqa_attention, "mla": mla_attention}

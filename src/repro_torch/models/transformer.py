@@ -1,14 +1,18 @@
 """Decoder-only LM: init / forward / loss / prefill / decode.
 
 The counterpart of ``src/repro/models/transformer.py`` for dense GQA
-stacks and attention-free Mamba-1 stacks (``family="ssm"``). The layer
+stacks, mixture-of-experts stacks with GQA or multi-head latent attention
+(``family="moe"``) and attention-free Mamba-1 stacks (``family="ssm"``).
+Each layer dispatches on its kind: the attention (``gqa`` / ``mla`` /
+``mamba``) and the MLP (``mlp`` / ``moe`` / none). The layer
 stack is factorized into repeated superblocks
 (:meth:`ModelConfig.layer_groups`) whose params are stacked on a leading
 axis; a Python loop over the repeats replaces the reference's
 ``lax.scan``. Caches are stacked the same way, and each layer reads and
 writes its slice in place (:mod:`repro_torch.models.attention`,
-:mod:`repro_torch.models.ssm`). Attention layers keep K/V, paged or in a
-dense slab; mamba layers keep one recurrent row per sequence, never paged.
+:mod:`repro_torch.models.ssm`). Attention layers keep K/V (MLA: the
+latent), paged or in a dense slab; mamba layers keep one recurrent row
+per sequence, never paged.
 """
 
 from __future__ import annotations
@@ -21,21 +25,28 @@ from repro_torch.core.planner import KernelPlans
 from repro_torch.kernels.paged_attention import as_bits
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, ssm
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import LayerKind, ModelConfig
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    if cfg.family not in ("dense", "ssm"):
+    """Raise for what this slice of the port does not run yet, naming the
+    ROADMAP item that brings it."""
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"A8 MoE, A9 hybrid attention + mamba, A10 enc-dec, A7 vlm)")
-    if cfg.use_mla or cfg.mrope or cfg.frontend_len or cfg.n_experts:
+            f"{cfg.name}: the hybrid attention + mamba family is not ported "
+            f"yet (ROADMAP A9)")
+    if cfg.family == "encdec" or cfg.n_encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: MLA / M-RoPE / frontends / MoE are not ported yet "
-            f"(ROADMAP A7, A8)")
+            f"{cfg.name}: encoder-decoder models are not ported yet "
+            f"(ROADMAP A10)")
+    if cfg.mrope or cfg.frontend_len or cfg.family not in ("dense", "moe",
+                                                           "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: M-RoPE and the vlm / audio frontends are not "
+            f"ported yet (ROADMAP A7)")
 
 
 # ----------------------------------------------------------------- init
@@ -48,10 +59,19 @@ def _init_layer(cfg: ModelConfig, kind: LayerKind, gen: torch.Generator,
         return {"scale": torch.ones((n, d), dtype=torch.float32,
                                     device=gen.device)}
 
-    if kind.attn == "mamba":     # an ssm stack's layers have no MLP
-        return {"ln1": norm(), "mamba": ssm.init_mamba(cfg, gen, n)}
-    return {"ln1": norm(), "attn": attn_mod.init_gqa(cfg, gen, n),
-            "ln2": norm(), "mlp": layers.init_mlp(gen, d, cfg.d_ff, n)}
+    p: Params = {"ln1": norm()}
+    if kind.attn == "mamba":
+        p["mamba"] = ssm.init_mamba(cfg, gen, n)
+        if kind.mlp != "none":
+            p["ln2"] = norm()
+    else:
+        p["attn"] = attn_mod.INIT[kind.attn](cfg, gen, n)
+        p["ln2"] = norm()
+    if kind.mlp == "mlp":
+        p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, n)
+    elif kind.mlp == "moe":
+        p["moe"] = moe_mod.init_moe(cfg, gen, n)
+    return p
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -77,19 +97,30 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def _apply_layer(cfg: ModelConfig, kind: LayerKind, p: Params,
                  x: torch.Tensor, *, positions, cache, cache_len,
                  plans: Optional[KernelPlans] = None, block_tables=None):
+    """Returns (x, aux): the MoE layer's aux loss, 0.0 for other layers (a
+    float, so a dense stack launches nothing for it)."""
+    aux = 0.0
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind.attn == "mamba":
         # recurrent state is a per-slot row, never paged: block tables only
         # address the attention page pools
         y, _ = ssm.mamba_block(p["mamba"], h, cfg=cfg, cache=cache,
                                plan=plans.scan_chunk if plans else None)
-        return x + y
-    y, _ = attn_mod.gqa_attention(
-        p["attn"], h, cfg=cfg, kind=kind, positions=positions, cache=cache,
-        cache_len=cache_len, plan=plans.attention if plans else None,
-        block_tables=block_tables)
+    else:
+        y, _ = attn_mod.APPLY[kind.attn](
+            p["attn"], h, cfg=cfg, kind=kind, positions=positions,
+            cache=cache, cache_len=cache_len,
+            plan=plans.attention if plans else None,
+            block_tables=block_tables)
     x = x + y
-    return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    if kind.mlp == "mlp":
+        x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
+                                                     cfg.norm_eps))
+    elif kind.mlp == "moe":
+        y, aux = moe_mod.moe_block(
+            p["moe"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg=cfg)
+        x = x + y
+    return x, aux
 
 
 def _index(tree, i: int):
@@ -101,6 +132,8 @@ def _index(tree, i: int):
 def _run_groups(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 positions, caches=None, cache_len=None,
                 plans: Optional[KernelPlans] = None, block_tables=None):
+    """Returns (x, aux summed over the layers)."""
+    aux = 0.0
     for group in cfg.layer_groups():
         stacked = params["groups"][group.name]
         g_caches = caches.get(group.name) if caches else None
@@ -108,11 +141,12 @@ def _run_groups(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
             for pos, kind in enumerate(group.pattern):
                 key = f"pos{pos}"
                 cache = _index(g_caches[key], r) if g_caches else None
-                x = _apply_layer(cfg, kind, _index(stacked[key], r), x,
-                                 positions=positions, cache=cache,
-                                 cache_len=cache_len, plans=plans,
-                                 block_tables=block_tables)
-    return x
+                x, aux_i = _apply_layer(cfg, kind, _index(stacked[key], r),
+                                        x, positions=positions, cache=cache,
+                                        cache_len=cache_len, plans=plans,
+                                        block_tables=block_tables)
+                aux = aux + aux_i
+    return x, aux
 
 
 # ----------------------------------------------------------------- public
@@ -122,8 +156,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             plans: Optional[KernelPlans] = None,
             block_tables: Optional[torch.Tensor] = None):
-    """tokens: (B, S) int. Returns (final-normed hidden (B, S, d), caches);
-    the caches are updated in place."""
+    """tokens: (B, S) int. Returns (final-normed hidden (B, S, d), the MoE
+    aux loss summed over the layers (0.0 without MoE layers), caches); the
+    caches are updated in place."""
     x = layers.embed(params["tok"], tokens)
     b, s, _ = x.shape
     if positions is None:
@@ -133,11 +168,11 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         positions = start + torch.arange(s, dtype=torch.int32,
                                          device=x.device)[None, :]
         positions = torch.broadcast_to(positions, (b, s))
-    x = _run_groups(cfg, params, x, positions=positions, caches=caches,
-                    cache_len=cache_len, plans=plans,
-                    block_tables=block_tables)
+    x, aux = _run_groups(cfg, params, x, positions=positions, caches=caches,
+                         cache_len=cache_len, plans=plans,
+                         block_tables=block_tables)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, caches
+    return x, aux, caches
 
 
 def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -147,9 +182,10 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ignore. As in the reference, the vocab projection and the softmax run
     in sequence chunks (the largest power-of-two share of ``loss_chunk``
     that divides S), with the padded vocab masked, so the (tokens x vocab)
-    logits never materialize whole. Returns (total, {loss, aux, tokens});
-    ``aux`` is 0 (no MoE layer is ported)."""
-    x, _ = forward(cfg, params, tokens, plans=plans)
+    logits never materialize whole. Returns (total, {loss, aux, tokens}),
+    ``total = loss + router_aux_weight * aux``."""
+    x, aux, _ = forward(cfg, params, tokens, plans=plans)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     b, s, _ = x.shape
     chunk = min(loss_chunk, s)
     while s % chunk:
@@ -169,7 +205,6 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         tot = tot + ((lse - gold) * valid).sum()
         cnt = cnt + valid.sum()
     loss = tot / torch.clamp(cnt, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return loss + cfg.router_aux_weight * aux, {"loss": loss, "aux": aux,
                                                  "tokens": cnt}
 
@@ -184,46 +219,54 @@ def _stack(one: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                 dtype=torch.bfloat16) -> Dict[str, Any]:
     """Per-layer dense decode caches ``{group: {posN: {leaf: tensor}}}``,
-    stacked on the repeats: attention layers ``{k, v}`` of ``(n_repeat, B,
-    Hkv, max_len, D)``, mamba layers ``{conv, ssm}`` with one f32 row per
+    stacked on the repeats: GQA layers ``{k, v}`` of ``(n_repeat, B, Hkv,
+    max_len, D)``, MLA layers ``{ckv, krope}`` of ``(n_repeat, B, max_len,
+    width)``, mamba layers ``{conv, ssm}`` with one f32 row per
     sequence."""
-    return {group.name: {
-        f"pos{pos}": _stack(
-            ssm.init_mamba_cache(cfg, batch, device) if kind.attn == "mamba"
-            else attn_mod.init_gqa_cache(cfg, batch, max_len, device, dtype),
-            group.n_repeat)
-        for pos, kind in enumerate(group.pattern)}
-        for group in cfg.layer_groups()}
+    def one(kind):
+        if kind.attn == "mamba":
+            return ssm.init_mamba_cache(cfg, batch, device)
+        init = (attn_mod.init_mla_cache if kind.attn == "mla"
+                else attn_mod.init_gqa_cache)
+        return init(cfg, batch, max_len, device, dtype)
+
+    return {group.name: {f"pos{pos}": _stack(one(kind), group.n_repeat)
+                         for pos, kind in enumerate(group.pattern)}
+            for group in cfg.layer_groups()}
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
                       page_tokens: int, device, dtype=torch.bfloat16,
                       quant_scales: bool = False) -> Dict[str, Any]:
     """Paged pool caches: every attention layer owns a flat page pool
-    ``(n_repeat, n_pages, Hkv, page_tokens, D)`` (page 0 = null); recurrent
+    (page 0 = null): GQA ``(n_repeat, n_pages, Hkv, page_tokens, D)``, MLA
+    latent pages ``(n_repeat, n_pages, page_tokens, width)``; recurrent
     SSM state stays a resident row per slot (``batch`` rows; in the spill
     tier, one seat per spill page), exactly as in :func:`init_caches`.
     ``dtype`` / ``quant_scales`` come from the tier's codec: an int8 tier
-    adds ``k_scale`` / ``v_scale`` leaves ``(n_repeat, n_pages)``, f32.
-    Recurrent state never quantizes (quantized geometries refuse recurrent
-    families upstream)."""
-    return {group.name: {
-        f"pos{pos}": _stack(
-            ssm.init_mamba_cache(cfg, batch, device) if kind.attn == "mamba"
-            else attn_mod.init_gqa_pages(cfg, n_pages, page_tokens, device,
-                                         dtype, quant_scales),
-            group.n_repeat)
-        for pos, kind in enumerate(group.pattern)}
-        for group in cfg.layer_groups()}
+    adds a ``<leaf>_scale`` leaf ``(n_repeat, n_pages)``, f32, beside each
+    page leaf. Recurrent state never quantizes (quantized geometries refuse
+    recurrent families upstream)."""
+    def one(kind):
+        if kind.attn == "mamba":
+            return ssm.init_mamba_cache(cfg, batch, device)
+        init = (attn_mod.init_mla_pages if kind.attn == "mla"
+                else attn_mod.init_gqa_pages)
+        return init(cfg, n_pages, page_tokens, device, dtype, quant_scales)
+
+    return {group.name: {f"pos{pos}": _stack(one(kind), group.n_repeat)
+                         for pos, kind in enumerate(group.pattern)}
+            for group in cfg.layer_groups()}
 
 
-def paged_cache_kinds(cfg: ModelConfig):
-    """Yield ``(group_name, pos_key, is_paged)`` for every cache entry —
-    the walk order spill/restore and page scatter share. ``is_paged`` is
-    False for recurrent (per-slot resident) entries."""
+def cache_attn_kinds(cfg: ModelConfig):
+    """Yield ``(group_name, pos_key, attention kind)`` for every cache
+    entry — the walk order spill/restore, page scatter and the row moves
+    share. The kind (``gqa`` / ``mla`` / ``mamba``) picks how a row is cut
+    into pages."""
     for group in cfg.layer_groups():
         for pos, kind in enumerate(group.pattern):
-            yield group.name, f"pos{pos}", kind.attn != "mamba"
+            yield group.name, f"pos{pos}", kind.attn
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -243,8 +286,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """
     if caches is None:
         caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
-    return forward(cfg, params, tokens, caches=caches,
-                   cache_len=int(prefix_len), plans=plans)
+    x, _, caches = forward(cfg, params, tokens, caches=caches,
+                           cache_len=int(prefix_len), plans=plans)
+    return x, caches
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -254,9 +298,9 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1); cache_len: 0-d or per-slot (B,).
     With ``block_tables`` (B, P) the caches are the paged pool. Returns
     (logits f32 (B, 1, Vpad), caches)."""
-    x, caches = forward(cfg, params, tokens, caches=caches,
-                        cache_len=cache_len, plans=plans,
-                        block_tables=block_tables)
+    x, _, caches = forward(cfg, params, tokens, caches=caches,
+                           cache_len=cache_len, plans=plans,
+                           block_tables=block_tables)
     return layers.unembed_logits(params["tok"], x), caches
 
 

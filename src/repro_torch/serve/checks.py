@@ -35,7 +35,7 @@ def teacher_forced_gap(cfg: ModelConfig, params: Any,
     seq = torch.as_tensor(list(prompt) + list(tokens[:-1]), dtype=torch.int32,
                           device=device)[None]
     start, vocab = len(prompt) - 1, cfg.vocab_size
-    x, _ = transformer.forward(cfg, params, seq)
+    x, _, _ = transformer.forward(cfg, params, seq)
     logits = layers.unembed_logits(params["tok"], x[0, start:])[:, :vocab]
     picked = logits.gather(1, torch.as_tensor(
         [int(t) for t in tokens], device=device)[:, None].long())[:, 0]

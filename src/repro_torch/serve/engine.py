@@ -621,11 +621,11 @@ class Engine:
             check_page_ids(req.pages, sch.pages.n_pages, "park row"),
             device=self.core.device).long()
         arrays: Dict[str, torch.Tensor] = {}
-        for gname, gkey, is_paged in transformer.paged_cache_kinds(
+        for gname, gkey, attn in transformer.cache_attn_kinds(
                 self.model.cfg):
             for name, arr in caches[gname][gkey].items():
                 key = f"{gname}/{gkey}/{name}"
-                if is_paged:
+                if attn != "mamba":
                     arrays["pages/" + key] = as_bits(arr)[:, pages].view(
                         arr.dtype)
                 else:
@@ -673,11 +673,11 @@ class Engine:
             check_page_ids(req.pages[n_shared:n_shared + k], geom.n_pages,
                            "resume row"), device=self.core.device).long()
         caches = pool.state["caches"]
-        for gname, gkey, is_paged in transformer.paged_cache_kinds(
+        for gname, gkey, attn in transformer.cache_attn_kinds(
                 self.model.cfg):
             for name, arr in caches[gname][gkey].items():
                 key = f"{gname}/{gkey}/{name}"
-                if is_paged:
+                if attn != "mamba":
                     src = arrays["pages/" + key][:, n_shared:n_shared + k]
                     as_bits(arr)[:, priv] = as_bits(src).to(arr.device)
                 else:

@@ -212,11 +212,11 @@ class PoolManager:
         int8."""
         from repro_torch.models import transformer
         src_c, dst_c = CODECS[src_codec], CODECS[dst_codec]
-        for gname, gkey, is_paged in transformer.paged_cache_kinds(
+        for gname, gkey, attn in transformer.cache_attn_kinds(
                 self.model.cfg):
             src_g, dst_g = src_caches[gname][gkey], dst_caches[gname][gkey]
             for name, dst in dst_g.items():
-                if not is_paged:
+                if attn == "mamba":
                     dst[:, row_dst] = src_g[name][:, row_src]
                 elif src_codec == dst_codec:
                     as_bits(dst)[:, pages_dst] = \

@@ -54,6 +54,8 @@ from repro_torch.serve import scheduler as sm
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.serve.pool import DECODE_ROLE, PREFILL_ROLE, PoolManager
 
+from test_torch_serve_modes import engines  # noqa: F401
+
 torch.set_num_threads(1)
 MAX_LEN, PT = 64, 8
 TIE_TOL = 2e-2
@@ -252,6 +254,29 @@ def test_disaggregated_equals_combined(tiny, cell):
     if spec:
         assert st["spec_proposed"] > 0
         assert st["decode_steps"] == st["chunks"]
+
+
+@pytest.mark.parametrize("cell", DISAGG_CELLS, ids=[c[0] for c in DISAGG_CELLS])
+def test_mla_disaggregated_equals_combined(engines, cell):
+    """The same cells on the equivalence matrix's ``TINY_MLA``: the latent
+    pages hand over as the GQA pages do, and the tokens and counters are
+    the combined engine's, bit for bit."""
+    *_, teng, _ = engines("tiny-eq-mla")
+    cfg = teng.model.cfg
+    outs, st = _serve(teng, sm, cfg, cell, True)
+    base, bst = _serve(teng, sm, cfg, cell, False)
+    assert outs == base, cell[0]
+    assert all(len(o) > 0 for o in outs)
+    for key in ("chunks", "decode_steps", "prefill_chunks", "prefix_hits",
+                "cow_copies", "preemptions", "restores", "spec_proposed",
+                "spec_accepted"):
+        assert st.get(key) == bst.get(key), key
+    assert st["handovers"] == len(REQS) and st["handover_pages"] > 0
+    _, share, n_layer0, _ = cell
+    if share:
+        assert st["cow_copies"] > 0 and st["prefix_hits"] > 0
+    if n_layer0 < 40:
+        assert st["preemptions"] > 0 and st["restores"] > 0
 
 
 def test_phase_timing_charges_phases_and_roles(tiny):

@@ -6,9 +6,10 @@ the port's plain versions. Inputs are f32; the tolerance (1e-5) only
 covers summation order. The paged kernel's split page walk (per-split
 ``(m, l, acc)`` partials merged in split order) is emulated here in f32
 and held to the same oracles at 1e-5. The ``cuda`` tests hold both Hopper
-kernels to their plain versions (bf16, atol = rtol = 2e-2) and the paged
-kernel's output bit for bit across batch compositions and block-table
-widths.
+kernels to their plain versions (bf16, atol = rtol = 2e-2), flash also at
+(D, Dv) = (192, 128), the paged kernel's output bit for bit across batch
+compositions and block-table widths, and flash at (128, 128) bit for bit
+to the outputs of the kernel before its (D, Dv) template.
 """
 
 import jax
@@ -24,7 +25,8 @@ from repro.kernels.paged_attention import (
     decode_attention_masked as j_decode, gather_kv_pages as j_gather,
     paged_decode_attention as j_paged)
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention, tma_strides
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_inputs,
+                                                 flash_attention, tma_strides)
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import (
     MERGE_NODE, SPLIT_TOKENS, decode_attention_masked, gather_kv_pages,
@@ -123,6 +125,54 @@ def test_flash_wrapper_on_cpu_takes_the_plain_version():
     torch.testing.assert_close(got, ref.attention_ref(q, k, v))
     with pytest.raises(ValueError, match="impl"):
         ops.attention(q, k, v, impl="pallas")
+
+
+@pytest.mark.parametrize("d,dv", [(128, 128), (192, 128), (64, 64),
+                                  (192, 192), (128, 64), (256, 128),
+                                  (128, 192)])
+def test_flash_wrapper_shape_checks(d, dv):
+    """The wrapper's checks (run before any launch): (D, Dv) in
+    ``HEAD_DIMS`` = {(128, 128), (192, 128)} pass and give the output's
+    shape with Dv, every other pair raises; so do a K narrower than Q, V
+    off K's sequence, a batch or GQA grouping q does not share, f32 and a
+    strided last axis."""
+    def t(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    q, k, v = t(2, 8, 5, d), t(2, 2, 7, d), t(2, 2, 7, dv)
+    if (d, dv) in HEAD_DIMS:
+        assert check_inputs(q, k, v) == (2, 8, 5, dv)
+    else:
+        with pytest.raises(ValueError, match="HEAD_DIMS|Dv"):
+            check_inputs(q, k, v)
+    assert HEAD_DIMS == ((128, 128), (192, 128))
+    good = (t(2, 8, 5, 192), t(2, 2, 7, 192), t(2, 2, 7, 128))
+    for bad in ((good[0], t(2, 2, 7, 128), good[2]),
+                (good[0], good[1], t(2, 2, 6, 128)),
+                (good[0], t(1, 2, 7, 192), t(1, 2, 7, 128)),
+                (good[0], t(2, 3, 7, 192), t(2, 3, 7, 128))):
+        with pytest.raises(ValueError):
+            check_inputs(*bad)
+    with pytest.raises(TypeError, match="bf16"):
+        check_inputs(good[0].float(), *good[1:])
+    wide = t(2, 2, 7, 256)[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        check_inputs(good[0], good[1], wide)
+
+
+def test_attention_with_a_narrower_v_matches_jax():
+    """Dv != D (MLA's prefill: D = nope + rope, Dv = v) through
+    ``ops.attention``'s plain path and the blockwise oracle, against the
+    reference's oracle at 1e-5."""
+    b, hq, hkv, sq, skv = 1, 4, 4, 24, 40
+    q, k, v = (_np(b, hq, sq, 24, seed=16), _np(b, hkv, skv, 24, seed=17),
+               _np(b, hkv, skv, 16, seed=18))
+    want = jref.attention_ref(q, k, v, causal=True, q_offset=16)
+    got = ops.attention(_t(q), _t(k), _t(v), causal=True, q_offset=16)
+    assert got.shape == (b, hq, sq, 16)
+    _close(got, want)
+    _close(ref.attention_ref_blockwise(_t(q), _t(k), _t(v), q_offset=16,
+                                       block_q=8, block_kv=8), want)
 
 
 # ------------------------------------------------------------- paged decode
@@ -473,6 +523,63 @@ def test_flash_kernel_cases_on_the_card(case):
     torch.testing.assert_close(got.float(),
                                ref.attention_ref(q, k, v, **kw).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+#: flash cases at MLA's widths on the card: (B, H, Sq, Skv, kwargs),
+#: D = 192 (nope 128 + rope 64), Dv = 128, Hq = Hkv (deepseek-v2)
+FLASH_MLA_CASES = {
+    "admission-b4-sq256": (4, 128, 256, 256, {}),
+    "over-the-depth": (4, 128, 256, 288, {}),
+    "ragged-at-offset": (2, 16, 300, 333, {"q_offset": 33}),
+    "window": (1, 16, 300, 333, {"window": 50}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_MLA_CASES))
+def test_flash_kernel_mla_widths_on_the_card(case):
+    """The kernel at (D, Dv) = (192, 128) against its plain version (bf16,
+    atol = rtol = 2e-2), its output (B, H, Sq, 128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, h, sq, skv, kw = FLASH_MLA_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = rnd(b, h, sq, 192), rnd(b, h, skv, 192), rnd(b, h, skv, 128)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, scale=192 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (b, h, sq, 128)
+    torch.testing.assert_close(
+        got.float(), ref.attention_ref(q, k, v, scale=192 ** -0.5,
+                                       **kw).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_128_is_unchanged_on_the_card():
+    """At (D, Dv) = (128, 128) the templated kernel's outputs equal, bit for
+    bit, those of the kernel before the template: ``chip_smoke.py``'s
+    FLASH_DIGESTS over its numpy-seeded cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import hashlib
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for i, case in enumerate(smoke.FLASH_DIGEST_CASES):
+        q, k, v, kw = smoke.flash_digest_inputs(case, 100 + i)
+        out = flash_attention(q, k, v, **kw)
+        digest = hashlib.sha256(
+            out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        assert digest[:16] == smoke.FLASH_DIGESTS[case], case
 
 
 def _card_pool(b, p_max, lens, *, hq=16, hkv=2, pt=16, seed=0,

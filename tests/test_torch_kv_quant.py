@@ -207,7 +207,7 @@ def _codec_state(cfg, codec, n_pages, seed):
     port = transformer.init_paged_caches(cfg, 1, n_pages, PT, "cpu",
                                          dtype=c.dtype, quant_scales=c.scaled)
     ref = {}
-    for gname, gkey, _ in transformer.paged_cache_kinds(cfg):
+    for gname, gkey, _ in transformer.cache_attn_kinds(cfg):
         out = {}
         for name, leaf in port[gname][gkey].items():
             f = (rng.randn(*leaf.shape) * 1.5).astype(np.float32)
@@ -226,7 +226,7 @@ def _codec_state(cfg, codec, n_pages, seed):
 
 
 def _assert_same_tree(port, ref, what):
-    for gname, gkey, _ in transformer.paged_cache_kinds(CONFIGS["tiny-eq"][0]):
+    for gname, gkey, _ in transformer.cache_attn_kinds(CONFIGS["tiny-eq"][0]):
         for name, leaf in port[gname][gkey].items():
             assert _bytes(leaf) == _bytes(ref[gname][gkey][name]), \
                 (what, gname, gkey, name)
@@ -253,7 +253,7 @@ def test_tier_copies_equal_the_reference(engines, src, dst):
                    jnp.asarray(pages_src, jnp.int32),
                    jnp.asarray(pages_dst, jnp.int32))
     for tree in (d_port, d_ref):
-        for gname, gkey, _ in transformer.paged_cache_kinds(cfg):
+        for gname, gkey, _ in transformer.cache_attn_kinds(cfg):
             for name in list(tree[gname][gkey]):
                 leaf = tree[gname][gkey][name]
                 if torch.is_tensor(leaf):
@@ -275,7 +275,7 @@ def test_row_moves_equal_the_reference(engines, codec):
     p_max = MAX_LEN // PT
     row = {}
     t_row = {}
-    for gname, gkey, _ in transformer.paged_cache_kinds(cfg):
+    for gname, gkey, _ in transformer.cache_attn_kinds(cfg):
         g = teng.model.cfg.layer_groups()
         n_rep = next(gr.n_repeat for gr in g if gr.name == gname)
         shape = (n_rep, 1, cfg.n_kv_heads, MAX_LEN, cfg.head_dim)
@@ -294,7 +294,7 @@ def test_row_moves_equal_the_reference(engines, codec):
                                    {"caches": row}, jnp.int32(0),
                                    jnp.asarray(block_row), PT)
     for tree in (t_pool, j_state["caches"]):       # null page: junk rows
-        for gname, gkey, _ in transformer.paged_cache_kinds(cfg):
+        for gname, gkey, _ in transformer.cache_attn_kinds(cfg):
             for name in list(tree[gname][gkey]):
                 leaf = tree[gname][gkey][name]
                 if torch.is_tensor(leaf):

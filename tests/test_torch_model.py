@@ -1,4 +1,5 @@
-"""The port's dense GQA model against the JAX package, on the CPU.
+"""The port's models (dense GQA, MoE with GQA or MLA) against the JAX
+package, on the CPU.
 
 Weights come from the reference's ``Model.init`` through the numpy bridge,
 inputs from numpy seeds. Layers compare in bf16 at ``rtol = 1.6e-2`` (1-2
@@ -11,6 +12,17 @@ differ between the frameworks, SiLU above all: XLA's bf16 SiLU and
 PyTorch's differ in the last bit of about a third of their outputs.
 Wherever the reference's top-2 margin exceeds 2e-2, the argmax
 must agree.
+
+MoE models (qwen3-moe-30b-a3b, deepseek-v2-236b) route every token in both
+frameworks; the routes are recorded (the reference's through
+``jax.debug.callback``) and must name the same experts. Where they part,
+the reference's margin between its k-th and (k+1)-th expert probability
+must be under ``ROUTE_TIE = 1e-2`` (the bf16 roundings that differ between
+the frameworks move a router probability by up to ~1e-3; measured: a part
+at margin 6.7e-4, qwen3-moe paged decode), and the rows holding a parted
+token are left out of that step's logit check: their MoE output takes
+another expert. The test reports each part; it never re-seeds to avoid
+one.
 """
 
 import jax
@@ -22,15 +34,19 @@ import torch
 from repro.configs import get_reduced as j_get_reduced
 from repro.models import build_model as j_build_model
 from repro.models import layers as jl
+from repro.models import moe as jmoe
 from repro_torch.configs import get_reduced
 from repro_torch.models import build_model, layers, transformer
+from repro_torch.models import moe as tmoe
 from repro_torch.models.bridge import params_from_numpy, params_to_numpy
 
 torch.set_num_threads(1)
 LOGIT_TOL = 1e-2
 MARGIN = 2e-2
 BF16_RTOL = 1.6e-2
-ARCHS = ["qwen2.5-3b", "yi-6b", "mistral-nemo-12b"]
+ROUTE_TIE = 1e-2
+ARCHS = ["qwen2.5-3b", "yi-6b", "mistral-nemo-12b", "qwen3-moe-30b-a3b",
+         "deepseek-v2-236b"]
 
 
 def _to_np(tree):
@@ -130,9 +146,56 @@ def test_embed_unembed_rope_match_jax():
 
 # ----------------------------------------------------------- whole models
 
-def _check_logits(got, want, what):
-    got = got.numpy().astype(np.float64)
-    want = np.asarray(want, np.float64)
+@pytest.fixture
+def routing(monkeypatch):
+    """Record every MoE layer's routing in both frameworks, in call order.
+    Returns ``parted(n_rows, what)``: the batch rows holding a token the
+    two routers sent to different experts since the last call, after
+    asserting that each part is a near-tie of the reference's router."""
+    rec = {"j": [], "t": []}
+    j_route, t_route = jmoe._route, tmoe._route
+
+    def jr(w, xt, k):
+        out = j_route(w, xt, k)
+        jax.debug.callback(lambda i, p: rec["j"].append(
+            (np.asarray(i), np.asarray(p))), out[1], out[2], ordered=True)
+        return out
+
+    def tr(w, xt, k):
+        out = t_route(w, xt, k)
+        rec["t"].append((out[1].numpy(), out[2].numpy()))
+        return out
+
+    monkeypatch.setattr(jmoe, "_route", jr)
+    monkeypatch.setattr(tmoe, "_route", tr)
+
+    def parted(n_rows, what):
+        jax.effects_barrier()
+        assert len(rec["j"]) == len(rec["t"]), what
+        rows = set()
+        for (ji, jp), (ti, _) in zip(rec["j"], rec["t"]):
+            k = ji.shape[1]
+            top = np.sort(jp, axis=1)[:, ::-1]
+            for tok in np.nonzero((np.sort(ji, 1) != np.sort(ti, 1))
+                                  .any(1))[0]:
+                margin = top[tok, k - 1] - top[tok, k]
+                print(f"{what}: token {tok} routed apart at margin "
+                      f"{margin:.2e}")
+                assert margin < ROUTE_TIE, (what, tok, margin)
+                rows.add(int(tok) * n_rows // ji.shape[0])
+        rec["j"].clear()
+        rec["t"].clear()
+        return rows
+
+    return parted
+
+
+def _check_logits(got, want, what, skip_rows=()):
+    """Holds the rows not in ``skip_rows`` (at least one must be left)."""
+    keep = [r for r in range(got.shape[0]) if r not in skip_rows]
+    assert keep, f"{what}: every row parted, no logits left to compare"
+    got = got.numpy().astype(np.float64)[keep]
+    want = np.asarray(want, np.float64)[keep]
     err = np.abs(got - want).max()
     assert err <= LOGIT_TOL, f"{what}: max |dlogit| {err:.3e}"
     flat_j = want.reshape(-1, want.shape[-1])
@@ -144,7 +207,7 @@ def _check_logits(got, want, what):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_and_dense_decode_match_jax(pair, arch):
+def test_prefill_and_dense_decode_match_jax(pair, arch, routing):
     """Prefill logits, then 16 teacher-forced decode steps over the dense
     slab (0-d cache_len, the one-shot generate path)."""
     jm, jp, tm, tp = pair[arch]
@@ -156,17 +219,20 @@ def test_prefill_and_dense_decode_match_jax(pair, arch):
     j_decode = jax.jit(jm.decode_step)
     jl_, jstate = jm.prefill(jp, {"tokens": jnp.asarray(prompt)}, max_len)
     tl_, tstate = tm.prefill(tp, {"tokens": _t(prompt)}, max_len)
-    _check_logits(tl_, jl_, f"{arch} prefill")
+    parted = routing(b, f"{arch} prefill")
+    _check_logits(tl_, jl_, f"{arch} prefill", parted)
     for i in range(steps):
         jl_, jstate = j_decode(jp, jnp.asarray(forced[i])[:, None], jstate,
                                jnp.asarray(s + i, jnp.int32))
         tl_, tstate = tm.decode_step(tp, _t(forced[i])[:, None], tstate,
                                      torch.tensor(s + i, dtype=torch.int32))
-        _check_logits(tl_, jl_, f"{arch} dense decode step {i}")
+        what = f"{arch} dense decode step {i}"
+        # a row parted in prefill attends over its other K/V from then on
+        _check_logits(tl_, jl_, what, parted | routing(b, what))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_paged_decode_matches_jax(pair, arch):
+def test_paged_decode_matches_jax(pair, arch, routing):
     """Two prompts of different lengths prefilled one at a time, cut into
     pages at shuffled block-table rows, then 16 teacher-forced decode steps
     over the paged pool with per-slot frontiers."""
@@ -180,6 +246,7 @@ def test_paged_decode_matches_jax(pair, arch):
     forced = rng.randint(2, cfg.vocab_size, size=(steps, 2)).astype(np.int32)
     import repro.models.transformer as jt
     jpool = {"caches": jt.init_paged_caches(jm.cfg, 2, n_pages, pt)}
+    parted = set()
     tpool = {"caches": transformer.init_paged_caches(cfg, 2, n_pages, pt,
                                                      "cpu")}
     for slot, n in enumerate(lens):
@@ -189,7 +256,10 @@ def test_paged_decode_matches_jax(pair, arch):
                                last_pos=jnp.asarray(last))
         tl_, trow = tm.prefill(tp, {"tokens": _t(prompt)}, depth,
                                last_pos=_t(last))
-        _check_logits(tl_, jl_, f"{arch} paged admission {slot}")
+        what = f"{arch} paged admission {slot}"
+        if routing(1, what):
+            parted.add(slot)
+        _check_logits(tl_, jl_, what, parted)
         jpool = jm.slot_update_paged(jpool, jrow, jnp.asarray(slot),
                                      jnp.asarray(bt[slot]), pt)
         tpool = tm.slot_update_paged(tpool, trow, slot, _t(bt[slot]), pt)
@@ -201,14 +271,44 @@ def test_paged_decode_matches_jax(pair, arch):
                               block_tables=jnp.asarray(bt))
         tl_, tpool = tm.decode_step(tp, _t(forced[i])[:, None], tpool,
                                     _t(cache_len), block_tables=_t(bt))
-        _check_logits(tl_, jl_, f"{arch} paged decode step {i}")
+        what = f"{arch} paged decode step {i}"
+        _check_logits(tl_, jl_, what, parted | routing(2, what))
         cache_len = cache_len + 1
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b"])
+def test_moe_loss_and_aux_match_jax(pair, arch, routing):
+    """``Model.loss`` on the same routes: the LM loss within 1e-3 relative,
+    the router aux loss (summed over the MoE layers) within 2e-3 relative,
+    and the total ``loss + router_aux_weight * aux`` within 1e-3. The aux
+    loss is the mean router probability per expert times its hit share:
+    the probabilities come from hidden states that differ by bf16 ulps
+    between the frameworks (measured: 3.9e-4 relative, deepseek-v2)."""
+    jm, jp, tm, tp = pair[arch]
+    rng = np.random.RandomState(5)
+    toks = rng.randint(2, tm.cfg.vocab_size, size=(2, 16)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    jtot, jd = jm.loss(jp, {"tokens": jnp.asarray(toks),
+                            "labels": jnp.asarray(labels)})
+    ttot, td = tm.loss(tp, {"tokens": _t(toks).int(),
+                            "labels": _t(labels).int()})
+    assert not routing(2, f"{arch} loss")
+    assert float(td["aux"]) > 0
+    np.testing.assert_allclose(float(td["aux"]), float(jd["aux"]), rtol=2e-3)
+    np.testing.assert_allclose(float(td["loss"]), float(jd["loss"]),
+                               rtol=1e-3)
+    np.testing.assert_allclose(float(ttot), float(jtot), rtol=1e-3)
+    assert float(td["tokens"]) == float(jd["tokens"])
+
+
 def test_unported_families_raise():
-    """Other families name the ROADMAP item that brings them."""
-    for arch in ("jamba-1.5-large-398b", "deepseek-v2-236b",
-                 "qwen3-moe-30b-a3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The families the port does not serve yet name the ROADMAP item that
+    brings them: the hybrid (jamba, A9), M-RoPE and frontends (qwen2-vl,
+    A7), encoder-decoder (seamless, A10)."""
+    for arch, item in (("jamba-1.5-large-398b", "A9"),
+                       ("qwen2-vl-2b", "A7"),
+                       ("seamless-m4t-medium", "A10")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             build_model(get_reduced(arch), device="cpu")
 

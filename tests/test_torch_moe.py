@@ -1,0 +1,245 @@
+"""The port's MoE block against the JAX package, on the CPU.
+
+Weights come from the reference's ``init_moe`` (and ``Model.init``) through
+the numpy bridge; activations are numpy-seeded bf16, as the block sees
+them after the layer's norm. Tolerances:
+
+* the plain version (``impl="dense"``, f32 experts) against the
+  reference's ``moe_block(impl="dense")`` on both ``REDUCED`` configs
+  (deepseek-v2's with its shared expert): bf16 outputs within atol = rtol
+  = 1.6e-2, 1-2 bf16 ulp (the frameworks round bf16 at different places;
+  ``test_torch_model.py``'s layer tolerance); the aux loss within 1e-5
+  relative (f32 means of the same routing);
+* the grouped version (bf16 operands, f32 accumulation, bf16 GEMM
+  outputs; one grouped GEMM a projection over offsets computed on the
+  device), at a prefill's and at a decode step's token counts, against
+  the reference's ``moe_block(impl="ep")`` under a one-device mesh with a
+  ``model`` axis, which runs ``_moe_ep_inner`` at one shard (``ragged_dot``
+  on bf16 operands, f32 outputs): the same bf16 tolerance (the port's
+  bf16 GEMM outputs add one rounding); and against the port's plain
+  version at 3e-2 (bf16 operand rounding against f32 experts); its
+  grouped GEMM equals one f32 matmul per expert, rounded to bf16, bit for
+  bit;
+* the routed expert ids of the port's router equal the reference's; where
+  they part, the assertion reports the reference's top-k margin there.
+
+The ``cuda`` test holds the grouped version to the plain one on the card at
+the same 3e-2 (bf16 operands on cuBLAS against f32 experts).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as j_get_reduced
+from repro.distributed.sharding import make_mesh, use_mesh
+from repro.models import build_model as j_build_model
+from repro.models import moe as jmoe
+from repro_torch.configs import get_reduced
+from repro_torch.models import build_model, moe
+from repro_torch.models.api import _is_matrix
+from repro_torch.models.bridge import params_from_numpy, params_to_numpy
+
+torch.set_num_threads(1)
+BF16_TOL = 1.6e-2
+GROUPED_TOL = 3e-2
+ARCHS = ["qwen3-moe-30b-a3b", "deepseek-v2-236b"]
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def block(request):
+    """(port cfg, reference cfg, reference params, port params, x bf16 as
+    f32 numpy) for one arch's MoE block."""
+    arch = request.param
+    jcfg, tcfg = j_get_reduced(arch), get_reduced(arch)
+    jp = jmoe.init_moe(jcfg, jax.random.PRNGKey(3))
+    rng = np.random.RandomState(4)
+    x = np.asarray(jnp.asarray(rng.randn(3, 7, jcfg.d_model), jnp.float32)
+                   .astype(jnp.bfloat16).astype(jnp.float32))
+    return tcfg, jcfg, jp, params_from_numpy(_np_tree(jp), "cpu"), x
+
+
+def _xt(x):
+    return torch.from_numpy(np.array(x)).to(torch.bfloat16)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_routing_matches_jax(block):
+    """The same top-k expert ids for every token; a part reports the
+    reference's margin between its k-th and (k+1)-th probability."""
+    tcfg, jcfg, jp, tp, x = block
+    xt = x.reshape(-1, x.shape[-1])
+    jg, jidx, jprobs = jmoe._route(jp["router"], jnp.asarray(xt, jnp.bfloat16),
+                                   jcfg.top_k)
+    tg, tidx, tprobs = moe._route(tp["router"], _xt(xt), tcfg.top_k)
+    jidx = np.asarray(jidx)
+    parted = np.nonzero((np.sort(jidx, 1) != np.sort(tidx.numpy(), 1))
+                        .any(1))[0]
+    top = np.sort(np.asarray(jprobs), 1)[:, ::-1]
+    margins = top[parted, jcfg.top_k - 1] - top[parted, jcfg.top_k]
+    assert parted.size == 0, f"tokens {parted} parted at margins {margins}"
+    np.testing.assert_allclose(tprobs.numpy(), np.asarray(jprobs),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_plain_block_matches_jax(block):
+    tcfg, jcfg, jp, tp, x = block
+    jy, jaux = jmoe.moe_block(jp, jnp.asarray(x, jnp.bfloat16), cfg=jcfg,
+                              impl="dense")
+    ty, taux = moe.moe_block(tp, _xt(x), cfg=tcfg, impl="dense")
+    assert ty.dtype == torch.bfloat16
+    _close(ty, jy.astype(jnp.float32), BF16_TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("tokens", [7, 1], ids=["prefill", "decode"])
+def test_grouped_block_matches_jax_ep(block, tokens):
+    """``tokens`` a row: a prompt's, or a decode step's one."""
+    tcfg, jcfg, jp, tp, x = block
+    x = x[:, -tokens:]
+    with use_mesh(make_mesh((1,), ("model",))):
+        jy, jaux = jmoe.moe_block(jp, jnp.asarray(x, jnp.bfloat16), cfg=jcfg,
+                                  impl="ep")
+    ty, taux = moe.moe_block(tp, _xt(x), cfg=tcfg, impl="grouped")
+    _close(ty, jy.astype(jnp.float32), BF16_TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    plain, _ = moe.moe_block(tp, _xt(x), cfg=tcfg, impl="dense")
+    _close(ty, plain.float().numpy(), GROUPED_TOL)
+
+
+def test_grouped_products_equal_one_matmul_per_expert(block):
+    """The offsets are the per-expert counts' running sum, and the grouped
+    GEMM over them computes each expert's run of sorted hits as one f32
+    matmul of the bf16-rounded operands, rounded to bf16 (bit for bit on
+    the CPU), experts with no hit (the first, the last and one between)
+    included."""
+    tcfg, _, _, tp, _ = block
+    e = tcfg.n_experts
+    rng = np.random.RandomState(7)
+    hit = [g for g in range(1, e - 1) if g != e // 2]
+    sel_e = torch.from_numpy(np.sort(rng.choice(hit, 20))).long()
+    offs = moe._offsets(sel_e, e)
+    assert offs.dtype == torch.int32
+    assert offs.tolist() == torch.cumsum(
+        torch.bincount(sel_e, minlength=e), 0).tolist()
+    xs = torch.from_numpy(rng.randn(20, tcfg.d_model)).to(torch.bfloat16)
+    w = tp["we_gate"]
+    want = torch.cat([(rows.float() @ w[g].to(torch.bfloat16).float())
+                      .to(torch.bfloat16)
+                      for g, rows in enumerate(torch.split(
+                          xs, torch.bincount(sel_e, minlength=e).tolist()))])
+    torch.testing.assert_close(moe._grouped(xs, w, offs), want, rtol=0,
+                               atol=0)
+
+
+def test_auto_runs_dense_on_the_cpu_and_unknown_impl_raises(block):
+    tcfg, _, _, tp, x = block
+    auto, _ = moe.moe_block(tp, _xt(x), cfg=tcfg)
+    dense, _ = moe.moe_block(tp, _xt(x), cfg=tcfg, impl="dense")
+    assert torch.equal(auto, dense)
+    with pytest.raises(ValueError, match="impl"):
+        moe.moe_block(tp, _xt(x), cfg=tcfg, impl="ep")
+
+
+def test_capacity_below_one_drops_hits_as_the_reference():
+    """At capacity_factor < 1 one shard keeps the first ``cap`` sorted hits
+    and the rest contribute zero, as the reference's EP path does."""
+    import dataclasses
+    jcfg = dataclasses.replace(j_get_reduced("qwen3-moe-30b-a3b"),
+                               capacity_factor=0.5)
+    tcfg = dataclasses.replace(get_reduced("qwen3-moe-30b-a3b"),
+                               capacity_factor=0.5)
+    jp = jmoe.init_moe(jcfg, jax.random.PRNGKey(5))
+    tp = params_from_numpy(_np_tree(jp), "cpu")
+    x = np.asarray(jnp.asarray(np.random.RandomState(6).randn(2, 6, 64),
+                               jnp.bfloat16).astype(jnp.float32))
+    with use_mesh(make_mesh((1,), ("model",))):
+        jy, _ = jmoe.moe_block(jp, jnp.asarray(x, jnp.bfloat16), cfg=jcfg,
+                               impl="ep")
+    ty, _ = moe.moe_block(tp, _xt(x), cfg=tcfg, impl="grouped")
+    _close(ty, jy.astype(jnp.float32), BF16_TOL)
+    full, _ = moe.moe_block(tp, _xt(x), cfg=get_reduced("qwen3-moe-30b-a3b"),
+                            impl="grouped")
+    assert not torch.equal(ty, full)
+
+
+# ------------------------------------------------------------ model level
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bridge_loads_the_reference_params(arch):
+    """The reference's ``Model.init`` weights load by a plain tree map (same
+    keys, same shapes, no conversion), and the port's own init makes the
+    same tree."""
+    jm = j_build_model(j_get_reduced(arch))
+    jp = _np_tree(jm.init(jax.random.PRNGKey(0)))
+    tm = build_model(get_reduced(arch), device="cpu")
+    back = params_to_numpy(params_from_numpy(jp, "cpu"))
+    flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
+    flat_b = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in flat_j] == [p for p, _ in flat_b]
+    for (_, a), (_, b) in zip(flat_j, flat_b):
+        np.testing.assert_array_equal(a, b)
+    own = params_to_numpy(tm.init(torch.Generator().manual_seed(0)))
+    assert jax.tree.map(lambda a: (a.shape, a.dtype), own) \
+        == jax.tree.map(lambda a: (a.shape, a.dtype), jp)
+
+
+def test_prepare_keeps_the_router_f32_and_experts_per_path():
+    """The serving copy: routed experts bf16 where the grouped MoE runs
+    them (the card), f32 for the CPU's plain version; the router f32 in
+    every case; shared experts and attention matrices bf16."""
+    tm = build_model(get_reduced("deepseek-v2-236b"), device="cpu")
+    prep = tm.prepare(tm.init(torch.Generator().manual_seed(0)))
+    blk = next(layer for group in prep["groups"].values()
+               for layer in group.values() if "moe" in layer)
+    for name in ("we_gate", "we_up", "we_down", "router"):
+        assert blk["moe"][name].dtype == torch.float32, name
+    assert blk["moe"]["shared"]["w_gate"].dtype == torch.bfloat16
+    assert blk["attn"]["wkv_b"].dtype == torch.bfloat16
+    assert blk["attn"]["kv_norm"]["scale"].dtype == torch.float32
+    for name in ("we_gate", "we_up", "we_down"):
+        assert _is_matrix(name, grouped_moe=True)
+        assert not _is_matrix(name, grouped_moe=False)
+    assert not _is_matrix("router", grouped_moe=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grouped_matches_plain_on_the_card(arch):
+    """The grouped version (bf16 experts, one grouped GEMM a projection)
+    against the plain one (f32 experts) on the card, at 3e-2, at a
+    prefill's and a decode step's token counts, with no device->host
+    read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = get_reduced(arch)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.init_moe(cfg, g)
+    p = {k: (v[0] if torch.is_tensor(v) else {n: t[0] for n, t in v.items()})
+         for k, v in p.items()}
+    x = torch.randn((4, 16, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    for rows in (x, x[:, -1:]):
+        plain, aux = moe.moe_block(p, rows, cfg=cfg, impl="dense")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, got_aux = moe.moe_block(p, rows, cfg=cfg, impl="grouped")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.testing.assert_close(got.float(), plain.float(),
+                                   atol=GROUPED_TOL, rtol=GROUPED_TOL)
+        torch.testing.assert_close(got_aux, aux)

@@ -123,11 +123,11 @@ def _leaves(eng, pool, req, slot):
     scales) and its rows, keyed as the blob keys them."""
     pages = torch.as_tensor(req.pages).long()
     out = {}
-    for gname, gkey, is_paged in transformer.paged_cache_kinds(
+    for gname, gkey, attn in transformer.cache_attn_kinds(
             eng.model.cfg):
         for name, arr in pool.state["caches"][gname][gkey].items():
             key = f"{gname}/{gkey}/{name}"
-            if is_paged:
+            if attn != "mamba":
                 out["pages/" + key] = as_bits(arr)[:, pages].clone()
             else:
                 out["rows/" + key] = arr[:, slot:slot + 1].clone()
@@ -147,6 +147,19 @@ def test_park_resume_outputs_bit_exact(engines):
     st = rep_p.stats
     assert st["parks"] == st["park_resumes"] == n_parked
     assert st["layer0_codec"] == "fp16" and rep_u.stats["parks"] == 0
+    assert outs_p == outs_u
+    assert all(len(o) > 0 for o in outs_p)
+
+
+def test_mla_park_resume_outputs_bit_exact(engines):
+    """The same on the equivalence matrix's ``TINY_MLA``: the blob carries
+    the latent pages (``ckv`` / ``krope``) and the resumed sessions emit
+    the uninterrupted tokens, bit for bit."""
+    *_, teng, _ = engines("tiny-eq-mla")
+    outs_u, _, _ = _run(teng, REQS)
+    outs_p, rep_p, n_parked = _run(teng, REQS, park_at=4)
+    assert n_parked > 0
+    assert rep_p.stats["parks"] == rep_p.stats["park_resumes"] == n_parked
     assert outs_p == outs_u
     assert all(len(o) > 0 for o in outs_p)
 

@@ -300,7 +300,7 @@ def test_teacher_forced_check_passes_greedy_and_fails_a_forced_token():
                                        "greedy") <= checks.LOGIT_TOL
     seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]))[None]
     from repro_torch.models import layers, transformer
-    x, _ = transformer.forward(cfg, eng.params, seq)
+    x, _, _ = transformer.forward(cfg, eng.params, seq)
     logits = layers.unembed_logits(eng.params["tok"], x[0, len(prompt) - 1:])
     top2 = torch.topk(logits[:, :cfg.vocab_size], 2)
     margins = top2.values[:, 0] - top2.values[:, 1]

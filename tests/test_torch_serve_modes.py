@@ -5,7 +5,10 @@ against the JAX package's engine, on the CPU.
 The matrix is the reference's equivalence matrix
 (``tests/test_equivalence_matrix.py``) restricted to what the port serves:
 {dense, paged, paged-share} x {whole prompt, chunks of 6} over its
-``TINY`` and ``TINY_WINDOW`` configs and its four requests, speculation
+``TINY``, ``TINY_WINDOW`` and ``TINY_MLA`` configs (the last caches only
+MLA's latent: the slab and the pool hold ``ckv`` / ``krope`` rows, decode
+runs in latent space, prefill and chunks decompress for attention) and its
+four requests, speculation
 off, plus a fifth request that repeats the two shared prompts' 16-token
 system prefix. That prompt is page-aligned and wholly covered by the
 prefix index, so its match is capped one token short and its frontier page
@@ -74,10 +77,14 @@ _TINY = dict(name="tiny-eq", family="dense", n_layers=2, d_model=64,
              n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=128)
 _WINDOW = dict(name="tiny-eq-win", n_layers=3, window=8,
                local_global_ratio=2)
+_MLA = dict(name="tiny-eq-mla", n_kv_heads=4, use_mla=True, kv_lora_rank=16,
+            qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
 CONFIGS = {
     "tiny-eq": (ModelConfig(**_TINY), JModelConfig(**_TINY)),
     "tiny-eq-win": (ModelConfig(**{**_TINY, **_WINDOW}),
                     JModelConfig(**{**_TINY, **_WINDOW})),
+    "tiny-eq-mla": (ModelConfig(**{**_TINY, **_MLA}),
+                    JModelConfig(**{**_TINY, **_MLA})),
 }
 
 
@@ -380,7 +387,7 @@ def _teacher_forced_gap(model, params, prompt, tokens) -> float:
     dev = model.device
     seq = torch.as_tensor(list(prompt) + list(tokens[:-1]), dtype=torch.int32,
                           device=dev)[None]
-    x, _ = transformer.forward(model.cfg, params, seq)
+    x, _, _ = transformer.forward(model.cfg, params, seq)
     logits = layers.unembed_logits(params["tok"], x[0, len(prompt) - 1:])
     logits = logits[:, :model.cfg.vocab_size].float()
     picked = logits.gather(1, torch.as_tensor(

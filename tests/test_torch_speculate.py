@@ -65,6 +65,8 @@ from repro_torch.serve import scheduler as sm
 from repro_torch.serve import speculate as sp
 from repro_torch.serve.engine import Engine, EngineConfig
 
+from test_torch_serve_modes import engines  # noqa: F401
+
 torch.set_num_threads(1)
 MAX_LEN, PT, K = 64, 8, 4
 LOGIT_TOL = 1e-2
@@ -153,8 +155,8 @@ def _margin_ok(logits_fn, prompt, want, got, what):
 
 def _port_logits(teng):
     def fn(seq):
-        x, _ = transformer.forward(teng.model.cfg, teng.params,
-                                   torch.as_tensor(seq[None]))
+        x, _, _ = transformer.forward(teng.model.cfg, teng.params,
+                                      torch.as_tensor(seq[None]))
         row = layers.unembed_logits(teng.params["tok"], x[:, -1:])
         return row[0, 0, :teng.model.cfg.vocab_size].double().numpy()
     return fn
@@ -395,6 +397,24 @@ def test_spec_tokens_equal_plain_tokens(tiny, mode, chunk):
     assert st["spec_rejected"] == st["spec_proposed"] - st["spec_accepted"]
     if mode == "paged-share":
         assert st["prefix_hits"] >= 2 and st["cow_copies"] >= 1
+    for rid, ((prompt, _), want, got) in enumerate(zip(REQS, plain, spec)):
+        assert len(got) > 0
+        _margin_ok(_port_logits(teng), prompt, want, got, (mode, chunk, rid))
+
+
+@pytest.mark.parametrize("mode,chunk", CELLS,
+                         ids=[f"{m}-{'chunk6' if c else 'whole'}"
+                              for m, c in CELLS])
+def test_mla_spec_tokens_equal_plain_tokens(engines, mode, chunk):
+    """The same cells on the equivalence matrix's ``TINY_MLA``: the verify
+    forward runs MLA's latent-space decode at per-slot offsets, k + 1 rows
+    a slot, over the slab or the latent pool."""
+    *_, teng, _ = engines("tiny-eq-mla")
+    cfg = teng.model.cfg
+    plain, _ = _serve(teng, _scheduler(sm, cfg, mode, chunk), REQS, 0)
+    spec, st = _serve(teng, _scheduler(sm, cfg, mode, chunk), REQS, K)
+    assert st["speculate_tokens"] == K and st["spec_proposed"] > 0
+    assert st["host_syncs"] == st["chunks"] == st["decode_steps"]
     for rid, ((prompt, _), want, got) in enumerate(zip(REQS, plain, spec)):
         assert len(got) > 0
         _margin_ok(_port_logits(teng), prompt, want, got, (mode, chunk, rid))

@@ -379,7 +379,7 @@ def test_init_and_caches_keep_the_reference_tree():
                  (jt.init_paged_caches(jcfg, 3, 10, 8),
                   transformer.init_paged_caches(cfg, 3, 10, 8, "cpu"))):
         assert shapes(t) == shapes(j)
-    assert [k for *_, k in transformer.paged_cache_kinds(cfg)] == [False]
+    assert [k for *_, k in transformer.cache_attn_kinds(cfg)] == ["mamba"]
 
 
 # ----------------------------------------------------- whole models
@@ -470,7 +470,7 @@ def test_decode_steps_match_the_full_forward(pair):
     cfg = tm.cfg
     toks = _t(np.random.RandomState(9).randint(2, cfg.vocab_size,
                                                size=(2, 24)), torch.int32)
-    x, _ = transformer.forward(cfg, tp, toks)
+    x, _, _ = transformer.forward(cfg, tp, toks)
     full = layers.unembed_logits(tp["tok"], x)
     got, state = tm.prefill(tp, {"tokens": toks[:, :8]}, 32)
     worst = (got[:, -1] - full[:, 7]).abs().max()
