@@ -12,8 +12,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
   2. build: every CUDA kernel of the port (one nvcc per source, all
      started together), from ``kernels/csrc``; then each library's SASS
      (``cuobjdump --dump-sass``): matmul3d and flash_attention must hold
-     HGMMA (wgmma, the tensor cores) and UTMALDG (TMA loads); HMMA
-     (``mma.sync``, paged decode's tensor cores) is counted beside them;
+     HGMMA (wgmma, the tensor cores) and UTMALDG (TMA loads), paged decode
+     and grouped_gemm HMMA (``mma.sync``, their tensor cores);
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at edge cases, with median times of kernel,
      plain version, one library call where there is one, and the bound.
@@ -29,7 +29,15 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      (FLASH_DIGESTS), and at multi-head latent attention's D = 192, Dv =
      128 with 128 heads (deepseek-v2's one-shot admission 4 x 256, timed
      beside SDPA, over its 288 positions, ragged at an offset, and on the
-     model's own K and V views); matmul3d at
+     model's own K and V views), at D = Dv = 64 for seamless-m4t-medium's
+     three kinds of call (encoder 4 x 512 non-causal, decoder prefill 4 x
+     256 causal, cross-attention 4 x 256 and 4 x 1 over 512 source
+     positions; 16 heads, model views; each timed beside SDPA) and windowed
+     at gemma3-27b's widths (1 x 32 heads over 16, 4096 positions, window
+     1024, timed beside SDPA given the band mask, bound over the band);
+     paged decode windowed at gemma3's widths (4 slots at frontiers
+     2048-4095, window 1024); these new cases' outputs digested from
+     numpy-seeded inputs and held to NEW_CASE_DIGESTS; matmul3d at
      ``tests/test_kernels.py``'s tolerances (f32 2e-4, bf16 2e-2) at
      small and ragged shapes (bf16 with f32 and bf16 out), and at M = 8192
      within ``mempool_matmul.REL_TOL`` of the plain version's largest
@@ -101,7 +109,7 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      a boundary (a role a boundary when disaggregated), and the outputs
      gates pass (disaggregated == combined exactly; sharing, chunking and
      speculation by the teacher-forced rule; a failed gate fails the
-     script after phase 11, so that the later phases still report);
+     script after phase 13, so that the later phases still report);
      launches counted around the phase, and the phase's seconds printed;
   7. falcon-mamba-7b at full width: one-shot generate, the paged stream,
      the dense slot-slab stream, the squeezed paged stream (so the
@@ -115,7 +123,11 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      the grouped MoE (bf16 experts) against the plain one (f32, every
      expert on every token) at one full-width layer, T = 1024 and T = 4,
      each grouped call under the sync guard (no count read to the host),
-     within MOE_TOL and with the same aux loss; the one-shot (flash 16 a
+     within MOE_TOL and with the same aux loss; the grouped_gemm kernel
+     alone at the layer's routes (gate and down projections, T = 1024 and
+     T = 4) within GEMM_REL_TOL of its plain version, timed beside
+     ``F.grouped_mm`` (bf16 out) and the hit experts' bytes; the one-shot
+     (flash 16 a
      admission) and the paged stream (paged 16 a decode step, host syncs
      once a chunk, decode chunks under the sync guard); every greedy token
      of the one-shot and of the stream's 8 requests held to teacher-forced
@@ -130,18 +142,36 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      the reference does), the paged stream over the latent pool and again
      at ``--kv-quant int8`` (first tokens against the fp16 stream's); its
      K / V control trades the K and V parts of ``wkv_b``;
- 10. the paper path: ``repro_torch.launch.mempool_matmul`` (the
+ 10. gemma3-27b at its published widths cut to two 5:1 periods (12 of 62
+     layers, globals at 5 and 11): the one-shot (2 x 2048-token prompts x
+     32) and the paged stream (4 requests, prompts 1207-1708, 4 slots,
+     16-token pages), both past the 1024-token window (flash skips the
+     blocks behind the band; paged decode masks at cache_len - window on
+     the local layers), launches counted (flash 12 an admission, paged 12
+     a decode step), every greedy token held to the teacher-forced rule;
+     the phase's seconds;
+ 11. qwen2-vl-2b uncut one-shot through the launcher (M-RoPE, 256 stub
+     patch embeddings before each of 4 x 256-token prompts, 32 tokens;
+     flash (128, 128) 28 times) and seamless-m4t-medium uncut one-shot
+     through ``Engine.generate`` (4 rows of 512 source frames, 256-token
+     decoder prompts, 32 tokens; flash (64, 64) once per encoder layer,
+     twice per decoder layer at the prefill and once per decoder layer a
+     decode step for the one-row cross-attention), every row held to the
+     teacher-forced rule with its own frontend or source frames;
+ 12. the paper path: ``repro_torch.launch.mempool_matmul`` (the
      scratchpad-fraction sweep at M = 8192, bf16 and f32, each plan held
      to the plain version) and ``repro_torch.benchmarks.kernel_bench
      --target h100``, with the matmul3d launches counted around both;
- 11. four chunks of the qwen2.5-3b stream (fp16 and int8 pages) and of
+ 13. four chunks of the qwen2.5-3b stream (fp16 and int8 pages) and of
      the falcon-mamba-7b stream under ``torch.profiler`` (CUDA activity
      only): device time by kernel, the device's idle share and the CUDA
      kernels launched;
- 12. the ``kernels`` summary line (launches on the main path, the paged
+ 14. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream; flash at D = 192 a row of
-     its own, launched by deepseek-v2's paged stream), the card line, and
-     the result line.
+     its own, launched by deepseek-v2's paged stream; flash at D = 64 a
+     row launched by seamless-m4t-medium's one-shot; grouped_gemm a row
+     launched by qwen3-moe's paged stream), the card line, and the result
+     line.
 
 After every phase from 3 on, every counter buffer of paged decode's
 in-launch merge (one per device and stream) must read all zeros: each
@@ -187,7 +217,7 @@ F32_FLOPS = 67e12          # H100 SXM f32 peak outside the tensor cores
 N_TIMED = 25
 REPEAT_ROUNDS = 500        # phase 3's attention cases, each called again
 MATMUL_M = 8192            # the paper sweep's size (see mempool_matmul)
-PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 11
+PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 13
 PROFILE_TRIES = 6          # traces taken before the profiler is given up
 
 N_TIMED_PLAIN_SCAN = 3    # the plain scan is one Python step per position
@@ -237,6 +267,16 @@ FLASH_DIGESTS = {"admission": "2be6a11c2e88583d", "ragged": "df2f42699612d5ac",
                  "views": "1aa9d5a8e277dfce", "window": "2e440388610f8045",
                  "offset": "1eb79b3a10b47377", "mha": "329f070aa7763e0a",
                  "noncausal": "63d113eb070f630c"}
+#: the windowed and (64, 64) attention cases (``new_attention_cases``: flash
+#: at (64, 64), windowed flash and paged decode), digested as the kernels
+#: printed them on an NVIDIA H100 80GB HBM3; a later change must not move a
+#: bit
+NEW_CASE_DIGESTS = {"d64_encoder": "aea592b592485ddb",
+                    "d64_decoder": "9443e92d6e2995b8",
+                    "d64_cross": "9ad63f4b0801c5c7",
+                    "d64_cross_decode": "053aecdb506d646c",
+                    "window": "4368ebeded649f77",
+                    "paged_window": "90ef91573dbe1ad4"}
 #: (B, Hq, Hkv, Sq, Skv, kwargs, transposed views) of each digest case
 FLASH_DIGEST_CASES = {
     "admission": (4, 16, 2, 256, 256, {}, False),
@@ -251,9 +291,12 @@ FLASH_DIGEST_CASES = {
 #: card (PERF.md section 4): (arch, layers kept of the published)
 QWEN_MOE = ("qwen3-moe-30b-a3b", 16)
 DEEPSEEK = ("deepseek-v2-236b", 3)
-#: the grouped MoE (bf16 experts) against the plain one (f32 experts) at
-#: one full-width layer: bf16 operand rounding (tests/test_torch_moe.py)
-MOE_TOL = 3e-2
+#: the grouped MoE (bf16 experts, f32 expert products) against the plain
+#: one (f32 experts) at one full-width layer: bf16 operand rounding. Read
+#: on an NVIDIA H100 80GB HBM3 (PERF.md section 6): qwen3-moe 7.8e-3 / 3.9e-3
+#: (T 1024 / 4), deepseek-v2 1.56e-2 at both, whose shared expert's bf16
+#: SwiGLU output rounds on both sides
+MOE_TOL = 2e-2
 #: one full-width MoE layer's token counts: a one-shot admission's prefill
 #: (4 x 256) and a decode step over the 4 slots
 MOE_TOKENS = {"prefill": 1024, "decode": 4}
@@ -264,11 +307,46 @@ MOE_TOKENS = {"prefill": 1024, "decode": 4}
 #: and at most half the weaker control's (0.206 and 0.988: ``wo`` through
 #: fp8 in the decode steps). NVIDIA H100 80GB HBM3, PERF.md section 6
 FORCED_ROUTE_TOL = {"qwen3-moe-30b-a3b": 0.1, "deepseek-v2-236b": 0.25}
+#: gemma3-27b at its published widths cut to two 5:1 periods (globals at 5
+#: and 11): 12 of 62 layers (PERF.md section 4); its prompts run past the
+#: 1024-token window, so flash skips the blocks behind the band and paged
+#: decode masks at cache_len - window on the local layers
+GEMMA = ("gemma3-27b", 12)
+GEMMA_ONE_SHOT_ARGS = ["--batch", "2", "--prompt-len", "2048", "--gen-len",
+                       "32"]
+#: 4 requests, prompts 1207-1708 tokens (synthetic_stream's draw at 2048),
+#: budgets 18-31, 4 slots, 16-token pages
+GEMMA_STREAM_ARGS = ["--stream", "4", "--paged", "--batch", "4",
+                     "--prompt-len", "2048", "--gen-len", "32",
+                     "--sync-interval", "8"]
+#: the windowed flash case (gemma3's widths: 32 heads over 16, window 1024)
+#: over 4096 positions, and windowed paged decode at frontiers 2048-4095
+WINDOW, WINDOW_SEQ = 1024, 4096
+PAGED_WINDOW_LENS = [2048, 2730, 3413, 4095]
+#: qwen2-vl-2b uncut, one-shot: 4 rows of 256 stub patch embeddings + 256
+#: text tokens, 32 generated
+QWEN_VL = ["--arch", "qwen2-vl-2b", "--full", "--batch", "4",
+           "--prompt-len", "256", "--gen-len", "32"]
+#: seamless-m4t-medium uncut, one-shot: 4 rows of 512 source frames and a
+#: 256-token decoder prompt, 32 generated
+SEAMLESS = ("seamless-m4t-medium", 512, 256)
+#: flash at (64, 64), seamless' three kinds of call at its widths (16 heads
+#: over 16): (B, Sq, Skv, causal)
+FLASH_D64_CASES = {"encoder": (4, 512, 512, False),
+                   "decoder": (4, 256, 256, True),
+                   "cross": (4, 256, 512, False),
+                   "cross_decode": (4, 1, 512, False)}
+#: the grouped_gemm kernel against its plain version (the same exact f32
+#: products summed in another order): max |d| over the output's largest
+GEMM_REL_TOL = 1e-4
 #: libraries whose SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
 TENSOR_CORE_KERNELS = ("matmul3d", "flash_attention")
+#: libraries whose SASS must hold mma.sync (HMMA)
+MMA_SYNC_KERNELS = ("paged_attention", "grouped_gemm")
 #: the port's kernels by name, as the profiler lists them
 PORT_KERNELS = ("flash_fwd_kernel", "paged_decode_kernel",
-                "mamba_scan_kernel", "mamba_scan_step_kernel", "matmul3d_")
+                "mamba_scan_kernel", "mamba_scan_step_kernel", "matmul3d_",
+                "grouped_gemm_kernel")
 
 
 def log(msg: str) -> None:
@@ -343,27 +421,39 @@ def layer_counts(cfg) -> tuple:
     return len(kinds) - ssm, ssm, sum(k.attn == "gqa" for k in kinds)
 
 
+def moe_layers(cfg) -> int:
+    """MoE layers of ``cfg``'s stack: each forward launches grouped_gemm 3
+    times in each (gate, up and down projections)."""
+    return sum(k.mlp == "moe" for g in cfg.layer_groups()
+               for _ in range(g.n_repeat) for k in g.pattern)
+
+
 def reset_counts() -> None:
     """Zero every kernel's launch count and the plain scan's call count."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
     from repro_torch.kernels.paged_attention import paged_flash_decode
     flash_attention.launches = paged_flash_decode.launches = 0
     flash_attention.launches_by_dims.update(
         dict.fromkeys(flash_attention.launches_by_dims, 0))
-    mamba_scan.launches = mamba_scan_plain.calls = 0
+    mamba_scan.launches = mamba_scan_plain.calls = grouped_gemm.launches = 0
 
 
 def read_counts() -> dict:
     """Each kernel's launches; flash by instance: ``flash`` at D = Dv =
-    128, ``flash_d192`` at D = 192, Dv = 128."""
+    128, ``flash_d192`` at D = 192, Dv = 128, ``flash_d64`` at D = Dv =
+    64."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
     from repro_torch.kernels.paged_attention import paged_flash_decode
     by_dims = flash_attention.launches_by_dims
     return {"flash": by_dims[128, 128], "flash_d192": by_dims[192, 128],
+            "flash_d64": by_dims[64, 64],
             "paged": paged_flash_decode.launches,
-            "scan": mamba_scan.launches, "plain_scan": mamba_scan_plain.calls}
+            "scan": mamba_scan.launches, "plain_scan": mamba_scan_plain.calls,
+            "grouped": grouped_gemm.launches}
 
 
 def check_counts(label: str, got: dict, want: dict) -> None:
@@ -411,7 +501,7 @@ def compare(name: str, got, want, tol: float = ATOL) -> float:
 
 def phase_environment() -> str:
     import torch
-    log(f"[1/12] environment: python {sys.version.split()[0]}, torch "
+    log(f"[1/14] environment: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -433,7 +523,7 @@ def phase_build() -> dict:
     (TMA loads). Returns {library: its SASS counts of HGMMA, UTMALDG and
     HMMA (``mma.sync``, the tensor cores without wgmma)}."""
     from repro_torch.kernels import build
-    log("[2/12] build: nvcc " + " ".join(build.NVCC_FLAGS))
+    log("[2/14] build: nvcc " + " ".join(build.NVCC_FLAGS))
     t0 = time.perf_counter()
     build.build_all()
     log(f"  built {', '.join(build.SOURCES)} in "
@@ -454,6 +544,10 @@ def phase_build() -> dict:
         if not (sass_ops[name]["HGMMA"] and sass_ops[name]["UTMALDG"]):
             fail(f"{name}: no HGMMA or no UTMALDG in its SASS; its bf16 "
                  f"path must run wgmma fed by TMA")
+    for name in MMA_SYNC_KERNELS:
+        if not sass_ops[name]["HMMA"]:
+            fail(f"{name}: no HMMA in its SASS; its products must run on "
+                 f"the tensor cores (mma.sync)")
     return sass_ops
 
 
@@ -465,7 +559,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
     from repro_torch.benchmarks.common import median_ms
     from repro_torch.kernels.paged_attention import (paged_flash_decode,
                                                      paged_flash_decode_plain)
-    log(f"[3/12] kernels against their plain versions (attention: bf16, "
+    log(f"[3/14] kernels against their plain versions (attention: bf16, "
         f"atol = rtol = {ATOL})")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -538,6 +632,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                                             depth, off)
     check_flash_digests()
     flash_mla = flash_mla_cases(rnd, repeats)
+    new_cases = new_attention_cases(repeats)
 
     # ---- paged decode: B slots walking P pages of pt tokens
     def paged_case(b, p, lens, window=None, tag="", page_tokens=pt):
@@ -659,9 +754,18 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                       library_device_ms=f_lib_dev, plain_ms=f_plain,
                       library_ms=f_lib, bound_ms=f_bound, bound_by=f_by,
                       extra={f"{label}_{key}": row[key]
-                             for label, row in resumed.items()
+                             for label, row in (
+                                 *resumed.items(),
+                                 ("window", new_cases["flash_window"]))
                              for key in row}),
         "flash_mla": flash_mla,
+        "flash_d64": dict(err=new_cases["flash_d64_err"],
+                          **new_cases["flash_d64"]["encoder"],
+                          extra={f"{kind}_{key}": row[key]
+                                 for kind, row in
+                                 new_cases["flash_d64"].items()
+                                 for key in row},
+                          digests=new_cases["digests"]),
         "paged": dict(err=paged_err, ms=p_ms, device_ms=p_dev,
                       plain_ms=p_plain,
                       library_ms=None, bound_ms=p_bound, bound_by=p_by,
@@ -670,7 +774,9 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                                  long_gb_per_s=l_gbps, pt8_ms=p8_ms,
                                  pt8_device_ms=p8_dev, pt8_plain_ms=p8_plain,
                                  pt8_bound_ms=p8_bound,
-                                 pt8_bound_by=p8_by)),
+                                 pt8_bound_by=p8_by,
+                                 **{f"window_{key}": value for key, value
+                                    in new_cases["paged_window"].items()})),
         "matmul3d": phase_matmul_kernel(),
         "mamba_scan": phase_scan_kernel(fcfg),
     }
@@ -842,6 +948,182 @@ def flash_mla_cases(rnd, repeats) -> dict:
     return dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
                 library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
                 bound_by=by)
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a bf16 tensor's bits."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def seeded(seed: int):
+    """A bf16 tensor maker on the card from a numpy seed (the same bits on
+    any torch build, so outputs can be held to recorded digests)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+
+    def make(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            torch.bfloat16).cuda()
+    return make
+
+
+def back_to_back_ms(fn, n: int = N_TIMED) -> float:
+    """Time per call of ``n`` calls of ``fn`` queued back to back between
+    two CUDA events: the device's time when it, not the host's call path,
+    is the slower (kernels of 0.04 ms and up here); used where the
+    profiler drops kernel records of long traces (phase 8's grouped GEMMs
+    lost them in every retake on an NVIDIA H100 80GB HBM3)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def time_case(label, kernel, plain, library, name, n_bytes, n_ops,
+              back_to_back: bool = False) -> dict:
+    """A kernel's median time (CUDA events: the host path included) and
+    device time (profiler, kernels named ``name``; or with
+    ``back_to_back`` :func:`back_to_back_ms`) beside its plain version,
+    one library call (or None) and the bound of ``n_bytes`` and
+    ``n_ops``."""
+    from repro_torch.benchmarks.common import median_ms
+
+    def on_device(fn, kernel_name=""):
+        return back_to_back_ms(fn) if back_to_back else device_ms(
+            fn, kernel_name)
+
+    ms = median_ms(kernel, N_TIMED)
+    dev = on_device(kernel, name)
+    plain_ms = median_ms(plain, N_TIMED)
+    lib = median_ms(library, N_TIMED) if library else None
+    lib_dev = on_device(library) if library else None
+    bound, by = bound_ms(n_bytes, n_ops)
+    how = "back to back" if back_to_back else "device"
+    lib_txt = (f", library {lib:.4f} ms ({how} {lib_dev:.4f} ms)"
+               if library else "")
+    log(f"  {label}: kernel {ms:.4f} ms ({how} {dev:.4f} ms), plain "
+        f"{plain_ms:.4f} ms{lib_txt}, bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib,
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+                device_ms_by=how)
+
+
+def new_attention_cases(repeats) -> dict:
+    """The attention cases of gemma3's window and seamless' head_dim, each
+    held against its plain version, timed beside its bound (and SDPA where
+    one call computes the same function), added to the repeat set and
+    digested (numpy-seeded inputs; NEW_CASE_DIGESTS holds them bit for bit):
+    flash at (64, 64) for seamless-m4t-medium's three kinds of call (the
+    encoder's non-causal self-attention, the decoder's causal prefill,
+    cross-attention with Sq != Skv down to one query row, on the model's
+    ``transpose(1, 2)`` views, 16 heads over 16); flash (128, 128) at
+    gemma3's widths over 4096 positions with its 1024 window (SDPA given
+    the band as a mask; the bound counts the band only); paged decode at
+    frontiers 2048-4095 with the same window (16 KV heads, group 2,
+    16-token pages)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.paged_attention import (paged_flash_decode,
+                                                     paged_flash_decode_plain)
+    out, digests = {"flash_d64": {}}, {}
+    err_d64 = 0.0
+    for i, (kind, (b, sq, skv, causal)) in enumerate(FLASH_D64_CASES.items()):
+        make = seeded(300 + i)
+        q, k, v = (make(b, n, 16, 64).transpose(1, 2)
+                   for n in (sq, skv, skv))
+        label = (f"flash D=64 {kind} B={b} H=16 Sq={sq} Skv={skv} "
+                 f"causal={causal} (model views)")
+        got = flash_attention(q, k, v, causal=causal)
+        err_d64 = max(err_d64, compare(label, got, flash_attention_plain(
+            q, k, v, causal=causal)))
+        call = functools.partial(flash_attention, q, k, v, causal=causal)
+        repeats.append((label, call, got))
+        digests[f"d64_{kind}"] = digest(got)
+        pairs = b * 16 * sum(min(r + 1, skv) if causal else skv
+                             for r in range(sq))
+        out["flash_d64"][kind] = time_case(
+            f"flash D=64 {kind}", call,
+            functools.partial(flash_attention_plain, q, k, v, causal=causal),
+            functools.partial(F.scaled_dot_product_attention, q, k, v,
+                              is_causal=causal),
+            "flash_fwd_kernel",
+            2 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * 64 * pairs)
+    out["flash_d64_err"] = err_d64
+
+    make = seeded(310)
+    hq, hkv, d, n = 32, 16, 128, WINDOW_SEQ
+    q, k, v = make(1, hq, n, d), make(1, hkv, n, d), make(1, hkv, n, d)
+    rows = torch.arange(n, device="cuda")
+    band = ((rows[None, :] <= rows[:, None])
+            & (rows[None, :] > rows[:, None] - WINDOW))
+    label = f"flash window={WINDOW} B=1 Hq={hq} Hkv={hkv} S={n}"
+    got = flash_attention(q, k, v, causal=True, window=WINDOW)
+    plain = functools.partial(flash_attention_plain, q, k, v, causal=True,
+                              window=WINDOW)
+    err_w = compare(label, got, plain())
+    sdpa = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                             attn_mask=band, enable_gqa=True)
+    compare("flash window: SDPA with the band mask vs the plain version",
+            sdpa(), plain())
+    call = functools.partial(flash_attention, q, k, v, causal=True,
+                             window=WINDOW)
+    repeats.append((label, call, got))
+    digests["window"] = digest(got)
+    pairs = hq * sum(min(r + 1, WINDOW) for r in range(n))
+    out["flash_window"] = dict(err=err_w, **time_case(
+        f"flash window={WINDOW} S={n}", call, plain, sdpa,
+        "flash_fwd_kernel", 2 * (2 * q.numel() + k.numel() + v.numel()),
+        4.0 * d * pairs))
+    del q, k, v, band
+
+    make = seeded(320)
+    pt, p_max, b = 16, WINDOW_SEQ // 16, len(PAGED_WINDOW_LENS)
+    kp, vp = (make(b * p_max + 1, hkv, pt, d) for _ in range(2))
+    perm = torch.from_numpy(np.random.RandomState(321).permutation(
+        b * p_max) + 1).cuda()
+    lens = torch.tensor(PAGED_WINDOW_LENS, dtype=torch.int32, device="cuda")
+    mapped = torch.arange(p_max, device="cuda")[None, :] * pt <= lens[:, None]
+    bt = torch.where(mapped, perm.reshape(b, p_max), 0).to(
+        torch.int32).contiguous()
+    qd = make(b, hq, 1, d)
+    label = (f"paged window={WINDOW} B={b} Hq={hq} Hkv={hkv} pt={pt} "
+             f"lens={PAGED_WINDOW_LENS}")
+    got = paged_flash_decode(qd, kp, vp, bt, lens, window=WINDOW)
+    plain = functools.partial(paged_flash_decode_plain, qd, kp, vp, bt, lens,
+                              window=WINDOW)
+    err_p = compare(label, got, plain())
+    call = functools.partial(paged_flash_decode, qd, kp, vp, bt, lens,
+                             window=WINDOW)
+    repeats.append((label, call, got))
+    digests["paged_window"] = digest(got)
+    visible = sum(min(WINDOW, n + 1) for n in PAGED_WINDOW_LENS)
+    out["paged_window"] = dict(err=err_p, **time_case(
+        f"paged window={WINDOW} frontiers {PAGED_WINDOW_LENS}", call, plain,
+        None, "paged_decode_kernel",
+        2 * 2 * visible * hkv * d + 2 * 2 * qd.numel() + 4 * bt.numel()
+        + 4 * b, 4.0 * d * hq * visible))
+    differ = {case: got for case, got in digests.items()
+              if case in NEW_CASE_DIGESTS and NEW_CASE_DIGESTS[case] != got}
+    if differ:
+        fail(f"outputs moved from their recorded digests: {differ}")
+    log(f"  digests of the windowed and (64, 64) cases: {digests} "
+        f"(recorded: {sorted(NEW_CASE_DIGESTS)})")
+    out["digests"] = digests
+    return out
 
 
 def phase_matmul_kernel() -> dict:
@@ -1094,13 +1376,16 @@ def phase_scan_kernel(fcfg) -> dict:
     return row
 
 
-def teacher_forced_check(cfg, seed_params, prompt, tokens, label) -> float:
+def teacher_forced_check(cfg, seed_params, prompt, tokens, label,
+                         **inputs) -> float:
     """``repro_torch.serve.checks.teacher_forced_check`` (greedy ``tokens``
     after ``prompt`` each within LOGIT_TOL of the best logit of one
-    full-sequence forward, no caches), logged; returns the worst gap."""
+    full-sequence forward, no caches; ``inputs``: a frontend model's
+    ``frontend_embeds`` or an enc-dec model's ``src_embeds`` for the
+    row), logged; returns the worst gap."""
     from repro_torch.serve import checks
     gap = checks.teacher_forced_check(cfg, seed_params, prompt, tokens, label,
-                                      LOGIT_TOL)
+                                      LOGIT_TOL, **inputs)
     log(f"  {label}: {len(tokens)} tokens, worst gap to the teacher-forced "
         f"best logit {gap:.4f}")
     return gap
@@ -1191,29 +1476,37 @@ def reference_params(cfg):
     return model.prepare(model.init(torch.Generator(device="cuda").manual_seed(0)))
 
 
-def one_shot_prompts(cfg):
-    """The launcher's one-shot prompts (``ONE_SHOT_ARGS``), (4, 256)."""
+def one_shot_prompts(cfg, rows=4, length=256):
+    """The launcher's one-shot prompts (``ONE_SHOT_ARGS``: (4, 256))."""
     import numpy as np
     return np.random.RandomState(1).randint(2, cfg.vocab_size,
-                                            size=(4, 256))
+                                            size=(rows, length))
+
+
+def _arg(argv, flag) -> int:
+    return int(argv[argv.index(flag) + 1])
 
 
 def one_shot(cfg, argv, label) -> dict:
     """One-shot generate through the CLI; the prefill launches flash once
-    per attention layer, and the prefill and every decode step launch
-    mamba_scan once per mamba layer."""
+    per attention layer, the prefill and every decode step launch
+    mamba_scan once per mamba layer and grouped_gemm 3 times per MoE
+    layer."""
     from repro_torch.launch import serve as cli
     n_attn, n_ssm, n_gqa = layer_counts(cfg)
     reset_counts()
     rec = cli.run(argv, cfg=cfg)
     counts = read_counts()
     toks = rec["tokens"].numpy()
-    if toks.shape != (4, 32) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+    if (toks.shape != (_arg(argv, "--batch"), _arg(argv, "--gen-len"))
+            or toks.min() < 0 or toks.max() >= cfg.vocab_size):
         fail(f"{label}: tokens shape {toks.shape}, range "
              f"[{toks.min()}, {toks.max()}]")
+    forwards = 1 + rec["decode_steps"]
     check_counts(label, counts, {
         "flash": n_gqa, "flash_d192": n_attn - n_gqa, "paged": 0,
-        "plain_scan": 0, "scan": n_ssm * (1 + rec["decode_steps"])})
+        "plain_scan": 0, "scan": n_ssm * forwards,
+        "grouped": 3 * moe_layers(cfg) * forwards})
     rec["launches"] = counts
     log(f"  {label}: tok/s {rec['tok_per_s']:.1f}, host_syncs "
         f"{rec['host_syncs']}, {rec['decode_steps']} decode steps; launches "
@@ -1222,7 +1515,7 @@ def one_shot(cfg, argv, label) -> dict:
 
 
 def phase_one_shot(cfg) -> None:
-    log("[4/12] one-shot generate: " + " ".join(ONE_SHOT))
+    log("[4/14] one-shot generate: " + " ".join(ONE_SHOT))
     rec = one_shot(cfg, ONE_SHOT, "one-shot")
     teacher_forced_check(cfg, reference_params(cfg), one_shot_prompts(cfg)[0],
                          rec["tokens"].numpy()[0], "one-shot row 0")
@@ -1231,7 +1524,9 @@ def phase_one_shot(cfg) -> None:
 def run_stream(cfg, argv, label) -> dict:
     """A stream through the CLI, its launches counted around it: each
     whole-prompt or suffix admission and each prefill chunk launches flash
-    once per attention layer; each decode step launches the paged kernel
+    once per attention layer; each forward (admission, chunk, decode step
+    or verify) launches grouped_gemm 3 times per MoE layer; each decode
+    step launches the paged kernel
     once per attention layer on an fp16 paged pool (a verify forward k + 1
     times: once per query column) and no kernel on the
     dense slot slab or a quantized pool (the reference's dispatch: both
@@ -1280,7 +1575,8 @@ def check_stream(cfg, rec, counts, label) -> dict:
         "flash": (adm + chunks) * n_gqa,
         "flash_d192": (adm + chunks) * (n_attn - n_gqa),
         "paged": steps * columns * n_gqa if paged_steps else 0,
-        "scan": (adm + steps) * n_ssm, "plain_scan": 0})
+        "scan": (adm + steps) * n_ssm, "plain_scan": 0,
+        "grouped": 3 * moe_layers(cfg) * (adm + chunks + steps)})
     log(f"  {label}: ok — {adm} admissions, {chunks} prefill chunks, "
         f"{steps} decode steps, {syncs}; launches {counts}; "
         f"{rec['tok_per_s']:.1f} tok/s; ttft to the first token p50/p95 "
@@ -1349,7 +1645,7 @@ def phase_stream(cfg) -> dict:
                                              repetitive_stream,
                                              shared_prefix_stream,
                                              synthetic_stream)
-    log("[5/12] qwen2.5-3b streams (every decode and verify chunk under "
+    log("[5/14] qwen2.5-3b streams (every decode and verify chunk under "
         "set_sync_debug_mode('error')); the prefix-shared stream's requests "
         "are all held to the teacher-forced rule")
     recs = {"stream": run_stream(cfg, STREAM, "stream")}
@@ -1464,7 +1760,7 @@ def phase_serve_bench(cfg) -> dict:
     counted around the phase."""
     from repro_torch.benchmarks import serve_bench as sb
     from repro_torch.benchmarks.common import ARTIFACT_ROOT
-    log(f"[6/12] serve_bench head-to-heads: qwen2.5-3b --full, "
+    log(f"[6/14] serve_bench head-to-heads: qwen2.5-3b --full, "
         f"{BENCH_REQUESTS} requests, each run once")
     t0 = time.perf_counter()
     common = dict(arch="qwen2.5-3b", n_requests=BENCH_REQUESTS, full=True,
@@ -1527,7 +1823,7 @@ def phase_serve_bench(cfg) -> dict:
         fail(f"serve_bench: launches {counts}")
     log(f"  serve_bench: launches {counts}; the phase took "
         f"{time.perf_counter() - t0:.1f} s"
-        + (f"; FAILED gates (fatal after phase 11): {failed}" if failed
+        + (f"; FAILED gates (fatal after phase 13): {failed}" if failed
            else ""))
     return {"launches": counts, "gates": gates, "failed": failed,
             "seconds": time.perf_counter() - t0}
@@ -1782,7 +2078,7 @@ def phase_falcon(fcfg) -> dict:
     from repro_torch.core.target import use_target
     from repro_torch.models.api import build_model
     from repro_torch.serve.scheduler import synthetic_stream
-    log("[7/12] falcon-mamba-7b at full width: " + " ".join(FALCON)
+    log("[7/14] falcon-mamba-7b at full width: " + " ".join(FALCON)
         + f" (the launcher's target on the card, {SERVING_TARGET}; every "
         "decode chunk under set_sync_debug_mode('error'))")
     n_ssm = layer_counts(fcfg)[1]
@@ -1889,8 +2185,58 @@ def check_grouped_moe(cfg) -> dict:
         out[label] = (err, median_ms(grouped, 5), median_ms(plain, 3))
         log(f"  grouped MoE {label} T={t}: {out[label][1]:.3f} ms, plain "
             f"{out[label][2]:.3f} ms (host clock, events)")
+        out.update(grouped_gemm_cases(cfg, served, x, label))
     del p, served
     free_memory()
+    return out
+
+
+def grouped_gemm_cases(cfg, p, x, label) -> dict:
+    """The grouped_gemm kernel alone at one MoE layer's shapes: the hits of
+    ``x``'s own routes sorted by expert, through the gate projection (K =
+    d_model, N = moe_d_ff) and the down projection (K = moe_d_ff, N =
+    d_model), against its plain version within GEMM_REL_TOL, timed beside
+    ``F.grouped_mm`` (bf16 out, the yardstick) and the bound of the hit
+    experts' weights, the rows and the f32 output; device times are
+    25 calls back to back between two events (``back_to_back_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.grouped_gemm import (grouped_gemm,
+                                                  grouped_gemm_plain)
+    from repro_torch.models import moe
+    xt = x.reshape(-1, cfg.d_model)
+    _, idx, _ = moe._route(p["router"], xt, cfg.top_k)
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    offs = moe._offsets(flat_e[order], cfg.n_experts)
+    hit = int((torch.diff(offs, prepend=offs.new_zeros(1)) > 0).sum())
+    cap = flat_e.numel()
+    rows = {"gate": xt[order // cfg.top_k].contiguous(),
+            "down": torch.randn((cap, cfg.moe_d_ff), device="cuda").to(
+                torch.bfloat16)}
+    out = {}
+    for proj, w in (("gate", p["we_gate"]), ("down", p["we_down"])):
+        xs = rows[proj]
+        k, n = w.shape[1], w.shape[2]
+        got = grouped_gemm(xs, w, offs)
+        want = grouped_gemm_plain(xs, w, offs)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        name = (f"grouped_gemm {label} {proj} ({cap} hits of {hit} "
+                f"experts, K={k}, N={n})")
+        if not (torch.isfinite(got).all() and rel <= GEMM_REL_TOL):
+            fail(f"{name}: max |d| {err:.3e}, {rel:.2e} of the largest value "
+                 f"(tolerance {GEMM_REL_TOL})")
+        log(f"  {name}: max |d| {err:.3e} ({rel:.2e} of the largest)  ok")
+        timing = time_case(
+            name, functools.partial(grouped_gemm, xs, w, offs),
+            functools.partial(grouped_gemm_plain, xs, w, offs),
+            functools.partial(F.grouped_mm, xs, w, offs=offs),
+            "grouped_gemm_kernel",
+            2 * hit * k * n + 2 * xs.numel() + 4 * cap * n + 4 * offs.numel(),
+            2.0 * cap * k * n, back_to_back=True)
+        out[f"gemm_{label}_{proj}"] = dict(err=err, rel_err=rel, hits=cap,
+                                           experts_hit=hit, **timing)
     return out
 
 
@@ -2017,7 +2363,7 @@ def phase_moe(arch: str, n_layers: int, phase: int) -> dict:
     cfg = dataclasses.replace(full, n_layers=n_layers)
     groups = ", ".join(f"{g.name} x {g.n_repeat}" for g in cfg.layer_groups())
     argv = ["--arch", arch, "--full"]
-    log(f"[{phase}/12] {arch} at its published widths, {n_layers} of "
+    log(f"[{phase}/14] {arch} at its published widths, {n_layers} of "
         f"{full.n_layers} layers ({groups}): " + " ".join(argv))
     moe_check = check_grouped_moe(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -2094,6 +2440,146 @@ def phase_moe(arch: str, n_layers: int, phase: int) -> dict:
             "seconds": seconds}
 
 
+def phase_gemma(phase: int) -> dict:
+    """gemma3-27b at its published widths, cut to GEMMA's two 5:1 periods,
+    through the launcher under its h100 default: the one-shot (2 x 2048)
+    and the paged stream (prompts 1207-1708), both past the 1024-token
+    window, launches counted around each (flash 12 an admission, paged 12
+    a decode step), host syncs once a chunk, every greedy token of both
+    held to the teacher-forced rule. Prints the phase's seconds."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.scheduler import synthetic_stream
+    t0 = time.perf_counter()
+    arch, n_layers = GEMMA
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    kinds = [k for g in cfg.layer_groups() for _ in range(g.n_repeat)
+             for k in g.pattern]
+    globals_ = [i for i, k in enumerate(kinds) if k.window is None]
+    argv = ["--arch", arch, "--full"]
+    log(f"[{phase}/14] {arch} at its published widths, {n_layers} of "
+        f"{full.n_layers} layers (window {full.window}, global layers "
+        f"{globals_}): " + " ".join(argv))
+    if globals_ != [5, 11] or len(kinds) != n_layers:
+        fail(f"{arch} cut: global layers {globals_} of {len(kinds)}")
+    torch.cuda.reset_peak_memory_stats()
+    recs = {"one_shot": one_shot(cfg, argv + GEMMA_ONE_SHOT_ARGS,
+                                 "one-shot")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  one-shot: peak device memory {peak:.1f} GB")
+    free_memory()
+    recs["stream"] = run_stream(cfg, argv + GEMMA_STREAM_ARGS, "stream")
+    free_memory()
+    stream = synthetic_stream(4, 2048, 32, cfg.vocab_size)
+    lens = [len(r["prompt"]) for r in stream]
+    if min(lens) <= full.window:
+        fail(f"{arch} stream prompts {lens} do not pass the window")
+    params = reference_params(cfg)
+    prompts = one_shot_prompts(cfg, 2, 2048)
+    for r in range(2):
+        teacher_forced_check(cfg, params, prompts[r],
+                             recs["one_shot"]["tokens"].numpy()[r],
+                             f"one-shot row {r}")
+    for rid in range(len(stream)):
+        teacher_forced_check(cfg, params, stream[rid]["prompt"],
+                             recs["stream"]["outputs"][rid],
+                             f"stream request {rid} ({lens[rid]}-token "
+                             f"prompt)")
+    del params
+    free_memory()
+    seconds = time.perf_counter() - t0
+    log(f"  {arch}: the phase took {seconds:.1f} s")
+    return {"recs": recs, "peak_gb": peak, "prompt_lens": lens,
+            "seconds": seconds}
+
+
+def phase_families(phase: int) -> dict:
+    """qwen2-vl-2b uncut through the launcher (QWEN_VL: M-RoPE, 256 stub
+    patch embeddings before each 256-token prompt; flash (128, 128) 28
+    times) and seamless-m4t-medium uncut through ``Engine.generate``
+    (SEAMLESS: 512 source frames, 256-token decoder prompts): flash (64,
+    64) once per encoder layer, twice per decoder layer at the prefill
+    (causal self-attention, cross-attention) and once per decoder layer
+    at each decode step (cross-attention, one query row; the decoder's
+    self-attention over its dense cache takes the masked oracle, the
+    reference's dispatch). Every row's greedy tokens held to the
+    teacher-forced rule with the same frontend or source frames. Prints
+    the phase's seconds and the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.target import use_target
+    from repro_torch.models.api import build_model
+    from repro_torch.models.frontends import fake_frontend
+    from repro_torch.serve.engine import Engine, EngineConfig
+    t0 = time.perf_counter()
+    log(f"[{phase}/14] the other attention families uncut, one-shot: "
+        + " ".join(QWEN_VL) + f"; {SEAMLESS[0]} --full through "
+        f"Engine.generate ({SEAMLESS[1]} source frames, {SEAMLESS[2]}-token "
+        f"prompts)")
+    out = {}
+    cfg = get_config("qwen2-vl-2b")
+    rec = one_shot(cfg, QWEN_VL, "qwen2-vl-2b one-shot")
+    params = reference_params(cfg)
+    front = fake_frontend(cfg, 4, torch.Generator(device="cuda")
+                          .manual_seed(1))
+    prompts = one_shot_prompts(cfg)
+    for r in range(4):
+        teacher_forced_check(cfg, params, prompts[r], rec["tokens"].numpy()[r],
+                             f"qwen2-vl-2b one-shot row {r}",
+                             frontend_embeds=front[r:r + 1])
+    out["qwen2-vl-2b one_shot"] = rec
+    del params, front
+    free_memory()
+
+    name, n_src, n_prompt = SEAMLESS
+    cfg = get_config(name)
+    gen_len = 32
+    with use_target(SERVING_TARGET):
+        model = build_model(cfg)
+        engine = Engine(model, model.init(torch.Generator(device="cuda")
+                                          .manual_seed(0)),
+                        EngineConfig(max_len=n_prompt + gen_len))
+        prompts = np.random.RandomState(1).randint(2, cfg.vocab_size,
+                                                   size=(4, n_prompt))
+        src = fake_frontend(cfg, 4, torch.Generator(device="cuda")
+                            .manual_seed(1), n_src)
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32,
+                                           device="cuda"),
+                 "src_embeds": src}
+        reset_counts()
+        t1 = time.perf_counter()
+        toks, _ = engine.generate(batch, gen_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = read_counts()
+    toks = toks.cpu().numpy()
+    steps = engine.last_stats["decode_steps"]
+    if toks.shape != (4, gen_len) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        fail(f"{name} one-shot: tokens shape {toks.shape}")
+    check_counts(f"{name} one-shot", counts, {
+        "flash_d64": cfg.n_encoder_layers + cfg.n_layers * (2 + steps)})
+    for r in range(4):
+        teacher_forced_check(cfg, engine.params, prompts[r], toks[r],
+                             f"{name} one-shot row {r}",
+                             src_embeds=src[r:r + 1])
+    tok_s = toks.size / wall
+    log(f"  {name} one-shot: {tok_s:.1f} tok/s, host_syncs "
+        f"{engine.last_stats['host_syncs']}, {steps} decode steps; launches "
+        f"{counts}")
+    out[f"{name} one_shot"] = {"tokens": toks, "tok_per_s": tok_s,
+                               "launches": counts, "decode_steps": steps}
+    del engine, model, src
+    free_memory()
+    seconds = time.perf_counter() - t0
+    log(f"  the phase took {seconds:.1f} s")
+    out["seconds"] = seconds
+    return out
+
+
 def phase_paper() -> dict:
     """The paper path on the card, through the entry points a user runs;
     the matmul3d launches are counted around both."""
@@ -2101,7 +2587,7 @@ def phase_paper() -> dict:
     from repro_torch.kernels.matmul3d import matmul3d
     from repro_torch.launch import mempool_matmul
     from repro_torch.launch.mempool_matmul import REL_TOL
-    log("[10/12] the paper path: python -m repro_torch.launch.mempool_matmul; "
+    log("[12/14] the paper path: python -m repro_torch.launch.mempool_matmul; "
         "python -m repro_torch.benchmarks.kernel_bench --target h100")
     matmul3d.launches = 0
     rec = mempool_matmul.run([])
@@ -2195,6 +2681,17 @@ def phase_profile(cfg, kv_quant=None) -> None:
             f"#{rank:<3d} {e.key[:100]}")
 
 
+def grouped_gemm_row(moe_runs) -> dict:
+    """The kernels line's grouped_gemm timing: qwen3-moe's 1024-token
+    admission through the gate projection, every other case beside it."""
+    cases = {f"{arch} {key[5:]}": case for arch, run in moe_runs.items()
+             for key, case in run["moe"].items() if key.startswith("gemm_")}
+    main = cases[f"{QWEN_MOE[0]} prefill_gate"]
+    return dict(main, extra={f"{label}_{key}": value
+                             for label, case in cases.items()
+                             for key, value in case.items()})
+
+
 def main() -> int:
     try:
         import torch
@@ -2240,17 +2737,24 @@ def main() -> int:
     for phase, (arch, n_layers) in ((8, QWEN_MOE), (9, DEEPSEEK)):
         moe_runs[arch] = phase_moe(arch, n_layers, phase)
         check_merge_counters(f"phase {phase}")
-    paper = phase_paper()
+        free_memory()
+    gemma = phase_gemma(10)
     check_merge_counters("phase 10")
-    log("[11/12] where the time goes: torch.profiler (CUDA activity)")
+    free_memory()
+    families = phase_families(11)
+    check_merge_counters("phase 11")
+    free_memory()
+    paper = phase_paper()
+    check_merge_counters("phase 12")
+    log("[13/14] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
     phase_profile(cfg, kv_quant="int8")
     phase_profile(fcfg)
-    check_merge_counters("phase 11")
+    check_merge_counters("phase 13")
     if bench["failed"]:
         fail(f"serve_bench outputs gates: {bench['failed']}")
 
-    log(f"[12/12] summary ({time.perf_counter() - t_start:.0f} s)")
+    log(f"[14/14] summary ({time.perf_counter() - t_start:.0f} s)")
     rows = [("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:30",
              rec["launches"]["flash"], timing["flash"]),
@@ -2265,7 +2769,17 @@ def main() -> int:
             ("flash_attention_d192_dv128", "flash_attention",
              "src/repro/kernels/flash_attention.py:30",
              moe_runs[DEEPSEEK[0]]["recs"]["stream"]["launches"]["flash_d192"],
-             timing["flash_mla"])]
+             timing["flash_mla"]),
+            # at seamless-m4t-medium's head_dim: its one-shot
+            ("flash_attention_d64_dv64", "flash_attention",
+             "src/repro/kernels/flash_attention.py:30",
+             families[f"{SEAMLESS[0]} one_shot"]["launches"]["flash_d64"],
+             timing["flash_d64"]),
+            # the reference's ragged_dot (XLA, no Pallas kernel): qwen3-moe's
+            # paged stream; timed at its 1024-token admission's gate GEMM
+            ("grouped_gemm", "grouped_gemm", "src/repro/models/moe.py:145",
+             moe_runs[QWEN_MOE[0]]["recs"]["stream"]["launches"]["grouped"],
+             grouped_gemm_row(moe_runs))]
     kernels = []
     for name, lib, replaces, launches, t in rows:
         row = {"name": name, "route": "cuda",
@@ -2284,6 +2798,8 @@ def main() -> int:
                        f32_library_ms=t["f32_library_ms"],
                        f32_bound_ms=t["f32_bound_ms"])
         row.update(t.get("extra", {}))
+        if "digests" in t:
+            row["digests"] = t["digests"]
         kernels.append(row)
     # every stream's own counts, each read around that stream alone
     by_path = {f"qwen {name}": r["launches"] for name, r in streams.items()}
@@ -2293,8 +2809,12 @@ def main() -> int:
     by_path.update({f"{arch} {name}": r["launches"]
                     for arch, run in moe_runs.items()
                     for name, r in run["recs"].items()})
+    by_path.update({f"{GEMMA[0]} {name}": r["launches"]
+                    for name, r in gemma["recs"].items()})
+    by_path.update({path: r["launches"] for path, r in families.items()
+                    if path != "seconds"})
     for row, key in zip(kernels, ("flash", "paged", None, "scan",
-                                  "flash_d192")):
+                                  "flash_d192", "flash_d64", "grouped")):
         if key:
             row["launches_by_path"] = {path: c[key]
                                        for path, c in by_path.items()}

@@ -57,6 +57,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "mamba_scan": (_I, [_P] * 9 + [_I] * 6 + [_P]),
         "mamba_scan_error_string": (ctypes.c_char_p, [_I]),
     },
+    "grouped_gemm": {
+        "grouped_gemm_bf16_f32": (_I, [_P] * 4 + [_I] * 4 + [_P]),
+        "grouped_gemm_max_experts": (_I, []),
+        "grouped_gemm_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

@@ -50,6 +50,17 @@
 // one-shot admission (4 x 256 over 256 positions, 128 heads, causal) the
 // bytes (Q, K, V and O: 168 MB, 0.050 ms at 3.35 TB/s) bound it above the
 // operations (11 GFLOP over the causal band, 0.011 ms).
+//
+// (64, 64) is seamless-m4t-medium's (enc-dec, 16 heads over 16): a row of
+// Q, K or V is 128 bytes, exactly one 128-byte swizzle atom, so each tile is
+// a single chunk (the tensor map's 64 x 64 box covers the whole row), the
+// Q K^T wgmma takes 4 k16 steps and P V is m64n64k16 (Wgmma<64>::rs, V
+// MN-major in one chunk, so the chunk stride LBO is never stepped). Shared
+// memory: Q 8 KB + 2 x (K 8 KB + V 8 KB) = 40 KB. Its calls: the encoder's
+// non-causal self-attention, the decoder's causal prefill and non-causal
+// cross-attention with Sq != Skv, down to Sq = 1 at each decode step (one
+// valid row in the 64-row Q tile; TMA fills the rest with zeros and the
+// store skips them).
 
 #include <math.h>
 
@@ -69,7 +80,8 @@ constexpr int CHUNK_BYTES = 64 * CW * 2;
 // one of V is DV wide; every tile is a whole number of 1024-byte chunks.
 template <int D, int DV>
 struct Tiles {
-  static_assert(D % CW == 0 && DV == 128, "D a multiple of 64, DV = 128");
+  static_assert(D % CW == 0 && (DV == 64 || DV == 128),
+                "D a multiple of 64, DV = 64 or 128");
   static constexpr int QK_BYTES = 64 * D * 2;
   static constexpr int V_BYTES = 64 * DV * 2;
   static constexpr size_t SMEM = size_t(QK_BYTES) * (1 + STAGES)
@@ -335,6 +347,10 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
     return launch<192, 128>(q, k, v, o, batch, hq, hkv, sq, skv, q_sb, q_sh,
                             q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
                             causal, has_window, window, q_offset, stream);
+  if (d == 64 && dv == 64)
+    return launch<64, 64>(q, k, v, o, batch, hq, hkv, sq, skv, q_sb, q_sh,
+                          q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
+                          causal, has_window, window, q_offset, stream);
   return int(cudaErrorInvalidValue);
 }
 

@@ -24,6 +24,7 @@ from repro_torch.core import planner, tiling
 from repro_torch.core.target import get_target
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.grouped_gemm import grouped_gemm as _grouped
 from repro_torch.kernels.matmul3d import (SMEM_BYTES, check_plan,
                                           kernel_blocks)
 from repro_torch.kernels.matmul3d import matmul3d as _matmul
@@ -123,6 +124,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  scale=scale, q_offset=q_offset)
     return _flash(q, k, v, causal=causal, window=window, scale=scale,
                   q_offset=int(q_offset))
+
+
+def grouped_matmul(xs: torch.Tensor, w: torch.Tensor,
+                   offs: torch.Tensor) -> torch.Tensor:
+    """The MoE's grouped expert product, the reference's ``ragged_dot``
+    with f32 output: ``xs (m, K)`` rows sorted by expert, ``w (E, K, N)``,
+    ``offs (E,)`` int32 ending each expert's rows (on ``xs``'s device: no
+    count is read to the host). Returns ``(m, N)`` f32: the grouped_gemm
+    kernel for a CUDA tensor, its plain version (f32-widened operands) for
+    a CPU one."""
+    return _grouped(xs, w, offs)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

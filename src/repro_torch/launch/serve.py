@@ -4,7 +4,11 @@ The counterpart of ``src/repro/launch/serve.py``, on the card by default
 (``--device cpu`` runs on the CPU). Modes through the same Engine:
 
   * default — one-shot batched greedy decode (prefill + fixed batch),
-    reporting total latency and throughput.
+    reporting total latency and throughput. A frontend model
+    (``qwen2-vl-2b``) gets its stub's ``frontend_len`` patch embeddings
+    before each prompt, an enc-dec model (``seamless-m4t-medium``)
+    ``--prompt-len`` source frames for its encoder; both serve one-shot
+    only (``--stream`` refuses them, as the reference does).
   * ``--stream N`` — continuous batching of N synthetic requests with mixed
     prompt/output lengths over the dense slot slab: per-request latency
     percentiles (the scheduler's clocks) and tokens/s.
@@ -70,6 +74,7 @@ from repro_torch.core.target import (available_targets, get_target,
                                      use_target)
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import fake_frontend
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.serve.scheduler import (DECODING, DRAINED, PREFILLING,
                                          Scheduler, derive_n_slots,
@@ -386,13 +391,16 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
                  "(< --prompt-len)")
     if cfg is None:
         cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    if args.stream and (cfg.family == "encdec" or cfg.frontend_len):
+        ap.error(f"--stream serves decoder-only token-prompt models; "
+                 f"{cfg.name} ({cfg.family}) goes through one-shot mode")
     dev = resolve_device(args.device)
     target = args.target or serving_target(dev)
     tgt_ctx = use_target(target) if target else contextlib.nullcontext()
     with tgt_ctx:
         model = build_model(cfg, device=dev)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
-        max_len = args.prompt_len + args.gen_len
+        max_len = args.prompt_len + args.gen_len + cfg.frontend_len
         spec_k = args.speculate_tokens
         if spec_k == 0:
             spec_k = derive_speculate_tokens(cfg)
@@ -445,8 +453,15 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
         tokens = torch.as_tensor(
             rng.randint(2, cfg.vocab_size, size=(args.batch, args.prompt_len)),
             dtype=torch.int32, device=dev)
+        batch = {"tokens": tokens}
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if cfg.family == "encdec":       # source frames, prompt-len long
+            batch["src_embeds"] = fake_frontend(cfg, args.batch, gen,
+                                                args.prompt_len)
+        elif cfg.frontend_len:           # patch embeddings before the text
+            batch["frontend_embeds"] = fake_frontend(cfg, args.batch, gen)
         t0 = time.monotonic()
-        out, _ = engine.generate({"tokens": tokens}, n_steps=args.gen_len)
+        out, _ = engine.generate(batch, n_steps=args.gen_len)
         _wait(dev)
         dt = time.monotonic() - t0
         out = out.cpu()

@@ -2,7 +2,11 @@
 row moves.
 
 The counterpart of ``src/repro/models/api.py`` for ``family="dense"``,
-``family="moe"`` (GQA or MLA attention) and ``family="ssm"``.
+``family="moe"`` (GQA or MLA attention), ``family="ssm"``, ``family="vlm"``
+(M-RoPE, a stub frontend's embeddings before the text) and
+``family="encdec"`` (:mod:`repro_torch.models.encdec`). The last two serve
+one-shot only, as in the reference: the pools, resumed prefill and
+speculative verify refuse them.
 A :class:`Model` lives on one device: CUDA unless the caller passes
 ``device="cpu"``. With no card and no explicit CPU it raises — the port
 never drops to the CPU silently.
@@ -19,7 +23,7 @@ from repro_torch.core.target import HardwareTarget
 from repro_torch.kernels.paged_attention import (as_bits,
                                                  dequantize_page_int8,
                                                  quantize_page_int8)
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, layers, transformer
 from repro_torch.models.config import ModelConfig
 
 Device = Union[str, torch.device, None]
@@ -96,6 +100,8 @@ class Model:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
+        if self.cfg.family == "encdec":
+            return encdec.init_encdec(self.cfg, gen)
         return transformer.init_lm(self.cfg, gen)
 
     def prepare(self, params: Any) -> Any:
@@ -122,11 +128,21 @@ class Model:
              plans: Optional[KernelPlans] = None):
         """Causal LM loss of one full-sequence forward (no caches), forward
         only: ``batch`` holds ``tokens`` and ``labels`` (B, S), -1 =
-        ignore. Returns ``(total, {loss, aux, tokens})`` as the reference.
-        The backward pass comes with training (ROADMAP A11)."""
-        plans = plans or self.kernel_plans(batch["tokens"].shape[1])
-        return transformer.lm_loss(self.cfg, params, batch["tokens"],
-                                   batch["labels"], plans=plans)
+        ignore, and for a frontend model ``frontend_embeds`` (B, Sf, d),
+        for an enc-dec model ``src_embeds`` (B, Ss, d). Returns ``(total,
+        {loss, aux, tokens})`` as the reference. The backward pass comes
+        with training (ROADMAP A11)."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            plans = plans or self.kernel_plans(batch["src_embeds"].shape[1])
+            return encdec.encdec_loss(cfg, params, batch["src_embeds"],
+                                      batch["tokens"], batch["labels"],
+                                      plans=plans)
+        plans = plans or self.kernel_plans(batch["tokens"].shape[1]
+                                           + cfg.frontend_len)
+        return transformer.lm_loss(
+            cfg, params, batch["tokens"], batch["labels"],
+            frontend_embeds=batch.get("frontend_embeds"), plans=plans)
 
     # ---------------------------------------------------------- serving
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_len: int,
@@ -146,25 +162,51 @@ class Model:
         K/V are written into ``prefix_state``'s caches in place.
         ``prefix_len`` is a host int. Attention-only decoder models with
         token prompts only: recurrent SSM state has no resumable KV prefix.
+
+        A frontend model's ``batch`` also holds ``frontend_embeds`` (B, Sf,
+        d), which take the first Sf cache positions; an enc-dec model's
+        holds ``src_embeds`` (B, Ss, d): the encoder runs once, its output
+        rides in the state as ``enc_out``, and ``tokens`` is the decoder's
+        prompt.
         """
         cfg = self.cfg
         if (prefix_len or prefix_state is not None) and (
-                cfg.frontend_len or has_recurrent_state(cfg)):
+                cfg.family == "encdec" or cfg.frontend_len):
+            raise NotImplementedError(
+                "resumed prefill targets decoder-only token-prompt models")
+        if (prefix_len or prefix_state is not None) and \
+                has_recurrent_state(cfg):
             raise NotImplementedError(
                 "resumed prefill requires attention-only token-prompt "
                 "models: recurrent SSM state has no resumable KV prefix")
         tokens = batch["tokens"]
-        plans = plans or self.kernel_plans(tokens.shape[1], max_len)
-        x, caches = transformer.prefill(
-            cfg, params, tokens, max_len, plans=plans,
-            caches=(prefix_state or {}).get("caches"), prefix_len=prefix_len)
-        if last_pos is None:
-            x = x[:, -1:]
-        else:
+
+        def last(x):
+            if last_pos is None:
+                return x[:, -1:]
             idx = last_pos.long().reshape(-1, 1, 1).expand(
                 x.shape[0], 1, x.shape[2])
-            x = torch.gather(x, 1, idx)
-        return layers.unembed_logits(params["tok"], x), {"caches": caches}
+            return torch.gather(x, 1, idx)
+
+        if cfg.family == "encdec":
+            src = batch["src_embeds"]
+            plans = plans or self.kernel_plans(src.shape[1], max_len)
+            enc_out = encdec.encode(cfg, params, src, plans=plans)
+            caches = encdec.init_dec_caches(cfg, tokens.shape[0], max_len,
+                                            tokens.device)
+            x, caches = encdec.decode(cfg, params, tokens, enc_out,
+                                      caches=caches, cache_len=0,
+                                      plans=plans)
+            return (layers.unembed_logits(params["tok"], last(x)),
+                    {"caches": caches, "enc_out": enc_out})
+        plans = plans or self.kernel_plans(tokens.shape[1] + cfg.frontend_len,
+                                           max_len)
+        x, caches = transformer.prefill(
+            cfg, params, tokens, max_len,
+            frontend_embeds=batch.get("frontend_embeds"), plans=plans,
+            caches=(prefix_state or {}).get("caches"), prefix_len=prefix_len)
+        return (layers.unembed_logits(params["tok"], last(x)),
+                {"caches": caches})
 
     def decode_step(self, params, tokens: torch.Tensor,
                     state: Dict[str, Any], cache_len: torch.Tensor, *,
@@ -172,7 +214,16 @@ class Model:
                     block_tables: Optional[torch.Tensor] = None):
         """One decode step for every row; ``cache_len`` is 0-d (one-shot)
         or ``(B,)`` (slots). With ``block_tables`` the state holds the
-        paged pool. All masking stays on the device."""
+        paged pool. All masking stays on the device. An enc-dec model's
+        state carries ``enc_out``, which every step's cross-attention
+        reads."""
+        if self.cfg.family == "encdec":
+            x, caches = encdec.decode(self.cfg, params, tokens,
+                                      state["enc_out"],
+                                      caches=state["caches"],
+                                      cache_len=cache_len, plans=plans)
+            return (layers.unembed_logits(params["tok"], x),
+                    {**state, "caches": caches})
         logits, caches = transformer.decode_step(
             self.cfg, params, tokens, state["caches"], cache_len,
             plans=plans, block_tables=block_tables)

@@ -22,8 +22,8 @@ before the attention that reads it, which program order gives.
 
 MLA caches only the compressed latent (``ckv``) and the one shared RoPE
 key head (``krope``): ``(B, max_len, width)`` on the slab, ``(n_pages,
-page_tokens, width)`` in the pool. M-RoPE (``qwen2-vl``) and
-cross-attention are later slices (ROADMAP A7, A10).
+page_tokens, width)`` in the pool. GQA also takes M-RoPE position streams
+(``qwen2-vl``) and precomputed cross-attention K/V (the enc-dec decoder).
 """
 
 from __future__ import annotations
@@ -230,6 +230,9 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                   positions: torch.Tensor,
                   cache: Optional[Dict] = None,
                   cache_len=None,
+                  positions3: Optional[torch.Tensor] = None,
+                  cross_kv: Optional[Tuple[torch.Tensor,
+                                           torch.Tensor]] = None,
                   causal: bool = True,
                   plan: Optional[tiling.AttentionPlan] = None,
                   block_tables: Optional[torch.Tensor] = None,
@@ -242,15 +245,32 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     ``cache_len``: the masked oracle over the slab); paged decode
     (``block_tables`` given: block-table write, page-walk attention).
     Without a cache (training-style forward) attention runs over ``x``.
+    With ``cross_kv`` (the encoder's K/V, (B, Hkv, Ss, D) each) this is
+    cross-attention: no RoPE, no cache write, non-causal, through
+    :func:`repro_torch.kernels.ops.attention` at offset 0 (the flash
+    kernel on the card, one query row a decode step included). With
+    ``positions3`` (3, B, S) and ``cfg.mrope``, Q and K take M-RoPE.
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     q = linear(x, p["wq"], p.get("bq")).reshape(b, s, hq, hd).transpose(1, 2)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = ops.attention(q, k, v, causal=False, window=kind.window,
+                            plan=plan)
+        out = out.transpose(1, 2).reshape(b, s, hq * hd)
+        return linear(out, p["wo"]), None
     k = linear(x, p["wk"], p.get("bk")).reshape(b, s, hkv, hd).transpose(1, 2)
     v = linear(x, p["wv"], p.get("bv")).reshape(b, s, hkv, hd).transpose(1, 2)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if positions3 is not None and cfg.mrope:
+        q = layers.apply_mrope(q, positions3, cfg.rope_theta,
+                               cfg.mrope_sections)
+        k = layers.apply_mrope(k, positions3, cfg.rope_theta,
+                               cfg.mrope_sections)
+    else:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None and block_tables is not None:
         # an int8 pool (sibling scale leaves) takes the scale-aware write
@@ -359,8 +379,11 @@ def mla_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                   cache_len=None,
                   plan: Optional[tiling.AttentionPlan] = None,
                   block_tables: Optional[torch.Tensor] = None,
+                  positions3: Optional[torch.Tensor] = None,
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Multi-head latent attention. x: (B, S, d). Returns (out, cache).
+    ``positions3`` is taken for the layer dispatch's one signature and
+    not read: no MLA config uses M-RoPE.
 
     The cache holds only the latent: the slab or pool is written in place,
     then read back whole (the pool through the block tables: gathered,

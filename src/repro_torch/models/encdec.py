@@ -1,0 +1,147 @@
+"""Encoder-decoder model (the seamless-m4t backbone).
+
+The counterpart of ``src/repro/models/encdec.py``. Encoder: a stack of
+bidirectional GQA self-attention + SwiGLU layers over precomputed frame
+embeddings (the speech frontend is a stub). Decoder: causal GQA
+self-attention with a KV cache, cross-attention to the encoder's output,
+SwiGLU. The parameter tree is the reference's: ``encoder`` and ``decoder``
+stacks (every leaf stacked on a leading layer axis), ``enc_norm``,
+``final_norm``, ``tok``.
+
+As in the reference's code (its module docstring speaks of a cross cache,
+its ``decode`` does not keep one), every decoder call recomputes each
+layer's cross K/V from ``enc_out``. Every attention call reaches
+:func:`repro_torch.kernels.ops.attention` with an int offset, so on the
+card the encoder's non-causal self-attention, the decoder's causal prefill
+and all cross-attention (Sq = 1 at each decode step included) run the
+flash kernel (at seamless' head_dim, its (64, 64) instance); the decoder's
+decode steps over the dense cache take the masked oracle, the reference's
+dispatch for a tensor offset.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core.planner import KernelPlans
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers
+from repro_torch.models.config import LayerKind, ModelConfig
+from repro_torch.models.transformer import _index, chunked_xent
+
+Params = Dict[str, Any]
+_KIND = LayerKind(attn="gqa", mlp="mlp")
+
+
+def _norm(n: int, d: int, device) -> Dict:
+    return {"scale": torch.ones((n, d), dtype=torch.float32, device=device)}
+
+
+def init_encdec(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Random f32 params on ``gen``'s device, in the reference's tree."""
+    d, dev = cfg.d_model, gen.device
+    ne, nd = cfg.n_encoder_layers, cfg.n_layers
+    return {
+        "tok": layers.init_embed(gen, cfg.padded_vocab, d,
+                                 tie=cfg.tie_embeddings),
+        "encoder": {"ln1": _norm(ne, d, dev),
+                    "attn": attn_mod.init_gqa(cfg, gen, ne),
+                    "ln2": _norm(ne, d, dev),
+                    "mlp": layers.init_mlp(gen, d, cfg.d_ff, ne)},
+        "decoder": {"ln1": _norm(nd, d, dev),
+                    "attn": attn_mod.init_gqa(cfg, gen, nd),
+                    "lnx": _norm(nd, d, dev),
+                    "xattn": attn_mod.init_gqa(cfg, gen, nd),
+                    "ln2": _norm(nd, d, dev),
+                    "mlp": layers.init_mlp(gen, d, cfg.d_ff, nd)},
+        "enc_norm": layers.init_rmsnorm(d, dev),
+        "final_norm": layers.init_rmsnorm(d, dev),
+    }
+
+
+def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
+           plans: Optional[KernelPlans] = None) -> torch.Tensor:
+    """src_embeds: (B, Ss, d) frame embeddings from the (stub) frontend.
+    Returns the normed encoder output (B, Ss, d)."""
+    b, s, _ = src_embeds.shape
+    plan = plans.attention if plans else None
+    positions = torch.broadcast_to(
+        torch.arange(s, dtype=torch.int32, device=src_embeds.device)[None],
+        (b, s))
+    x = src_embeds.to(layers.COMPUTE_DTYPE)
+    for i in range(cfg.n_encoder_layers):
+        p = _index(params["encoder"], i)
+        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        y, _ = attn_mod.gqa_attention(p["attn"], h, cfg=cfg, kind=_KIND,
+                                      positions=positions, causal=False,
+                                      plan=plan)
+        x = x + y
+        x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
+                                                     cfg.norm_eps))
+    return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
+    """One decoder layer's cross-attention K and V, (B, Hkv, Ss, D)."""
+    b, s, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = layers.linear(enc_out, p["wk"], p.get("bk")).reshape(
+        b, s, hkv, hd).transpose(1, 2)
+    v = layers.linear(enc_out, p["wv"], p.get("bv")).reshape(
+        b, s, hkv, hd).transpose(1, 2)
+    return k, v
+
+
+def decode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           enc_out: torch.Tensor, *, caches=None, cache_len=None,
+           plans: Optional[KernelPlans] = None):
+    """The decoder stack over ``tokens`` (B, S) at ``cache_len`` (an int
+    for a prefill, a 0-d tensor for a decode step; None without caches).
+    Returns (final-normed hidden (B, S, d), caches), the caches written in
+    place."""
+    x = layers.embed(params["tok"], tokens)
+    b, s, _ = x.shape
+    plan = plans.attention if plans else None
+    start = cache_len if cache_len is not None else 0
+    positions = torch.broadcast_to(
+        start + torch.arange(s, dtype=torch.int32, device=x.device)[None, :],
+        (b, s))
+    for i in range(cfg.n_layers):
+        p = _index(params["decoder"], i)
+        cache = _index(caches, i) if caches is not None else None
+        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        y, _ = attn_mod.gqa_attention(p["attn"], h, cfg=cfg, kind=_KIND,
+                                      positions=positions, cache=cache,
+                                      cache_len=cache_len, plan=plan)
+        x = x + y
+        h = layers.rmsnorm(p["lnx"], x, cfg.norm_eps)
+        y, _ = attn_mod.gqa_attention(
+            p["xattn"], h, cfg=cfg, kind=_KIND, positions=positions,
+            cross_kv=_cross_kv(cfg, p["xattn"], enc_out), plan=plan)
+        x = x + y
+        x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
+                                                     cfg.norm_eps))
+    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
+
+
+def encdec_loss(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor,
+                tokens: torch.Tensor, labels: torch.Tensor, *,
+                loss_chunk: int = 2048,
+                plans: Optional[KernelPlans] = None):
+    """The decoder's chunked LM loss over ``tokens`` given the source
+    frames. Returns (loss, {loss, aux (0), tokens}), as the reference."""
+    enc_out = encode(cfg, params, src_embeds, plans=plans)
+    x, _ = decode(cfg, params, tokens, enc_out, plans=plans)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return chunked_xent(cfg, params, x, labels, aux, loss_chunk)
+
+
+def init_dec_caches(cfg: ModelConfig, batch: int, max_len: int, device,
+                    dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """The decoder's dense self-attention caches, ``{k, v}`` of
+    ``(n_layers, B, Hkv, max_len, D)``."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

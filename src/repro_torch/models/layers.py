@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, linear, SwiGLU, embeddings, RoPE.
+"""Shared building blocks: norms, linear, SwiGLU, embeddings, RoPE and
+multimodal RoPE.
 
 The counterpart of ``src/repro/models/layers.py``, with the same numerics:
 weights are stored f32 and used as bf16, products accumulate in f32, a
@@ -9,7 +10,7 @@ rounding of 150k logits would tie and move the argmax).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +117,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(d, theta, x.device)                     # (D/2,)
     angles = positions[:, None, :, None].float() * freqs       # (B,1,S,D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): the ``head_dim / 2`` frequencies split
+    into (temporal, height, width) sections, each driven by its own
+    position stream. x: (B, H, S, D); positions3: (3, B, S) int."""
+    d = x.shape[-1]
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to head_dim "
+                         f"/ 2 = {half}")
+    freqs = rope_freqs(d, theta, x.device)                     # (half,)
+    # which of the 3 position streams drives each frequency (made on the
+    # device from the section bounds: no host data inside a decode chunk)
+    idx = torch.arange(half, device=x.device)
+    sect_id = ((idx >= sections[0]).long()
+               + (idx >= sections[0] + sections[1]).long())    # (half,)
+    pos = positions3[sect_id]                                  # (half,B,S)
+    angles = pos.permute(1, 2, 0).float() * freqs              # (B,S,half)
+    cos, sin = torch.cos(angles)[:, None], torch.sin(angles)[:, None]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -8,23 +8,21 @@ implementations of the same function:
   the reference does on one device.
 * ``grouped`` — the reference's ``_moe_ep_inner`` at one shard (no psum):
   the token -> expert hits are sorted by expert, the expert FFNs run on
-  bf16 operands with f32 accumulation, ``act`` is cast back to the
-  activation dtype, and the gate-weighted combine runs in f32. One
-  rounding differs: the grouped GEMM writes bf16 (torch's grouped GEMM
-  takes no f32 output for bf16 operands on the card), where the
-  reference's ``ragged_dot`` returns f32; the gate and up products are
-  widened back to f32 for the SiLU product, the down product for the
-  combine. At one
+  bf16 operands with f32 accumulation and f32 output, as the reference's
+  ``ragged_dot(..., preferred_element_type=f32)``, ``act`` is cast back to
+  the activation dtype, and the gate-weighted combine runs in f32. At one
   shard the capacity is ``min(t k, ceil(capacity_factor t k))``, so at the
   configs' factor of 2 no hit is dropped. The card runs it: the dense
   version would read every expert's weights on every decode step.
 
 The grouped products are one grouped GEMM per projection
-(``torch.nn.functional.grouped_mm``; the reference leaves
-``jax.lax.ragged_dot`` to XLA) over the hits sorted by expert, delimited by
-offsets computed on the device: no count is read to the host, so the same
-code runs in a prefill and inside the engine's sync-guarded decode chunks,
-and each hit expert's weights are read once.
+(:func:`repro_torch.kernels.ops.grouped_matmul`: on the card the
+hand-written ``grouped_gemm`` kernel, on the CPU its plain version over
+f32-widened operands; the reference leaves ``jax.lax.ragged_dot`` to XLA)
+over the hits sorted by expert, delimited by offsets computed on the
+device: no count is read to the host, so the same code runs in a prefill
+and inside the engine's sync-guarded decode chunks, and each hit expert's
+weights are read once.
 """
 
 from __future__ import annotations
@@ -35,6 +33,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cast, randn
@@ -99,13 +98,9 @@ def _offsets(sel_e: torch.Tensor, n_experts: int) -> torch.Tensor:
 def _grouped(xs: torch.Tensor, w: torch.Tensor,
              offs: torch.Tensor) -> torch.Tensor:
     """``xs[i] @ w[g]`` for every sorted hit ``i`` of expert ``g`` (the rows
-    ``offs[g-1]:offs[g]``): bf16 operands, f32 accumulation, bf16 out. On
-    the card one grouped GEMM, whose output takes its operands' dtype;
-    elsewhere both sides widen to f32 first, which computes the same sums,
-    and the result is rounded to bf16 as the card's is."""
-    if xs.is_cuda:
-        return F.grouped_mm(cast(xs), cast(w), offs=offs)
-    return cast(F.grouped_mm(cast(xs).float(), cast(w).float(), offs=offs))
+    ``offs[g-1]:offs[g]``): bf16 operands, f32 accumulation, f32 out, on
+    either device (:func:`repro_torch.kernels.ops.grouped_matmul`)."""
+    return ops.grouped_matmul(cast(xs), cast(w), offs)
 
 
 def _moe_grouped(p: Dict, xt: torch.Tensor, cfg: ModelConfig):
@@ -119,10 +114,10 @@ def _moe_grouped(p: Dict, xt: torch.Tensor, cfg: ModelConfig):
     sel_e = flat_e[sel]
     offs = _offsets(sel_e, e)
     xs = xt[sel // k]                                        # (cap, d)
-    h = _grouped(xs, p["we_gate"], offs).float()
-    u = _grouped(xs, p["we_up"], offs).float()
+    h = _grouped(xs, p["we_gate"], offs)
+    u = _grouped(xs, p["we_up"], offs)
     act = (F.silu(h) * u).to(xt.dtype)
-    out = _grouped(act, p["we_down"], offs).float()          # (cap, d)
+    out = _grouped(act, p["we_down"], offs)                  # (cap, d) f32
     # the combine: each hit back at its (token, rank) place, weighted by its
     # gate, then summed over the k ranks in f32 (a fixed order: no atomics)
     contrib = out.new_zeros((t * k, d))

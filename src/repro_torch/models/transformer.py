@@ -1,8 +1,12 @@
 """Decoder-only LM: init / forward / loss / prefill / decode.
 
 The counterpart of ``src/repro/models/transformer.py`` for dense GQA
-stacks, mixture-of-experts stacks with GQA or multi-head latent attention
-(``family="moe"``) and attention-free Mamba-1 stacks (``family="ssm"``).
+stacks (with sliding-window layers: gemma3), mixture-of-experts stacks with
+GQA or multi-head latent attention (``family="moe"``), attention-free
+Mamba-1 stacks (``family="ssm"``) and the vision-language stack with
+M-RoPE and a stub frontend's embeddings before the text
+(``family="vlm"``). The encoder-decoder family is
+:mod:`repro_torch.models.encdec`.
 Each layer dispatches on its kind: the attention (``gqa`` / ``mla`` /
 ``mamba``) and the MLP (``mlp`` / ``moe`` / none). The layer
 stack is factorized into repeated superblocks
@@ -32,21 +36,15 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet, naming the
-    ROADMAP item that brings it."""
+    """Raise for what the port does not run yet, naming the ROADMAP item
+    that brings it."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the hybrid attention + mamba family is not ported "
             f"yet (ROADMAP A9)")
-    if cfg.family == "encdec" or cfg.n_encoder_layers:
+    if cfg.family not in ("dense", "moe", "ssm", "vlm", "encdec"):
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP A10)")
-    if cfg.mrope or cfg.frontend_len or cfg.family not in ("dense", "moe",
-                                                           "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and the vlm / audio frontends are not "
-            f"ported yet (ROADMAP A7)")
+            f"{cfg.name}: family {cfg.family!r} is not ported")
 
 
 # ----------------------------------------------------------------- init
@@ -96,7 +94,8 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 def _apply_layer(cfg: ModelConfig, kind: LayerKind, p: Params,
                  x: torch.Tensor, *, positions, cache, cache_len,
-                 plans: Optional[KernelPlans] = None, block_tables=None):
+                 positions3=None, plans: Optional[KernelPlans] = None,
+                 block_tables=None):
     """Returns (x, aux): the MoE layer's aux loss, 0.0 for other layers (a
     float, so a dense stack launches nothing for it)."""
     aux = 0.0
@@ -109,7 +108,7 @@ def _apply_layer(cfg: ModelConfig, kind: LayerKind, p: Params,
     else:
         y, _ = attn_mod.APPLY[kind.attn](
             p["attn"], h, cfg=cfg, kind=kind, positions=positions,
-            cache=cache, cache_len=cache_len,
+            positions3=positions3, cache=cache, cache_len=cache_len,
             plan=plans.attention if plans else None,
             block_tables=block_tables)
     x = x + y
@@ -130,7 +129,7 @@ def _index(tree, i: int):
 
 
 def _run_groups(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
-                positions, caches=None, cache_len=None,
+                positions, positions3=None, caches=None, cache_len=None,
                 plans: Optional[KernelPlans] = None, block_tables=None):
     """Returns (x, aux summed over the layers)."""
     aux = 0.0
@@ -143,7 +142,8 @@ def _run_groups(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 cache = _index(g_caches[key], r) if g_caches else None
                 x, aux_i = _apply_layer(cfg, kind, _index(stacked[key], r),
                                         x, positions=positions, cache=cache,
-                                        cache_len=cache_len, plans=plans,
+                                        cache_len=cache_len,
+                                        positions3=positions3, plans=plans,
                                         block_tables=block_tables)
                 aux = aux + aux_i
     return x, aux
@@ -152,14 +152,20 @@ def _run_groups(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
 # ----------------------------------------------------------------- public
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            frontend_embeds: Optional[torch.Tensor] = None,
             caches=None, cache_len=None,
             positions: Optional[torch.Tensor] = None,
             plans: Optional[KernelPlans] = None,
             block_tables: Optional[torch.Tensor] = None):
-    """tokens: (B, S) int. Returns (final-normed hidden (B, S, d), the MoE
-    aux loss summed over the layers (0.0 without MoE layers), caches); the
-    caches are updated in place."""
+    """tokens: (B, S) int; optional ``frontend_embeds`` (B, Sf, d), a stub
+    frontend's patch or frame embeddings, go before the token embeddings.
+    Returns (final-normed hidden (B, Sf + S, d), the MoE aux loss summed
+    over the layers (0.0 without MoE layers), caches); the caches are
+    updated in place. An M-RoPE model's three position streams are the
+    positions broadcast three times, as in the reference."""
     x = layers.embed(params["tok"], tokens)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     if positions is None:
         start = cache_len if cache_len is not None else 0
@@ -168,7 +174,11 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         positions = start + torch.arange(s, dtype=torch.int32,
                                          device=x.device)[None, :]
         positions = torch.broadcast_to(positions, (b, s))
-    x, aux = _run_groups(cfg, params, x, positions=positions, caches=caches,
+    positions3 = None
+    if cfg.mrope:
+        positions3 = torch.broadcast_to(positions[None], (3, b, s))
+    x, aux = _run_groups(cfg, params, x, positions=positions,
+                         positions3=positions3, caches=caches,
                          cache_len=cache_len, plans=plans,
                          block_tables=block_tables)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -176,16 +186,30 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 
 def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            labels: torch.Tensor, *, loss_chunk: int = 2048,
-            plans: Optional[KernelPlans] = None):
+            labels: torch.Tensor, *, frontend_embeds=None,
+            loss_chunk: int = 2048, plans: Optional[KernelPlans] = None):
     """Causal LM loss of a full-sequence forward. labels: (B, S) int, -1 =
     ignore. As in the reference, the vocab projection and the softmax run
     in sequence chunks (the largest power-of-two share of ``loss_chunk``
     that divides S), with the padded vocab masked, so the (tokens x vocab)
     logits never materialize whole. Returns (total, {loss, aux, tokens}),
-    ``total = loss + router_aux_weight * aux``."""
-    x, aux, _ = forward(cfg, params, tokens, plans=plans)
+    ``total = loss + router_aux_weight * aux``. Frontend positions carry
+    no label."""
+    x, aux, _ = forward(cfg, params, tokens, frontend_embeds=frontend_embeds,
+                        plans=plans)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    if frontend_embeds is not None:
+        pad = labels.new_full(frontend_embeds.shape[:2], -1)
+        labels = torch.cat([pad, labels], dim=1)
+    return chunked_xent(cfg, params, x, labels, aux, loss_chunk)
+
+
+def chunked_xent(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                 labels: torch.Tensor, aux, loss_chunk: int = 2048):
+    """The chunked LM cross-entropy of final hidden states ``x`` against
+    ``labels`` (-1 = ignore), shared by the decoder-only and the enc-dec
+    losses. Returns (loss + router_aux_weight * aux, {loss, aux,
+    tokens})."""
     b, s, _ = x.shape
     chunk = min(loss_chunk, s)
     while s % chunk:
@@ -270,7 +294,8 @@ def cache_attn_kinds(cfg: ModelConfig):
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            max_len: int, *, plans: Optional[KernelPlans] = None,
+            max_len: int, *, frontend_embeds=None,
+            plans: Optional[KernelPlans] = None,
             caches=None, prefix_len: int = 0):
     """Run the prompt into ``max_len``-deep caches. Attention runs over the
     whole cache depth at ``q_offset = prefix_len``, as in the reference.
@@ -286,7 +311,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """
     if caches is None:
         caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
-    x, _, caches = forward(cfg, params, tokens, caches=caches,
+    x, _, caches = forward(cfg, params, tokens,
+                           frontend_embeds=frontend_embeds, caches=caches,
                            cache_len=int(prefix_len), plans=plans)
     return x, caches
 

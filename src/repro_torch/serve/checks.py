@@ -18,24 +18,33 @@ from typing import Any, Sequence
 
 import torch
 
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, layers, transformer
 from repro_torch.models.config import ModelConfig
 
 LOGIT_TOL = 0.05           # f32 logits
 
 
 def teacher_forced_gap(cfg: ModelConfig, params: Any,
-                       prompt: Sequence[int], tokens: Sequence[int]) -> float:
+                       prompt: Sequence[int], tokens: Sequence[int], *,
+                       frontend_embeds=None, src_embeds=None) -> float:
     """The largest amount by which a greedy token of ``tokens`` (emitted
     after ``prompt``) falls below the best logit of one full-sequence
     forward at its position. ``params`` are prepared serving params
     (``Model.prepare``, as ``Engine.params`` holds them); the forward runs
-    on their device."""
+    on their device. A frontend model's forward takes the row's
+    ``frontend_embeds`` (1, Sf, d) before the text; an enc-dec model's
+    decoder reads the encoder's output of ``src_embeds`` (1, Ss, d)."""
     device = params["tok"]["embed"].device
     seq = torch.as_tensor(list(prompt) + list(tokens[:-1]), dtype=torch.int32,
                           device=device)[None]
     start, vocab = len(prompt) - 1, cfg.vocab_size
-    x, _, _ = transformer.forward(cfg, params, seq)
+    if cfg.family == "encdec":
+        x, _ = encdec.decode(cfg, params, seq,
+                             encdec.encode(cfg, params, src_embeds))
+    else:
+        x, _, _ = transformer.forward(cfg, params, seq,
+                                      frontend_embeds=frontend_embeds)
+        start += x.shape[1] - seq.shape[1]      # past the frontend
     logits = layers.unembed_logits(params["tok"], x[0, start:])[:, :vocab]
     picked = logits.gather(1, torch.as_tensor(
         [int(t) for t in tokens], device=device)[:, None].long())[:, 0]
@@ -44,10 +53,12 @@ def teacher_forced_gap(cfg: ModelConfig, params: Any,
 
 def teacher_forced_check(cfg: ModelConfig, params: Any,
                          prompt: Sequence[int], tokens: Sequence[int],
-                         label: str, tol: float = LOGIT_TOL) -> float:
-    """:func:`teacher_forced_gap`, raising ``SystemExit`` past ``tol``;
-    returns the gap."""
-    gap = teacher_forced_gap(cfg, params, prompt, tokens)
+                         label: str, tol: float = LOGIT_TOL,
+                         **inputs) -> float:
+    """:func:`teacher_forced_gap` (``inputs``: its ``frontend_embeds`` or
+    ``src_embeds``), raising ``SystemExit`` past ``tol``; returns the
+    gap."""
+    gap = teacher_forced_gap(cfg, params, prompt, tokens, **inputs)
     if not gap <= tol:
         raise SystemExit(
             f"{label}: a greedy token is {gap:.4f} below the teacher-forced "

@@ -568,9 +568,15 @@ class Engine:
         early at that granularity — never per token.
         """
         self.last_stats = {"host_syncs": 0, "decode_steps": 0}
-        vocab, eos = self.model.cfg.vocab_size, self.ecfg.eos_token
+        cfg, eos = self.model.cfg, self.ecfg.eos_token
+        vocab = cfg.vocab_size
         logits, state = self.prefill(batch)
-        cache_len = torch.tensor(batch["tokens"].shape[1], dtype=torch.int32,
+        # a frontend's embeddings fill the first cache positions; an
+        # enc-dec model's source frames live in the encoder, not the cache
+        prompt_len = batch["tokens"].shape[1]
+        if cfg.family != "encdec":
+            prompt_len += cfg.frontend_len
+        cache_len = torch.tensor(prompt_len, dtype=torch.int32,
                                  device=self.core.device)
         tok = torch.argmax(logits[:, -1, :vocab], dim=-1).to(torch.int32)
         done = tok == eos

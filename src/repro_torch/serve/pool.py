@@ -173,6 +173,11 @@ class PoolManager:
         geom = sch.pages
         if geom is None:
             raise ValueError("init_paged_pool needs a paged scheduler")
+        cfg = self.model.cfg
+        if cfg.family == "encdec" or cfg.frontend_len:
+            raise NotImplementedError(
+                "paged serving targets decoder-only token-prompt models; "
+                "others go through one-shot generate()")
         from repro_torch.models import transformer
         from repro_torch.models.api import has_recurrent_state
         cfg, dev = self.model.cfg, self.device

@@ -7,7 +7,10 @@ covers summation order. The paged kernel's split page walk (per-split
 ``(m, l, acc)`` partials merged in split order) is emulated here in f32
 and held to the same oracles at 1e-5. The ``cuda`` tests hold both Hopper
 kernels to their plain versions (bf16, atol = rtol = 2e-2), flash also at
-(D, Dv) = (192, 128), the paged kernel's output bit for bit across batch
+(D, Dv) = (192, 128) and (64, 64) (seamless-m4t's encoder, causal
+decoder and cross-attention down to one query row), and windowed at
+(128, 128) (gemma3's 1024 window over 4096 positions, and paged decode at
+frontiers past it), the paged kernel's output bit for bit across batch
 compositions and block-table widths, and flash at (128, 128) bit for bit
 to the outputs of the kernel before its (D, Dv) template.
 """
@@ -129,10 +132,11 @@ def test_flash_wrapper_on_cpu_takes_the_plain_version():
 
 @pytest.mark.parametrize("d,dv", [(128, 128), (192, 128), (64, 64),
                                   (192, 192), (128, 64), (256, 128),
-                                  (128, 192)])
+                                  (128, 192), (64, 128)])
 def test_flash_wrapper_shape_checks(d, dv):
     """The wrapper's checks (run before any launch): (D, Dv) in
-    ``HEAD_DIMS`` = {(128, 128), (192, 128)} pass and give the output's
+    ``HEAD_DIMS`` = {(128, 128), (192, 128), (64, 64)} pass and give the
+    output's
     shape with Dv, every other pair raises; so do a K narrower than Q, V
     off K's sequence, a batch or GQA grouping q does not share, f32 and a
     strided last axis."""
@@ -145,7 +149,7 @@ def test_flash_wrapper_shape_checks(d, dv):
     else:
         with pytest.raises(ValueError, match="HEAD_DIMS|Dv"):
             check_inputs(q, k, v)
-    assert HEAD_DIMS == ((128, 128), (192, 128))
+    assert HEAD_DIMS == ((128, 128), (192, 128), (64, 64))
     good = (t(2, 8, 5, 192), t(2, 2, 7, 192), t(2, 2, 7, 128))
     for bad in ((good[0], t(2, 2, 7, 128), good[2]),
                 (good[0], good[1], t(2, 2, 6, 128)),
@@ -527,6 +531,74 @@ def test_flash_kernel_cases_on_the_card(case):
 
 #: flash cases at MLA's widths on the card: (B, H, Sq, Skv, kwargs),
 #: D = 192 (nope 128 + rope 64), Dv = 128, Hq = Hkv (deepseek-v2)
+#: seamless-m4t-medium's three kinds of call at (64, 64), 16 heads over
+#: 16: (B, Sq, Skv, kwargs)
+FLASH_D64_CASES = {
+    "encoder": (4, 512, 512, {"causal": False}),
+    "decoder-prefill": (4, 256, 256, {}),
+    "cross": (4, 256, 512, {"causal": False}),
+    "cross-one-row": (4, 1, 512, {"causal": False}),
+    "ragged-at-offset": (2, 300, 333, {"q_offset": 33}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_D64_CASES))
+def test_flash_kernel_d64_on_the_card(case):
+    """The kernel at (D, Dv) = (64, 64) on the model's ``transpose(1, 2)``
+    views against its plain version (bf16, atol = rtol = 2e-2), one launch
+    counted for its instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, sq, skv, kw = FLASH_D64_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def view(seq):
+        return torch.randn((b, seq, 16, 64), generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v = view(sq), view(skv), view(skv)
+    before = flash_attention.launches_by_dims[64, 64]
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_dims[64, 64] == before + 1
+    torch.testing.assert_close(got.float(), ref.attention_ref(
+        q, k, v, **kw).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_windowed_kernels_past_the_window_on_the_card():
+    """gemma3's window on the card: flash (128, 128) over 4096 positions
+    with a 1024 window (the blocks behind the band skipped), and paged
+    decode at frontiers 2048-4095 with the same window, each against its
+    plain version (bf16, atol = rtol = 2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = rnd(1, 32, 4096, 128), rnd(1, 16, 4096, 128), rnd(1, 16, 4096,
+                                                                 128)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, window=1024).float(),
+        ref.attention_ref(q, k, v, window=1024).float(), atol=2e-2,
+        rtol=2e-2)
+    pt, p = 16, 256
+    kp, vp = rnd(4 * p + 1, 16, pt, 128), rnd(4 * p + 1, 16, pt, 128)
+    bt = (torch.randperm(4 * p, generator=g, device="cuda") + 1).reshape(
+        4, p).to(torch.int32)
+    cl = torch.tensor([2048, 2900, 3333, 4095], dtype=torch.int32,
+                      device="cuda")
+    qd = rnd(4, 32, 1, 128)
+    torch.testing.assert_close(
+        paged_flash_decode(qd, kp, vp, bt, cl, window=1024).float(),
+        paged_flash_decode_plain(qd, kp, vp, bt, cl, window=1024).float(),
+        atol=2e-2, rtol=2e-2)
+
+
 FLASH_MLA_CASES = {
     "admission-b4-sq256": (4, 128, 256, 256, {}),
     "over-the-depth": (4, 128, 256, 288, {}),

@@ -13,6 +13,16 @@ PyTorch's differ in the last bit of about a third of their outputs.
 Wherever the reference's top-2 margin exceeds 2e-2, the argmax
 must agree.
 
+That 1e-2 was measured at the smoke configs' 2 layers; bf16 noise grows
+with depth. ``gemma3-27b``'s smoke config has 8 layers (window 16, 5:1
+local:global; the decode steps run past the window, so both the slab's
+mask and the page walk's ``cache_len - window`` mask cut positions off),
+and it is held at ``DEEP_LOGIT_TOL = 2e-2`` beside its depth control, the
+same network without the window (``gemma3-27b-nowindow``), at the same
+tolerance. Measured on the CPU: gemma3 1.20e-2 (prefill + dense decode)
+and 1.01e-2 (paged); the control 1.03e-2 and 1.24e-2. The window adds
+nothing the depth does not.
+
 MoE models (qwen3-moe-30b-a3b, deepseek-v2-236b) route every token in both
 frameworks; the routes are recorded (the reference's through
 ``jax.debug.callback``) and must name the same experts. Where they part,
@@ -24,6 +34,8 @@ token are left out of that step's logit check: their MoE output takes
 another expert. The test reports each part; it never re-seeds to avoid
 one.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -45,8 +57,14 @@ LOGIT_TOL = 1e-2
 MARGIN = 2e-2
 BF16_RTOL = 1.6e-2
 ROUTE_TIE = 1e-2
+#: gemma3-27b's smoke config (8 layers, window 16, 5:1 local:global) and
+#: the same network without its window, the depth control
+WINDOW_FREE = "gemma3-27b-nowindow"
 ARCHS = ["qwen2.5-3b", "yi-6b", "mistral-nemo-12b", "qwen3-moe-30b-a3b",
-         "deepseek-v2-236b"]
+         "deepseek-v2-236b", "gemma3-27b", WINDOW_FREE]
+#: logit tolerance by depth: the smoke configs' 2 layers, gemma3's 8
+DEEP_LOGIT_TOL = 2e-2
+TOL = {WINDOW_FREE: DEEP_LOGIT_TOL, "gemma3-27b": DEEP_LOGIT_TOL}
 
 
 def _to_np(tree):
@@ -58,9 +76,16 @@ def pair():
     """(jax model, jax params, port model, port params) per arch, built once."""
     out = {}
     for arch in ARCHS:
-        jm = j_build_model(j_get_reduced(arch))
+        if arch == WINDOW_FREE:
+            jcfg = dataclasses.replace(j_get_reduced("gemma3-27b"),
+                                       window=None)
+            tcfg = dataclasses.replace(get_reduced("gemma3-27b"),
+                                       window=None)
+        else:
+            jcfg, tcfg = j_get_reduced(arch), get_reduced(arch)
+        jm = j_build_model(jcfg)
         jp = jm.init(jax.random.PRNGKey(0))
-        tm = build_model(get_reduced(arch), device="cpu")
+        tm = build_model(tcfg, device="cpu")
         out[arch] = (jm, jp, tm, params_from_numpy(_to_np(jp), "cpu"))
     return out
 
@@ -190,14 +215,14 @@ def routing(monkeypatch):
     return parted
 
 
-def _check_logits(got, want, what, skip_rows=()):
+def _check_logits(got, want, what, skip_rows=(), tol=LOGIT_TOL):
     """Holds the rows not in ``skip_rows`` (at least one must be left)."""
     keep = [r for r in range(got.shape[0]) if r not in skip_rows]
     assert keep, f"{what}: every row parted, no logits left to compare"
     got = got.numpy().astype(np.float64)[keep]
     want = np.asarray(want, np.float64)[keep]
     err = np.abs(got - want).max()
-    assert err <= LOGIT_TOL, f"{what}: max |dlogit| {err:.3e}"
+    assert err <= tol, f"{what}: max |dlogit| {err:.3e}"
     flat_j = want.reshape(-1, want.shape[-1])
     flat_t = got.reshape(-1, got.shape[-1])
     top2 = np.sort(flat_j, axis=-1)[:, -2:]
@@ -217,10 +242,11 @@ def test_prefill_and_dense_decode_match_jax(pair, arch, routing):
     prompt = rng.randint(2, cfg.vocab_size, size=(b, s)).astype(np.int32)
     forced = rng.randint(2, cfg.vocab_size, size=(steps, b)).astype(np.int32)
     j_decode = jax.jit(jm.decode_step)
+    tol = TOL.get(arch, LOGIT_TOL)
     jl_, jstate = jm.prefill(jp, {"tokens": jnp.asarray(prompt)}, max_len)
     tl_, tstate = tm.prefill(tp, {"tokens": _t(prompt)}, max_len)
     parted = routing(b, f"{arch} prefill")
-    _check_logits(tl_, jl_, f"{arch} prefill", parted)
+    worst = _check_logits(tl_, jl_, f"{arch} prefill", parted, tol)
     for i in range(steps):
         jl_, jstate = j_decode(jp, jnp.asarray(forced[i])[:, None], jstate,
                                jnp.asarray(s + i, jnp.int32))
@@ -228,7 +254,9 @@ def test_prefill_and_dense_decode_match_jax(pair, arch, routing):
                                      torch.tensor(s + i, dtype=torch.int32))
         what = f"{arch} dense decode step {i}"
         # a row parted in prefill attends over its other K/V from then on
-        _check_logits(tl_, jl_, what, parted | routing(b, what))
+        worst = max(worst, _check_logits(tl_, jl_, what,
+                                         parted | routing(b, what), tol))
+    print(f"{arch} prefill + dense decode: max |dlogit| {worst:.3e}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -247,6 +275,7 @@ def test_paged_decode_matches_jax(pair, arch, routing):
     import repro.models.transformer as jt
     jpool = {"caches": jt.init_paged_caches(jm.cfg, 2, n_pages, pt)}
     parted = set()
+    tol, worst = TOL.get(arch, LOGIT_TOL), 0.0
     tpool = {"caches": transformer.init_paged_caches(cfg, 2, n_pages, pt,
                                                      "cpu")}
     for slot, n in enumerate(lens):
@@ -259,7 +288,7 @@ def test_paged_decode_matches_jax(pair, arch, routing):
         what = f"{arch} paged admission {slot}"
         if routing(1, what):
             parted.add(slot)
-        _check_logits(tl_, jl_, what, parted)
+        worst = max(worst, _check_logits(tl_, jl_, what, parted, tol))
         jpool = jm.slot_update_paged(jpool, jrow, jnp.asarray(slot),
                                      jnp.asarray(bt[slot]), pt)
         tpool = tm.slot_update_paged(tpool, trow, slot, _t(bt[slot]), pt)
@@ -272,8 +301,10 @@ def test_paged_decode_matches_jax(pair, arch, routing):
         tl_, tpool = tm.decode_step(tp, _t(forced[i])[:, None], tpool,
                                     _t(cache_len), block_tables=_t(bt))
         what = f"{arch} paged decode step {i}"
-        _check_logits(tl_, jl_, what, parted | routing(2, what))
+        worst = max(worst, _check_logits(tl_, jl_, what,
+                                         parted | routing(2, what), tol))
         cache_len = cache_len + 1
+    print(f"{arch} paged decode: max |dlogit| {worst:.3e}")
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-236b"])
@@ -304,11 +335,11 @@ def test_moe_loss_and_aux_match_jax(pair, arch, routing):
 
 def test_unported_families_raise():
     """The families the port does not serve yet name the ROADMAP item that
-    brings them: the hybrid (jamba, A9), M-RoPE and frontends (qwen2-vl,
-    A7), encoder-decoder (seamless, A10)."""
-    for arch, item in (("jamba-1.5-large-398b", "A9"),
-                       ("qwen2-vl-2b", "A7"),
-                       ("seamless-m4t-medium", "A10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            build_model(get_reduced(arch), device="cpu")
+    brings them: the hybrid (jamba, A9). M-RoPE with its frontend
+    (qwen2-vl) and the encoder-decoder (seamless) build."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        build_model(get_reduced("jamba-1.5-large-398b"), device="cpu")
+    for arch in ("qwen2-vl-2b", "seamless-m4t-medium"):
+        assert build_model(get_reduced(arch), device="cpu").cfg.name \
+            == get_reduced(arch).name
 

@@ -10,21 +10,31 @@ them after the layer's norm. Tolerances:
   = 1.6e-2, 1-2 bf16 ulp (the frameworks round bf16 at different places;
   ``test_torch_model.py``'s layer tolerance); the aux loss within 1e-5
   relative (f32 means of the same routing);
-* the grouped version (bf16 operands, f32 accumulation, bf16 GEMM
-  outputs; one grouped GEMM a projection over offsets computed on the
-  device), at a prefill's and at a decode step's token counts, against
-  the reference's ``moe_block(impl="ep")`` under a one-device mesh with a
-  ``model`` axis, which runs ``_moe_ep_inner`` at one shard (``ragged_dot``
-  on bf16 operands, f32 outputs): the same bf16 tolerance (the port's
-  bf16 GEMM outputs add one rounding); and against the port's plain
-  version at 3e-2 (bf16 operand rounding against f32 experts); its
-  grouped GEMM equals one f32 matmul per expert, rounded to bf16, bit for
-  bit;
+* the grouped version (bf16 operands, f32 accumulation, f32 GEMM
+  outputs, as the reference's ``ragged_dot``; one grouped GEMM a
+  projection over offsets computed on the device), at a prefill's and at
+  a decode step's token counts, against the reference's
+  ``moe_block(impl="ep")`` under a one-device mesh with a ``model`` axis,
+  which runs ``_moe_ep_inner`` at one shard: within ``EP_TOL = 1.2e-2``
+  (atol = rtol). Measured on the CPU over four input seeds: qwen3-moe
+  reads 0 (bit for bit) at both token counts; deepseek-v2 up to 1.12e-2
+  (7.95e-3 on this file's inputs), one bf16 ulp of outputs up to 4.5 from
+  its shared expert's bf16 SwiGLU (the frameworks' SiLU roundings). Before
+  the grouped GEMM wrote f32 it was held at the bf16 1.6e-2. Against the
+  port's plain version at 3e-2 (bf16 operand rounding against f32
+  experts); its grouped GEMM returns f32 and equals one f32 matmul per
+  expert of the bf16-rounded operands, bit for bit;
 * the routed expert ids of the port's router equal the reference's; where
   they part, the assertion reports the reference's top-k margin there.
 
-The ``cuda`` test holds the grouped version to the plain one on the card at
-the same 3e-2 (bf16 operands on cuBLAS against f32 experts).
+The ``cuda`` tests hold the grouped version to the plain one on the card at
+the same 3e-2 (bf16 operands against f32 experts), and the grouped_gemm
+kernel to its plain version (``F.grouped_mm`` over f32-widened operands)
+at 1e-4 relative to the output's largest value (the two sum the same
+exact f32 products in another order: 1.5e-5 measured at qwen3-moe's
+widths, NVIDIA H100 80GB HBM3). On the CPU, the wrapper's checks: bf16
+operands, contiguous, ``w (E, K, N)`` against ``xs (m, K)``, K and N
+multiples of 8, an ``(E,)`` int32 ``offs`` on ``xs``'s device.
 """
 
 import jax
@@ -38,12 +48,16 @@ from repro.distributed.sharding import make_mesh, use_mesh
 from repro.models import build_model as j_build_model
 from repro.models import moe as jmoe
 from repro_torch.configs import get_reduced
+from repro_torch.kernels import ops
+from repro_torch.kernels.grouped_gemm import (check_inputs, grouped_gemm,
+                                              grouped_gemm_plain)
 from repro_torch.models import build_model, moe
 from repro_torch.models.api import _is_matrix
 from repro_torch.models.bridge import params_from_numpy, params_to_numpy
 
 torch.set_num_threads(1)
 BF16_TOL = 1.6e-2
+EP_TOL = 1.2e-2
 GROUPED_TOL = 3e-2
 ARCHS = ["qwen3-moe-30b-a3b", "deepseek-v2-236b"]
 
@@ -114,7 +128,7 @@ def test_grouped_block_matches_jax_ep(block, tokens):
         jy, jaux = jmoe.moe_block(jp, jnp.asarray(x, jnp.bfloat16), cfg=jcfg,
                                   impl="ep")
     ty, taux = moe.moe_block(tp, _xt(x), cfg=tcfg, impl="grouped")
-    _close(ty, jy.astype(jnp.float32), BF16_TOL)
+    _close(ty, jy.astype(jnp.float32), EP_TOL)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
     plain, _ = moe.moe_block(tp, _xt(x), cfg=tcfg, impl="dense")
     _close(ty, plain.float().numpy(), GROUPED_TOL)
@@ -123,9 +137,9 @@ def test_grouped_block_matches_jax_ep(block, tokens):
 def test_grouped_products_equal_one_matmul_per_expert(block):
     """The offsets are the per-expert counts' running sum, and the grouped
     GEMM over them computes each expert's run of sorted hits as one f32
-    matmul of the bf16-rounded operands, rounded to bf16 (bit for bit on
-    the CPU), experts with no hit (the first, the last and one between)
-    included."""
+    matmul of the bf16-rounded operands, returned in f32 as the
+    reference's ``ragged_dot`` (bit for bit on the CPU), experts with no
+    hit (the first, the last and one between) included."""
     tcfg, _, _, tp, _ = block
     e = tcfg.n_experts
     rng = np.random.RandomState(7)
@@ -137,12 +151,12 @@ def test_grouped_products_equal_one_matmul_per_expert(block):
         torch.bincount(sel_e, minlength=e), 0).tolist()
     xs = torch.from_numpy(rng.randn(20, tcfg.d_model)).to(torch.bfloat16)
     w = tp["we_gate"]
-    want = torch.cat([(rows.float() @ w[g].to(torch.bfloat16).float())
-                      .to(torch.bfloat16)
+    want = torch.cat([rows.float() @ w[g].to(torch.bfloat16).float()
                       for g, rows in enumerate(torch.split(
                           xs, torch.bincount(sel_e, minlength=e).tolist()))])
-    torch.testing.assert_close(moe._grouped(xs, w, offs), want, rtol=0,
-                               atol=0)
+    got = moe._grouped(xs, w, offs)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_auto_runs_dense_on_the_cpu_and_unknown_impl_raises(block):
@@ -243,3 +257,69 @@ def test_grouped_matches_plain_on_the_card(arch):
         torch.testing.assert_close(got.float(), plain.float(),
                                    atol=GROUPED_TOL, rtol=GROUPED_TOL)
         torch.testing.assert_close(got_aux, aux)
+
+
+# ------------------------------------------------------------ grouped_gemm
+
+def _grouped_case(m, e, k, n, seed, device="cpu"):
+    """Hits sorted by expert (some experts empty), bf16 rows and weights,
+    the offsets ending each expert's run."""
+    rng = np.random.RandomState(seed)
+    sel_e = torch.from_numpy(np.sort(rng.randint(0, e, m))).long()
+    offs = moe._offsets(sel_e, e)
+    xs = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    w = torch.from_numpy((rng.randn(e, k, n) / np.sqrt(k)).astype(np.float32))
+    return (xs.to(torch.bfloat16).to(device), w.to(torch.bfloat16).to(device),
+            offs.to(device))
+
+
+def test_grouped_gemm_checks_its_operands():
+    """Before any launch: bf16 operands, contiguous, w (E, K, N) against
+    xs (m, K), K and N positive multiples of 8, an (E,) contiguous int32
+    offs on xs's device; the output is (m, N). On the CPU the wrapper and
+    ``ops.grouped_matmul`` return the plain version, in f32."""
+    xs, w, offs = _grouped_case(12, 3, 16, 24, 0)
+    assert check_inputs(xs, w, offs) == (12, 24)
+    for bad, err in (((xs.float(), w, offs), TypeError),
+                     ((xs, w.float(), offs), TypeError),
+                     ((xs, w[:, :8], offs), ValueError),
+                     ((xs[:, :12], w[:, :12], offs), ValueError),
+                     ((xs, w[..., :20], offs), ValueError),
+                     ((xs, w.transpose(1, 2).contiguous().transpose(1, 2),
+                       offs), ValueError),
+                     ((xs, w, offs.long()), TypeError),
+                     ((xs, w, offs[:2]), TypeError),
+                     ((xs[None], w, offs), ValueError)):
+        with pytest.raises(err):
+            check_inputs(*bad)
+    plain = grouped_gemm_plain(xs, w, offs)
+    assert plain.dtype == torch.float32 and plain.shape == (12, 24)
+    assert torch.equal(grouped_gemm(xs, w, offs), plain)
+    assert torch.equal(ops.grouped_matmul(xs, w, offs), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,e,k,n", [(8192, 128, 2048, 768), (32, 128, 2048,
+                                                               768),
+                                     (8192, 128, 768, 2048), (37, 16, 64, 40),
+                                     (5, 3, 16, 8)])
+def test_grouped_gemm_matches_plain_on_the_card(m, e, k, n):
+    """The kernel (f32 out) against its plain version at qwen3-moe's widths
+    (a 1024-token admission's 8192 hits and a decode step's 32; the down
+    projection) and ragged small shapes, within 1e-4 of the output's
+    largest value, with no device->host read; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs, w, offs = _grouped_case(m, e, k, n, 1, "cuda")
+    want = grouped_gemm_plain(xs, w, offs)
+    before = grouped_gemm.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = grouped_gemm(xs, w, offs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert grouped_gemm.launches == before + 1
+    assert got.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
