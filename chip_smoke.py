@@ -11,9 +11,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      and its power limit;
   2. build: every CUDA kernel of the port (one nvcc per source, all
      started together), from ``kernels/csrc``; then each library's SASS
-     (``cuobjdump --dump-sass``): matmul3d and flash_attention must hold
-     HGMMA (wgmma, the tensor cores) and UTMALDG (TMA loads), paged decode
-     and grouped_gemm HMMA (``mma.sync``, their tensor cores);
+     (``cuobjdump --dump-sass``): matmul3d, flash_attention and
+     grouped_gemm must hold HGMMA (wgmma, the tensor cores) and UTMALDG
+     (TMA loads), paged decode HMMA (``mma.sync``, its tensor cores);
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at edge cases, with median times of kernel,
      plain version, one library call where there is one, and the bound.
@@ -126,16 +126,17 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      within MOE_TOL and with the same aux loss; the grouped_gemm kernel
      alone at the layer's routes (gate and down projections, T = 1024 and
      T = 4) within GEMM_REL_TOL of its plain version, timed beside
-     ``F.grouped_mm`` (bf16 out) and the hit experts' bytes; the one-shot
-     (flash 16 a
-     admission) and the paged stream (paged 16 a decode step, host syncs
-     once a chunk, decode chunks under the sync guard); every greedy token
-     of the one-shot and of the stream's 8 requests held to teacher-forced
-     passes at the served batch and pool; a full-sequence forward on the
-     step-by-step pass's routes held to that pass within FORCED_ROUTE_TOL,
-     and two control faults in the decode steps alone (K and V
-     projections traded; ``wo`` rounded through fp8) that must fail that
-     gate; the phase's seconds;
+     ``F.grouped_mm`` (bf16 out) and the hit experts' bytes, each by
+     events a call, back to back and by CUDA-graph replay (the device's
+     time alone), with the wrapper's host time a call; the one-shot
+     (flash 16 a admission) and the paged stream (paged 16 a decode step,
+     host syncs once a chunk, decode chunks under the sync guard); every
+     greedy token of the one-shot and of the stream's 8 requests held to
+     teacher-forced passes at the served batch and pool; a full-sequence
+     forward on the step-by-step pass's routes held to that pass within
+     FORCED_ROUTE_TOL, and two control faults in the decode steps alone
+     (K and V projections traded; ``wo`` rounded through fp8) that must
+     fail that gate; the phase's seconds;
   9. deepseek-v2-236b the same way at 3 of 60 layers (the dense first
      layer, then 2 MLA + MoE layers): flash at D = 192, Dv = 128 3 a
      admission, the paged kernel never (MLA decodes in latent space, as
@@ -198,6 +199,7 @@ bit: its recurrent rows only move between slots and f32 seats.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -219,6 +221,8 @@ REPEAT_ROUNDS = 500        # phase 3's attention cases, each called again
 MATMUL_M = 8192            # the paper sweep's size (see mempool_matmul)
 PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 13
 PROFILE_TRIES = 6          # traces taken before the profiler is given up
+PROFILE_PAD_S = 0.5        # host idle at either end of a phase 13 trace
+KERNEL_PAD_S = 0.05        # ... of a kernel's trace of N_TIMED calls
 
 N_TIMED_PLAIN_SCAN = 3    # the plain scan is one Python step per position
 SCAN_TOL = 2e-4            # f32 y and final state (test_mamba_scan_sweep)
@@ -340,9 +344,9 @@ FLASH_D64_CASES = {"encoder": (4, 512, 512, False),
 #: products summed in another order): max |d| over the output's largest
 GEMM_REL_TOL = 1e-4
 #: libraries whose SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
-TENSOR_CORE_KERNELS = ("matmul3d", "flash_attention")
+TENSOR_CORE_KERNELS = ("matmul3d", "flash_attention", "grouped_gemm")
 #: libraries whose SASS must hold mma.sync (HMMA)
-MMA_SYNC_KERNELS = ("paged_attention", "grouped_gemm")
+MMA_SYNC_KERNELS = ("paged_attention",)
 #: the port's kernels by name, as the profiler lists them
 PORT_KERNELS = ("flash_fwd_kernel", "paged_decode_kernel",
                 "mamba_scan_kernel", "mamba_scan_step_kernel", "matmul3d_",
@@ -366,6 +370,25 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@contextlib.contextmanager
+def cuda_trace(pad_s: float):
+    """torch.profiler over CUDA activity only, with ``pad_s`` of host idle
+    inside its window at either end. The profiler keeps a kernel only if
+    its device times, mapped to the host's clock, fall inside the window;
+    on the H100 that mapping parts from the window by up to ~20 ms over a
+    trace of seconds (the profiler's own "Out-of-range" count: up to 659
+    records a trace, the last launches first), so unpadded traces lost
+    the kernels at their ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+
+
 def device_profile(fn, kernel: str = "", n: int = N_TIMED) -> tuple:
     """Device time per call of ``fn`` in the kernels whose names hold
     ``kernel`` (every kernel it launches when empty), over ``n`` calls
@@ -373,22 +396,19 @@ def device_profile(fn, kernel: str = "", n: int = N_TIMED) -> tuple:
     without the host's call path that CUDA events around one call also
     count; and how many CUDA kernels of any name one call launches.
 
-    The profiler now and then returns a trace that lost some or all of its
-    kernel records, a few in a row (on the H100: a partial trace, then two
-    empty ones). Every call of ``fn`` launches the same kernels, so a whole
-    trace holds each kernel a multiple of ``n`` times; any other trace is
-    taken again, up to PROFILE_TRIES traces. Fails if none was whole or
-    none held such a kernel."""
+    The trace is padded (:func:`cuda_trace`). Every call of ``fn``
+    launches the same kernels, so a whole trace holds each kernel a
+    multiple of ``n`` times; any other trace is taken again, up to
+    PROFILE_TRIES traces. Fails if none was whole or none held such a
+    kernel."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with cuda_trace(KERNEL_PAD_S) as prof:
             for _ in range(n):
                 fn()
-            torch.cuda.synchronize()
         cuda = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         if cuda and all(e.count % n == 0 for e in cuda):
@@ -971,36 +991,19 @@ def seeded(seed: int):
     return make
 
 
-def back_to_back_ms(fn, n: int = N_TIMED) -> float:
-    """Time per call of ``n`` calls of ``fn`` queued back to back between
-    two CUDA events: the device's time when it, not the host's call path,
-    is the slower (kernels of 0.04 ms and up here); used where the
-    profiler drops kernel records of long traces (phase 8's grouped GEMMs
-    lost them in every retake on an NVIDIA H100 80GB HBM3)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def time_case(label, kernel, plain, library, name, n_bytes, n_ops,
               back_to_back: bool = False) -> dict:
     """A kernel's median time (CUDA events: the host path included) and
     device time (profiler, kernels named ``name``; or with
-    ``back_to_back`` :func:`back_to_back_ms`) beside its plain version,
-    one library call (or None) and the bound of ``n_bytes`` and
-    ``n_ops``."""
-    from repro_torch.benchmarks.common import median_ms
+    ``back_to_back`` N_TIMED calls queued back to back between two events,
+    where the profiler drops kernel records of long traces, as phase 8's
+    grouped GEMMs lost them in every retake on an NVIDIA H100 80GB HBM3)
+    beside its plain version, one library call (or None) and the bound of
+    ``n_bytes`` and ``n_ops``."""
+    from repro_torch.benchmarks.common import back_to_back_ms, median_ms
 
     def on_device(fn, kernel_name=""):
-        return back_to_back_ms(fn) if back_to_back else device_ms(
+        return back_to_back_ms(fn, N_TIMED) if back_to_back else device_ms(
             fn, kernel_name)
 
     ms = median_ms(kernel, N_TIMED)
@@ -2197,46 +2200,54 @@ def grouped_gemm_cases(cfg, p, x, label) -> dict:
     d_model, N = moe_d_ff) and the down projection (K = moe_d_ff, N =
     d_model), against its plain version within GEMM_REL_TOL, timed beside
     ``F.grouped_mm`` (bf16 out, the yardstick) and the bound of the hit
-    experts' weights, the rows and the f32 output; device times are
-    25 calls back to back between two events (``back_to_back_ms``)."""
+    experts' weights, the rows and the f32 output: by events a call, 25
+    calls back to back between two events (``device_ms``), and the
+    device's time alone, 25 calls in one CUDA graph replayed between two
+    events (``graph_ms``, ``library_graph_ms``); and the wrapper's host
+    time a call (``host_ms``: ``grouped_gemm_ab.N_HOST`` calls with no
+    synchronisation). The cases, their work and the host count are
+    ``benchmarks/grouped_gemm_ab.py``'s."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.benchmarks.common import graph_ms, host_ms
+    from repro_torch.benchmarks.grouped_gemm_ab import (N_HOST, case_work,
+                                                        experts_hit,
+                                                        routed_inputs)
     from repro_torch.kernels.grouped_gemm import (grouped_gemm,
-                                                  grouped_gemm_plain)
-    from repro_torch.models import moe
-    xt = x.reshape(-1, cfg.d_model)
-    _, idx, _ = moe._route(p["router"], xt, cfg.top_k)
-    flat_e = idx.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    offs = moe._offsets(flat_e[order], cfg.n_experts)
-    hit = int((torch.diff(offs, prepend=offs.new_zeros(1)) > 0).sum())
-    cap = flat_e.numel()
-    rows = {"gate": xt[order // cfg.top_k].contiguous(),
-            "down": torch.randn((cap, cfg.moe_d_ff), device="cuda").to(
-                torch.bfloat16)}
+                                                  grouped_gemm_plain,
+                                                  launch_config)
     out = {}
-    for proj, w in (("gate", p["we_gate"]), ("down", p["we_down"])):
-        xs = rows[proj]
-        k, n = w.shape[1], w.shape[2]
+    for proj, (xs, w, offs) in routed_inputs(cfg, p, x).items():
+        cap, k, n = xs.shape[0], w.shape[1], w.shape[2]
+        hit = experts_hit(offs)
         got = grouped_gemm(xs, w, offs)
         want = grouped_gemm_plain(xs, w, offs)
         err = (got - want).abs().max().item()
         rel = err / want.abs().max().item()
+        conf = launch_config(cap, k, n, w.shape[0])
         name = (f"grouped_gemm {label} {proj} ({cap} hits of {hit} "
-                f"experts, K={k}, N={n})")
+                f"experts, K={k}, N={n}; {conf.regime}, {conf.bm} x "
+                f"{conf.bn} tiles)")
         if not (torch.isfinite(got).all() and rel <= GEMM_REL_TOL):
             fail(f"{name}: max |d| {err:.3e}, {rel:.2e} of the largest value "
                  f"(tolerance {GEMM_REL_TOL})")
         log(f"  {name}: max |d| {err:.3e} ({rel:.2e} of the largest)  ok")
+        kernel = functools.partial(grouped_gemm, xs, w, offs)
+        library = functools.partial(F.grouped_mm, xs, w, offs=offs)
         timing = time_case(
-            name, functools.partial(grouped_gemm, xs, w, offs),
-            functools.partial(grouped_gemm_plain, xs, w, offs),
-            functools.partial(F.grouped_mm, xs, w, offs=offs),
-            "grouped_gemm_kernel",
-            2 * hit * k * n + 2 * xs.numel() + 4 * cap * n + 4 * offs.numel(),
-            2.0 * cap * k * n, back_to_back=True)
+            name, kernel, functools.partial(grouped_gemm_plain, xs, w, offs),
+            library, "grouped_gemm_kernel", *case_work(xs, w, offs),
+            back_to_back=True)
+        timing.update(graph_ms=graph_ms(kernel, N_TIMED),
+                      library_graph_ms=graph_ms(library, N_TIMED),
+                      host_ms=host_ms(kernel, N_HOST))
+        log(f"    device alone (CUDA graph, {N_TIMED} calls): kernel "
+            f"{timing['graph_ms']:.4f} ms, F.grouped_mm "
+            f"{timing['library_graph_ms']:.4f} ms; the wrapper's host time "
+            f"{timing['host_ms']:.4f} ms a call")
         out[f"gemm_{label}_{proj}"] = dict(err=err, rel_err=rel, hits=cap,
-                                           experts_hit=hit, **timing)
+                                           experts_hit=hit,
+                                           regime=conf.regime, **timing)
     return out
 
 
@@ -2619,7 +2630,6 @@ def phase_profile(cfg, kv_quant=None) -> None:
     target on the card."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.target import use_target
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Engine, EngineConfig
@@ -2643,7 +2653,7 @@ def phase_profile(cfg, kv_quant=None) -> None:
             for spec in synthetic_stream(8, 512, 64, cfg.vocab_size):
                 sch.submit(spec["prompt"], spec["max_new_tokens"])
             before = read_counts()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with cuda_trace(PROFILE_PAD_S) as prof:
                 t0 = time.perf_counter()
                 engine.serve(scheduler=sch, max_steps=PROFILE_STEPS)
                 torch.cuda.synchronize()

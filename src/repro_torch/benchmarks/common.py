@@ -83,3 +83,68 @@ def median_ms(fn: Callable[[], Any], n: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn: Callable[[], Any], n: int, replays: int = 5) -> float:
+    """Device time per call of ``fn`` alone: ``n`` calls captured once in a
+    CUDA graph, the graph replayed between two CUDA events, the median of
+    ``replays`` replays over ``n`` (card only). Neither the host's call
+    path nor the profiler is in it: the graph launches the captured
+    kernels back to back."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+def host_ms(fn: Callable[[], Any], n: int) -> float:
+    """The host's time per call of ``fn``: wall time of ``n`` calls with no
+    synchronisation between them, over ``n``, after the device has
+    drained (card only). The device runs behind while the host is the
+    faster; ``n`` stays well under the launch queue's depth."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / n * 1e3
+
+
+def back_to_back_ms(fn: Callable[[], Any], n: int) -> float:
+    """Time per call of ``n`` calls of ``fn`` queued back to back between
+    two CUDA events (card only): the device's time where it, and not the
+    host's call path, is the slower."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n

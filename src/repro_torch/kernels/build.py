@@ -58,7 +58,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "mamba_scan_error_string": (ctypes.c_char_p, [_I]),
     },
     "grouped_gemm": {
-        "grouped_gemm_bf16_f32": (_I, [_P] * 4 + [_I] * 4 + [_P]),
+        "grouped_gemm_bf16_f32": (_I, [_P] * 4 + [_I] * 7 + [_P]),
         "grouped_gemm_max_experts": (_I, []),
         "grouped_gemm_error_string": (ctypes.c_char_p, [_I]),
     },

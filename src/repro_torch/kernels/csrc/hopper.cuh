@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the port's kernels: for the tensor-core
-// kernels (matmul3d.cu, flash_attention.cu) tensor maps for the Tensor
-// Memory Accelerator (TMA), mbarriers, TMA loads, wgmma shared-memory
-// descriptors and the wgmma instructions themselves; for the others
-// (paged_attention.cu, mamba_scan.cu) cp.async copies. Everything here is
-// inline PTX for sm_90a; the build keys every library on this header's
-// bytes too (build.py), so an edit here rebuilds every kernel.
+// kernels (matmul3d.cu, flash_attention.cu, grouped_gemm.cu) tensor maps
+// for the Tensor Memory Accelerator (TMA), mbarriers, TMA loads, wgmma
+// shared-memory descriptors and the wgmma instructions themselves; for the
+// others (paged_attention.cu, mamba_scan.cu) cp.async copies. Everything
+// here is inline PTX for sm_90a; the build keys every library on this
+// header's bytes too (build.py), so an edit here rebuilds every kernel.
 //
 // Shared-memory layouts. A tile is stored as "chunks" of CW columns along
 // its contiguous axis (CW = 32 or 64 bf16, i.e. 64- or 128-byte rows), each
@@ -130,6 +130,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

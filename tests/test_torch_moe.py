@@ -30,11 +30,17 @@ them after the layer's norm. Tolerances:
 The ``cuda`` tests hold the grouped version to the plain one on the card at
 the same 3e-2 (bf16 operands against f32 experts), and the grouped_gemm
 kernel to its plain version (``F.grouped_mm`` over f32-widened operands)
-at 1e-4 relative to the output's largest value (the two sum the same
-exact f32 products in another order: 1.5e-5 measured at qwen3-moe's
-widths, NVIDIA H100 80GB HBM3). On the CPU, the wrapper's checks: bf16
-operands, contiguous, ``w (E, K, N)`` against ``xs (m, K)``, K and N
-multiples of 8, an ``(E,)`` int32 ``offs`` on ``xs``'s device.
+at ``GEMM_REL_TOL`` = 1e-4 relative to the output's largest value (the
+two sum the same exact f32 products in another order: 1.5e-5 measured at
+qwen3-moe's widths, NVIDIA H100 80GB HBM3), each call under the sync
+guard and one launch: qwen3-moe's widths, both regimes' edges (m 63 / 64
+/ 65; 767 / 768 / 769 at 16 experts), K and N off the tiles, 64-row
+admission tiles, jamba's 16 experts x 128 rows at K 8192; and bit for
+bit, that two calls agree and that a row's output does not move with
+the other rows of its call (permuted inside each expert; alone at a
+decode step). On the CPU, the wrapper's checks: bf16 operands,
+contiguous, ``w (E, K, N)`` against ``xs (m, K)``, K and N multiples of
+8, an ``(E,)`` int32 ``offs`` on ``xs``'s device.
 """
 
 import jax
@@ -56,6 +62,7 @@ from repro_torch.models.api import _is_matrix
 from repro_torch.models.bridge import params_from_numpy, params_to_numpy
 
 torch.set_num_threads(1)
+GEMM_REL_TOL = 1e-4
 BF16_TOL = 1.6e-2
 EP_TOL = 1.2e-2
 GROUPED_TOL = 3e-2
@@ -298,28 +305,112 @@ def test_grouped_gemm_checks_its_operands():
     assert torch.equal(ops.grouped_matmul(xs, w, offs), plain)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,e,k,n", [(8192, 128, 2048, 768), (32, 128, 2048,
-                                                               768),
-                                     (8192, 128, 768, 2048), (37, 16, 64, 40),
-                                     (5, 3, 16, 8)])
-def test_grouped_gemm_matches_plain_on_the_card(m, e, k, n):
-    """The kernel (f32 out) against its plain version at qwen3-moe's widths
-    (a 1024-token admission's 8192 hits and a decode step's 32; the down
-    projection) and ragged small shapes, within 1e-4 of the output's
-    largest value, with no device->host read; one launch a call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    xs, w, offs = _grouped_case(m, e, k, n, 1, "cuda")
-    want = grouped_gemm_plain(xs, w, offs)
+def _kernel_once(xs, w, offs, config=None):
+    """One grouped_gemm call on the card under the sync guard (no
+    device->host read), which must launch the kernel once."""
     before = grouped_gemm.launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = grouped_gemm(xs, w, offs)
+        got = grouped_gemm(xs, w, offs, config=config)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert grouped_gemm.launches == before + 1
     assert got.dtype == torch.float32
-    err = (got - want).abs().max().item()
-    assert err <= 1e-4 * want.abs().max().item(), err
+    return got
+
+
+def _assert_matches_plain(got, xs, w, offs):
+    want = grouped_gemm_plain(xs, w, offs)
+    end = int(offs[-1])
+    err = (got[:end] - want[:end]).abs().max().item()
+    assert err <= GEMM_REL_TOL * want[:end].abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,e,k,n", [(8192, 128, 2048, 768), (32, 128, 2048,
+                                                               768),
+                                     (8192, 128, 768, 2048), (37, 16, 64, 40),
+                                     (5, 3, 16, 8),
+                                     # the decode regime's edge (m <= 64)
+                                     (63, 16, 2048, 768), (64, 16, 2048, 768),
+                                     (65, 16, 2048, 768),
+                                     # 128-row admission tiles from m >= 48 E
+                                     (767, 16, 512, 256), (768, 16, 512, 256),
+                                     (769, 16, 512, 256),
+                                     # K and N off the 64-deep, 64- and
+                                     # 128-wide tiles
+                                     (20, 8, 72, 40), (300, 8, 72, 40),
+                                     (1000, 4, 136, 136), (40, 4, 136, 200),
+                                     # 64-row admission tiles (deepseek-v2's
+                                     # 38 rows an expert)
+                                     (2000, 64, 1024, 512)])
+def test_grouped_gemm_matches_plain_on_the_card(m, e, k, n):
+    """The kernel (f32 out) against its plain version at qwen3-moe's widths
+    (a 1024-token admission's 8192 hits and a decode step's 32; the down
+    projection), 64-row admission tiles, both regimes' edges and ragged
+    K and N, within GEMM_REL_TOL of the output's largest value, with no
+    device->host read; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs, w, offs = _grouped_case(m, e, k, n, 1, "cuda")
+    _assert_matches_plain(_kernel_once(xs, w, offs), xs, w, offs)
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_jamba_family_on_the_card():
+    """jamba-1.5-large's experts (16, K 8192) with 128 rows each (N cut
+    from 24576 to 4096 to keep the plain version's f32 copy small)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    xs = torch.randn((2048, 8192), generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn((16, 8192, 4096), generator=g, device="cuda")
+         / 90.5).to(torch.bfloat16)
+    offs = torch.arange(128, 2049, 128, dtype=torch.int32, device="cuda")
+    _assert_matches_plain(_kernel_once(xs, w, offs), xs, w, offs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,e", [(32, 128), (8192, 128), (1000, 16)])
+def test_grouped_gemm_bits_repeat_and_do_not_depend_on_other_rows(m, e):
+    """Two calls give the same bits; within one regime a row's output is
+    the same whatever rows share its call: the rows permuted inside each
+    expert (so each lands elsewhere in its tile), and in the decode regime
+    each row alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs, w, offs = _grouped_case(m, e, 2048, 768, 3, "cuda")
+    got = _kernel_once(xs, w, offs)
+    assert torch.equal(got, _kernel_once(xs, w, offs))
+    starts = [0] + offs.tolist()[:-1]
+    perm = torch.cat([torch.arange(a, b).flip(0)
+                      for a, b in zip(starts, offs.tolist())]).cuda()
+    moved = _kernel_once(xs[perm].contiguous(), w, offs)
+    assert torch.equal(moved, got[perm])
+    if m <= 64:
+        for i in (0, m // 2, m - 1):
+            g = int(np.searchsorted(offs.cpu().numpy(), i, side="right"))
+            one = (torch.arange(e, device="cuda") >= g).to(torch.int32)
+            alone = _kernel_once(xs[i:i + 1].contiguous(), w, one)
+            assert torch.equal(alone[0], got[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,e,k,n", [(8192, 128, 2048, 768),
+                                     (6144, 160, 5120, 1536),
+                                     (32, 128, 2048, 768), (300, 8, 72, 40)])
+def test_grouped_gemm_tile_shapes_agree_bit_for_bit(m, e, k, n):
+    """Every tile shape of the kernel, forced, gives the whole call the same
+    bits as launch_config's pick (each output element is summed over K in
+    the same order whatever the tile): qwen3-moe's and deepseek-v2's
+    admissions, a decode step, ragged K and N."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.grouped_gemm import TILES
+    xs, w, offs = _grouped_case(m, e, k, n, 4, "cuda")
+    picked = _kernel_once(xs, w, offs)
+    _assert_matches_plain(picked, xs, w, offs)
+    for config in TILES:
+        assert torch.equal(_kernel_once(xs, w, offs, config), picked), config
