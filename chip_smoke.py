@@ -109,7 +109,7 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      a boundary (a role a boundary when disaggregated), and the outputs
      gates pass (disaggregated == combined exactly; sharing, chunking and
      speculation by the teacher-forced rule; a failed gate fails the
-     script after phase 13, so that the later phases still report);
+     script after phase 14, so that the later phases still report);
      launches counted around the phase, and the phase's seconds printed;
   7. falcon-mamba-7b at full width: one-shot generate, the paged stream,
      the dense slot-slab stream, the squeezed paged stream (so the
@@ -167,11 +167,32 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      the falcon-mamba-7b stream under ``torch.profiler`` (CUDA activity
      only): device time by kernel, the device's idle share and the CUDA
      kernels launched;
- 14. the ``kernels`` summary line (launches on the main path, the paged
+ 14. training: each kernel's autograd Function (the kernel forward, a
+     backward from its plain version) against autograd through the plain
+     version at the training paths' shapes, the output and every input
+     gradient within GRAD_TOL of its largest value (flash (128, 128) at
+     qwen2.5-3b's 8 x 128 tokens, 16 query over 2 KV heads, causal;
+     grouped_gemm's gate and down products at one qwen3-moe-30b-a3b
+     layer's 1024-token admission; mamba_scan at falcon-mamba-7b's widths
+     over 8 x 128 tokens), each plain backward timed; qwen2.5-3b at full
+     width trained TRAIN_STEPS steps through ``launch.train.run``
+     (TRAIN_ARGS, remat on): flash 72 launches a step (36 in the forward,
+     36 in the backward's recompute), its plain backward 36 times, no
+     other kernel; every loss finite and the last below the first; step
+     time, tokens/s and peak memory beside the reckoning of f32 params,
+     grads and both moments and the bf16 compute copy; the crash drill at
+     full width cut to DRILL_LAYERS layers with int8 moments (a checkpoint
+     every 2 steps, an injected crash before step 3 exits 17, ``--resume``
+     continues: the resumed losses and the final params and moments equal
+     an uninterrupted run's bit for bit), its saves and restore timed;
+     the phase's seconds;
+ 15. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream; flash at D = 192 a row of
      its own, launched by deepseek-v2's paged stream; flash at D = 64 a
      row launched by seamless-m4t-medium's one-shot; grouped_gemm a row
-     launched by qwen3-moe's paged stream), the card line, and the result
+     launched by qwen3-moe's paged stream; the training launches a step,
+     and each Function's check and plain backward time, on the flash,
+     mamba_scan and grouped_gemm rows), the card line, and the result
      line.
 
 After every phase from 3 on, every counter buffer of paged decode's
@@ -343,6 +364,29 @@ FLASH_D64_CASES = {"encoder": (4, 512, 512, False),
 #: the grouped_gemm kernel against its plain version (the same exact f32
 #: products summed in another order): max |d| over the output's largest
 GEMM_REL_TOL = 1e-4
+#: phase 14: qwen2.5-3b --full trained through the launcher (remat on)
+TRAIN_STEPS = 10
+#: at the launcher's default peak lr of 3e-3 (sized for the smoke configs)
+#: this run's loss fell for 6 steps and then rose past its first value
+#: (12.415 -> 12.154 -> 12.550 on an NVIDIA H100 80GB HBM3); a 3B
+#: model trains at a tenth of that
+TRAIN_ARGS = ["--arch", "qwen2.5-3b", "--full", "--steps", str(TRAIN_STEPS),
+              "--global-batch", "8", "--seq-len", "128", "--lr", "3e-4",
+              "--log-every", "1"]
+#: the crash drill: qwen2.5-3b at full width cut to DRILL_LAYERS layers,
+#: int8 moments, a checkpoint every 2 steps, a crash before step 3; at 2
+#: layers (465.6 M params) its two saves and restore took 70 s (a save of
+#: 2.81 GB in 30 s, on an NVIDIA H100 80GB HBM3's host) and pushed the
+#: phase past 120 s
+DRILL_LAYERS = 1
+DRILL_ARGS = ["--steps", "4", "--global-batch", "8", "--seq-len", "128",
+              "--quantized-moments", "--ckpt-every", "2", "--log-every", "1"]
+#: the kernels' autograd Functions against autograd through their plain
+#: versions: output and each input gradient within this share of its
+#: largest value (bf16 operands)
+GRAD_TOL = 2e-2
+#: qwen3-moe-30b-a3b's routed hits at a 1024-token admission (top 8 of 128)
+GRAD_MOE = (1024 * 8, 2048, 768, 128)
 #: libraries whose SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
 TENSOR_CORE_KERNELS = ("matmul3d", "flash_attention", "grouped_gemm")
 #: libraries whose SASS must hold mma.sync (HMMA)
@@ -521,7 +565,7 @@ def compare(name: str, got, want, tol: float = ATOL) -> float:
 
 def phase_environment() -> str:
     import torch
-    log(f"[1/14] environment: python {sys.version.split()[0]}, torch "
+    log(f"[1/15] environment: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -543,7 +587,7 @@ def phase_build() -> dict:
     (TMA loads). Returns {library: its SASS counts of HGMMA, UTMALDG and
     HMMA (``mma.sync``, the tensor cores without wgmma)}."""
     from repro_torch.kernels import build
-    log("[2/14] build: nvcc " + " ".join(build.NVCC_FLAGS))
+    log("[2/15] build: nvcc " + " ".join(build.NVCC_FLAGS))
     t0 = time.perf_counter()
     build.build_all()
     log(f"  built {', '.join(build.SOURCES)} in "
@@ -579,7 +623,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
     from repro_torch.benchmarks.common import median_ms
     from repro_torch.kernels.paged_attention import (paged_flash_decode,
                                                      paged_flash_decode_plain)
-    log(f"[3/14] kernels against their plain versions (attention: bf16, "
+    log(f"[3/15] kernels against their plain versions (attention: bf16, "
         f"atol = rtol = {ATOL})")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1518,7 +1562,7 @@ def one_shot(cfg, argv, label) -> dict:
 
 
 def phase_one_shot(cfg) -> None:
-    log("[4/14] one-shot generate: " + " ".join(ONE_SHOT))
+    log("[4/15] one-shot generate: " + " ".join(ONE_SHOT))
     rec = one_shot(cfg, ONE_SHOT, "one-shot")
     teacher_forced_check(cfg, reference_params(cfg), one_shot_prompts(cfg)[0],
                          rec["tokens"].numpy()[0], "one-shot row 0")
@@ -1648,7 +1692,7 @@ def phase_stream(cfg) -> dict:
                                              repetitive_stream,
                                              shared_prefix_stream,
                                              synthetic_stream)
-    log("[5/14] qwen2.5-3b streams (every decode and verify chunk under "
+    log("[5/15] qwen2.5-3b streams (every decode and verify chunk under "
         "set_sync_debug_mode('error')); the prefix-shared stream's requests "
         "are all held to the teacher-forced rule")
     recs = {"stream": run_stream(cfg, STREAM, "stream")}
@@ -1763,7 +1807,7 @@ def phase_serve_bench(cfg) -> dict:
     counted around the phase."""
     from repro_torch.benchmarks import serve_bench as sb
     from repro_torch.benchmarks.common import ARTIFACT_ROOT
-    log(f"[6/14] serve_bench head-to-heads: qwen2.5-3b --full, "
+    log(f"[6/15] serve_bench head-to-heads: qwen2.5-3b --full, "
         f"{BENCH_REQUESTS} requests, each run once")
     t0 = time.perf_counter()
     common = dict(arch="qwen2.5-3b", n_requests=BENCH_REQUESTS, full=True,
@@ -1826,7 +1870,7 @@ def phase_serve_bench(cfg) -> dict:
         fail(f"serve_bench: launches {counts}")
     log(f"  serve_bench: launches {counts}; the phase took "
         f"{time.perf_counter() - t0:.1f} s"
-        + (f"; FAILED gates (fatal after phase 13): {failed}" if failed
+        + (f"; FAILED gates (fatal after phase 14): {failed}" if failed
            else ""))
     return {"launches": counts, "gates": gates, "failed": failed,
             "seconds": time.perf_counter() - t0}
@@ -2081,7 +2125,7 @@ def phase_falcon(fcfg) -> dict:
     from repro_torch.core.target import use_target
     from repro_torch.models.api import build_model
     from repro_torch.serve.scheduler import synthetic_stream
-    log("[7/14] falcon-mamba-7b at full width: " + " ".join(FALCON)
+    log("[7/15] falcon-mamba-7b at full width: " + " ".join(FALCON)
         + f" (the launcher's target on the card, {SERVING_TARGET}; every "
         "decode chunk under set_sync_debug_mode('error'))")
     n_ssm = layer_counts(fcfg)[1]
@@ -2374,7 +2418,7 @@ def phase_moe(arch: str, n_layers: int, phase: int) -> dict:
     cfg = dataclasses.replace(full, n_layers=n_layers)
     groups = ", ".join(f"{g.name} x {g.n_repeat}" for g in cfg.layer_groups())
     argv = ["--arch", arch, "--full"]
-    log(f"[{phase}/14] {arch} at its published widths, {n_layers} of "
+    log(f"[{phase}/15] {arch} at its published widths, {n_layers} of "
         f"{full.n_layers} layers ({groups}): " + " ".join(argv))
     moe_check = check_grouped_moe(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -2470,7 +2514,7 @@ def phase_gemma(phase: int) -> dict:
              for k in g.pattern]
     globals_ = [i for i, k in enumerate(kinds) if k.window is None]
     argv = ["--arch", arch, "--full"]
-    log(f"[{phase}/14] {arch} at its published widths, {n_layers} of "
+    log(f"[{phase}/15] {arch} at its published widths, {n_layers} of "
         f"{full.n_layers} layers (window {full.window}, global layers "
         f"{globals_}): " + " ".join(argv))
     if globals_ != [5, 11] or len(kinds) != n_layers:
@@ -2526,7 +2570,7 @@ def phase_families(phase: int) -> dict:
     from repro_torch.models.frontends import fake_frontend
     from repro_torch.serve.engine import Engine, EngineConfig
     t0 = time.perf_counter()
-    log(f"[{phase}/14] the other attention families uncut, one-shot: "
+    log(f"[{phase}/15] the other attention families uncut, one-shot: "
         + " ".join(QWEN_VL) + f"; {SEAMLESS[0]} --full through "
         f"Engine.generate ({SEAMLESS[1]} source frames, {SEAMLESS[2]}-token "
         f"prompts)")
@@ -2598,7 +2642,7 @@ def phase_paper() -> dict:
     from repro_torch.kernels.matmul3d import matmul3d
     from repro_torch.launch import mempool_matmul
     from repro_torch.launch.mempool_matmul import REL_TOL
-    log("[12/14] the paper path: python -m repro_torch.launch.mempool_matmul; "
+    log("[12/15] the paper path: python -m repro_torch.launch.mempool_matmul; "
         "python -m repro_torch.benchmarks.kernel_bench --target h100")
     matmul3d.launches = 0
     rec = mempool_matmul.run([])
@@ -2691,6 +2735,245 @@ def phase_profile(cfg, kv_quant=None) -> None:
             f"#{rank:<3d} {e.key[:100]}")
 
 
+def _rel_errs(got, want) -> list:
+    """max |got - want| / max |want| of each pair (f32)."""
+    return [(a.float() - b.float()).abs().max().item()
+            / max(b.float().abs().max().item(), 1e-30)
+            for a, b in zip(got, want)]
+
+
+def grad_check(label, names, kernel_fn, plain_fn, inputs, grad_out) -> float:
+    """``kernel_fn`` (a kernel inside its autograd Function) against
+    autograd through ``plain_fn`` on the same leaves: the output and each
+    input's gradient within GRAD_TOL of its largest value. Returns the
+    worst share."""
+    import torch
+    out = kernel_fn(*inputs)
+    got = [out, *torch.autograd.grad(out, inputs, grad_out)]
+    ref = plain_fn(*inputs)
+    want = [ref, *torch.autograd.grad(ref, inputs, grad_out)]
+    errs = _rel_errs(got, want)
+    log(f"  {label}: max |d| / max |plain| " + ", ".join(
+        f"{n} {e:.2e}" for n, e in zip(["out"] + names, errs)))
+    if not all(e <= GRAD_TOL for e in errs):
+        fail(f"{label}: gradients beyond {GRAD_TOL} of their largest value")
+    return max(errs)
+
+
+def train_grad_checks() -> dict:
+    """Each kernel's autograd Function (kernel forward, plain backward) at
+    the training paths' shapes against autograd through its plain version;
+    the plain backward's time a call (the work a backward kernel, ROADMAP
+    B6, would take over)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.common import median_ms
+    from repro_torch.core.target import use_target
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_plain, flash_attention_plain_vjp)
+    from repro_torch.kernels.grouped_gemm import grouped_gemm_plain_vjp
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain_vjp
+    make = seeded(41)
+
+    def leaf(*shape, scale=1.0):
+        return (make(*shape) * scale).requires_grad_()
+
+    out = {}
+    # flash (128, 128) at qwen2.5-3b's training shape, causal
+    q, k, v = leaf(8, 16, 128, 128), leaf(8, 2, 128, 128), leaf(8, 2, 128,
+                                                                 128)
+    g = make(8, 16, 128, 128)
+    err = grad_check("flash (128, 128), 8 x 16 over 2 heads x 128, causal",
+                     ["dq", "dk", "dv"],
+                     lambda *t: ops.attention(*t, causal=True),
+                     lambda *t: flash_attention_plain(*t, causal=True),
+                     (q, k, v), g)
+    ms = median_ms(lambda: flash_attention_plain_vjp(q, k, v, g,
+                                                     causal=True), N_TIMED)
+    out["flash"] = {"grad_err": err, "backward_plain_ms": ms}
+    log(f"  flash's plain backward: {ms:.4f} ms a call (events)")
+    # grouped_gemm at one qwen3-moe layer's 1024-token admission
+    m, d, f, e = GRAD_MOE
+    rng = np.random.RandomState(42)
+    hits = np.sort(rng.randint(0, e, size=m))
+    offs = torch.as_tensor(np.searchsorted(hits, np.arange(e), "right"),
+                           dtype=torch.int32, device="cuda")
+    bounds = [0] + offs.tolist()
+
+    def per_expert(xs, w):
+        return torch.cat([xs[lo:hi].float() @ w[i].float()
+                          for i, (lo, hi) in enumerate(zip(bounds,
+                                                           bounds[1:]))])
+    worst = 0.0
+    for name, kk, nn in (("gate", d, f), ("down", f, d)):
+        xs, w = leaf(m, kk), leaf(e, kk, nn, scale=kk ** -0.5)
+        g = torch.from_numpy(rng.randn(m, nn).astype(np.float32)).cuda()
+        worst = max(worst, grad_check(
+            f"grouped_gemm {name} ({m} hits, K {kk}, N {nn}, {e} experts)",
+            ["dxs", "dw"], lambda a, b: ops.grouped_matmul(a, b, offs),
+            per_expert, (xs, w), g))
+    ms = median_ms(lambda: grouped_gemm_plain_vjp(xs, w, offs, g), 5)
+    out["grouped"] = {"grad_err": worst, "backward_plain_ms": ms}
+    log(f"  grouped_gemm's plain backward (down): {ms:.4f} ms a call")
+    # mamba_scan at falcon-mamba-7b's widths, L 128, the training batch
+    x, b_, c_ = leaf(8, 128, 8192), leaf(8, 128, 16), leaf(8, 128, 16)
+    dt = F.softplus(make(8, 128, 8192).float() - 3).requires_grad_()
+    a = (-torch.arange(1, 17, device="cuda", dtype=torch.float32)
+         .expand(8192, 16).contiguous()).requires_grad_()
+    dd = torch.ones(8192, device="cuda", requires_grad=True)
+    g = make(8, 128, 8192)
+    with use_target(SERVING_TARGET):
+        err = grad_check("mamba_scan 8 x 128 x 8192 x 16",
+                         ["dx", "ddt", "dA", "dB", "dC", "dD"],
+                         lambda *t: ops.selective_scan(*t),
+                         lambda *t: ref.selective_scan_ref(*t),
+                         (x, dt, a, b_, c_, dd), g)
+    ms = median_ms(lambda: mamba_scan_plain_vjp(x, dt, a, b_, c_, dd, g), 3)
+    out["scan"] = {"grad_err": err, "backward_plain_ms": ms}
+    log(f"  mamba_scan's plain backward: {ms:.4f} ms a call")
+    return out
+
+
+def _bits(tree) -> list:
+    """Every leaf of a params / optimizer tree as raw bytes, in order."""
+    import torch
+    from repro_torch.train.checkpoint import _flatten
+    return [(key, t.detach().reshape(-1).view(torch.uint8))
+            for key, t in _flatten(tree)]
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    bits_a, bits_b = _bits(a), _bits(b)
+    return ([k for k, _ in bits_a] == [k for k, _ in bits_b]
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(bits_a,
+                                                                  bits_b)))
+
+
+def crash_drill() -> dict:
+    """The launcher's crash drill at full width cut to DRILL_LAYERS
+    layers, int8 moments: an uninterrupted run; a run with checkpoints
+    every 2 steps that crashes before step 3 (exit 17); ``--resume``. The
+    resumed steps' losses and the final params and moments must equal the
+    uninterrupted run's bit for bit. The checkpoint manager's records give
+    each save's and the restore's seconds and bytes."""
+    import dataclasses
+    import struct
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=DRILL_LAYERS)
+    log(f"  crash drill: qwen2.5-3b at full width, {DRILL_LAYERS} layers, "
+        + " ".join(DRILL_ARGS))
+    t0 = time.perf_counter()
+    whole = train_cli.run(DRILL_ARGS, cfg=cfg)
+    whole_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = ["--ckpt-dir", os.path.join(tmp, "drill")]
+        t0 = time.perf_counter()
+        crashed = train_cli.run(DRILL_ARGS + ckpt + ["--fail-at", "3"],
+                                cfg=cfg)
+        crashed_s = time.perf_counter() - t0
+        if crashed["exit"] != 17:
+            fail(f"crash drill: --fail-at 3 exited {crashed['exit']}, not 17")
+        t0 = time.perf_counter()
+        resumed = train_cli.run(DRILL_ARGS + ckpt + ["--resume"], cfg=cfg)
+        resumed_s = time.perf_counter() - t0
+        bits = lambda x: struct.pack("<d", x)              # noqa: E731
+        if resumed["start_step"] != 2 or any(
+                bits(resumed["losses"][s]) != bits(whole["losses"][s])
+                for s in (2, 3)):
+            fail(f"crash drill: resumed at {resumed['start_step']} with "
+                 f"losses {resumed['losses']}, uninterrupted "
+                 f"{whole['losses']}")
+        if not same_bits({"p": resumed["params"], "o": resumed["opt"]},
+                         {"p": whole["params"], "o": whole["opt"]}):
+            fail("crash drill: the resumed run's params or moments part "
+                 "from the uninterrupted run's")
+    ckpts = crashed["checkpoints"] + resumed["checkpoints"]
+    if [(r["op"], r["step"]) for r in ckpts] != [("save", 2), ("restore", 2),
+                                                  ("save", 4)]:
+        fail(f"crash drill: checkpoints {ckpts}")
+    save, restore = ckpts[0], ckpts[1]
+    n_params = sum(t.numel() for t in tree_leaves(resumed["params"]))
+    log(f"  crash drill ok: exit 17 at step 3, resumed from step 2, losses "
+        f"{[resumed['losses'][s] for s in (2, 3)]} and params and int8 "
+        f"moments bit for bit the uninterrupted run's; runs {whole_s:.1f} / "
+        f"{crashed_s:.1f} / {resumed_s:.1f} s; {n_params / 1e6:.1f} M "
+        f"params; a checkpoint {save['raw_bytes'] / 1e9:.3f} GB raw, "
+        f"{save['disk_bytes'] / 1e9:.3f} GB on disk (zlib), saved in "
+        f"{save['seconds']:.2f} s (its call to its rename) and "
+        f"{ckpts[2]['seconds']:.2f} s, restored in {restore['seconds']:.2f} "
+        f"s")
+    del whole, crashed, resumed
+    free_memory()
+    return {"save_s": save["seconds"], "restore_s": restore["seconds"],
+            "raw_bytes": save["raw_bytes"], "disk_bytes": save["disk_bytes"],
+            "params": n_params, "run_s": [whole_s, crashed_s, resumed_s]}
+
+
+def phase_train(phase: int) -> dict:
+    """Training on the card: the kernels' autograd Functions at the
+    training paths' shapes; qwen2.5-3b at full width through
+    ``launch.train.run`` (TRAIN_ARGS, remat on: each attention layer
+    launches flash in the forward and again in the backward's recompute,
+    72 a step, and its plain backward once; no other kernel), its losses
+    finite and the last below the first, its step time, tokens/s and
+    peak memory beside the reckoning of f32 params, grads and moments
+    plus the bf16 compute copy; the crash drill. Prints the phase's
+    seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_plain_vjp
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.optimizer import tree_leaves
+    t_phase = time.perf_counter()
+    log(f"[{phase}/15] training: the kernels' autograd Functions; "
+        f"python -m repro_torch.launch.train " + " ".join(TRAIN_ARGS)
+        + "; the crash drill")
+    checks = train_grad_checks()
+    free_memory()
+    reset_counts()
+    flash_attention_plain_vjp.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = train_cli.run(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts, vjp = read_counts(), flash_attention_plain_vjp.calls
+    n_params = sum(p.numel() for p in tree_leaves(rec["params"]))
+    reckoning = n_params * (4 + 4 + 4 + 4 + 2)
+    check_counts("qwen training", counts, {"flash": 72 * TRAIN_STEPS})
+    if vjp != 36 * TRAIN_STEPS:
+        fail(f"qwen training: flash's plain backward ran {vjp} times, want "
+             f"{36 * TRAIN_STEPS}")
+    losses = [rec["losses"][s] for s in range(TRAIN_STEPS)]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"qwen training: losses {losses}")
+    step_s = float(np.median(rec["step_s"][1:]))
+    tokens = 8 * 128
+    log(f"  qwen2.5-3b --full trained {TRAIN_STEPS} steps: losses "
+        f"{[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} ms "
+        f"(median of steps 1-{TRAIN_STEPS - 1}, host clock; step 0 "
+        f"{rec['step_s'][0] * 1e3:.1f} ms), {tokens / step_s:.0f} tok/s; "
+        f"flash {counts['flash'] // TRAIN_STEPS} launches a step, its plain "
+        f"backward {vjp // TRAIN_STEPS}; {n_params / 1e9:.3f} B params, "
+        f"peak {peak / 1e9:.2f} GB against the {reckoning / 1e9:.2f} GB of "
+        f"f32 params, grads, m and v and the bf16 copy")
+    del rec
+    free_memory()
+    drill = crash_drill()
+    seconds = time.perf_counter() - t_phase
+    log(f"  training: the phase took {seconds:.1f} s")
+    return {"checks": checks, "launches": counts, "losses": losses,
+            "step_ms": step_s * 1e3, "tok_per_s": tokens / step_s,
+            "peak_gb": peak / 1e9, "reckoning_gb": reckoning / 1e9,
+            "plain_backward_calls": vjp, "drill": drill, "seconds": seconds}
+
+
 def grouped_gemm_row(moe_runs) -> dict:
     """The kernels line's grouped_gemm timing: qwen3-moe's 1024-token
     admission through the gate projection, every other case beside it."""
@@ -2756,15 +3039,18 @@ def main() -> int:
     free_memory()
     paper = phase_paper()
     check_merge_counters("phase 12")
-    log("[13/14] where the time goes: torch.profiler (CUDA activity)")
+    log("[13/15] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
     phase_profile(cfg, kv_quant="int8")
     phase_profile(fcfg)
     check_merge_counters("phase 13")
+    free_memory()
+    train = phase_train(14)
+    check_merge_counters("phase 14")
     if bench["failed"]:
         fail(f"serve_bench outputs gates: {bench['failed']}")
 
-    log(f"[14/14] summary ({time.perf_counter() - t_start:.0f} s)")
+    log(f"[15/15] summary ({time.perf_counter() - t_start:.0f} s)")
     rows = [("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:30",
              rec["launches"]["flash"], timing["flash"]),
@@ -2810,6 +3096,15 @@ def main() -> int:
         row.update(t.get("extra", {}))
         if "digests" in t:
             row["digests"] = t["digests"]
+        grad = train["checks"].get({"flash_attention": "flash",
+                                    "mamba_scan": "scan",
+                                    "grouped_gemm": "grouped"}.get(name))
+        if grad:    # the autograd Function's check and its plain backward
+            row.update(grad_check_max_rel_err=grad["grad_err"],
+                       backward_plain_ms=grad["backward_plain_ms"])
+        if name == "flash_attention":
+            row["train_launches_per_step"] = (train["launches"]["flash"]
+                                              // TRAIN_STEPS)
         kernels.append(row)
     # every stream's own counts, each read around that stream alone
     by_path = {f"qwen {name}": r["launches"] for name, r in streams.items()}
@@ -2823,6 +3118,7 @@ def main() -> int:
                     for name, r in gemma["recs"].items()})
     by_path.update({path: r["launches"] for path, r in families.items()
                     if path != "seconds"})
+    by_path["qwen train"] = train["launches"]
     for row, key in zip(kernels, ("flash", "paged", None, "scan",
                                   "flash_d192", "flash_d64", "grouped")):
         if key:

@@ -30,6 +30,14 @@ base is not 16-byte aligned, is copied to a contiguous one first.
 
 :func:`flash_attention_plain` beside it is the plain PyTorch version of the
 same function; a CPU tensor takes it, a CUDA tensor takes the kernel.
+
+Training reaches the kernel through :class:`FlashAttention`, an autograd
+Function whose forward is the kernel, unchanged, and whose backward is
+:func:`flash_attention_plain_vjp`: the plain attention recomputed from the
+saved q, k and v and differentiated (at qwen2.5-3b's training shape, 8 x
+16 heads x 128 x 128 positions, its f32 scores are 8 MB a layer). The
+JAX package has no backward kernel either: its gradients come from
+autodiff of its oracle. A backward kernel is ROADMAP B6.
 """
 
 from __future__ import annotations
@@ -146,3 +154,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 #: launches of every instance, and of each (D, Dv) instance
 flash_attention.launches = 0
 flash_attention.launches_by_dims = dict.fromkeys(HEAD_DIMS, 0)
+
+
+def flash_attention_plain_vjp(q, k, v, grad_out, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None,
+                              q_offset: int = 0) -> tuple:
+    """``(dq, dk, dv)`` of :func:`flash_attention_plain` at ``(q, k, v)``
+    against ``grad_out``, in the inputs' dtypes; a GQA head's dk and dv sum
+    over its query group. Counts its calls."""
+    flash_attention_plain_vjp.calls += 1
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal=causal, window=window,
+                                    scale=scale, q_offset=q_offset)
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+flash_attention_plain_vjp.calls = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """``forward(q, k, v, causal, window, scale, q_offset, fn)``: ``fn``
+    (the kernel, :func:`flash_attention`; the tests hand it
+    :func:`flash_attention_plain`) computes the output; the backward is
+    :func:`flash_attention_plain_vjp`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, fn):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, scale=scale,
+                        q_offset=q_offset)
+        return fn(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = flash_attention_plain_vjp(*ctx.saved_tensors, grad_out,
+                                          **ctx.args)
+        return (*grads, None, None, None, None, None)

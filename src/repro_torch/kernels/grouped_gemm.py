@@ -37,6 +37,13 @@ items ``c, c + grid, ...``.
 :func:`grouped_gemm_plain` beside it is the plain PyTorch version of the
 same function (``F.grouped_mm`` over f32-widened operands, which computes
 the same sums); a CPU tensor takes it, a CUDA tensor takes the kernel.
+
+Training reaches the kernel through :class:`GroupedGemm`, an autograd
+Function whose forward is the kernel, unchanged, and whose backward is
+:func:`grouped_gemm_plain_vjp`: one product per expert over the rows its
+offsets delimit, ``dxs = g @ w[e]^T`` and ``dw[e] = xs^T @ g``, in f32
+(``F.grouped_mm``'s own backward refuses the CPU's strides). A backward
+kernel is ROADMAP B6.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 _LIB = "grouped_gemm"
 #: experts the kernel's shared-memory tables hold (csrc MAX_EXPERTS)
@@ -92,11 +99,67 @@ def launch_config(m: int, k: int, n: int, e: int, sms: int = H100_SMS,
                         max(1, min(sms, max_items)))
 
 
+def _expert_rows(offs: torch.Tensor):
+    """``(expert, first row, end row)`` of every expert that holds rows
+    (the offsets read to the host)."""
+    start = 0
+    for e, end in enumerate(offs.tolist()):
+        if end > start:
+            yield e, start, end
+        start = max(start, end)
+
+
 def grouped_gemm_plain(xs: torch.Tensor, w: torch.Tensor,
                        offs: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of :func:`grouped_gemm`: both operands
-    widened to f32, one grouped GEMM, f32 out."""
-    return F.grouped_mm(xs.float(), w.float(), offs=offs)
+    widened to f32, one grouped GEMM, f32 out. f64 operands (gradient
+    checks; ``F.grouped_mm`` takes none) take one product per expert."""
+    f = ref.wide(xs.dtype)
+    if f == torch.float32:
+        return F.grouped_mm(xs.float(), w.float(), offs=offs)
+    out = xs.new_zeros((xs.shape[0], w.shape[2]), dtype=f)
+    for e, lo, hi in _expert_rows(offs):
+        out[lo:hi] = xs[lo:hi].to(f) @ w[e].to(f)
+    return out
+
+
+def grouped_gemm_plain_vjp(xs: torch.Tensor, w: torch.Tensor,
+                           offs: torch.Tensor, grad_out: torch.Tensor
+                           ) -> tuple:
+    """``(dxs, dw)`` of :func:`grouped_gemm_plain` against ``grad_out``
+    ``(m, N)``, in the operands' dtypes: each expert's rows' product with
+    its transposed weights, and its weights' gradient from its rows, in
+    f32 (f64 for f64 operands). Rows at or past ``offs[E-1]`` and experts
+    without rows get zeros. Counts its calls."""
+    grouped_gemm_plain_vjp.calls += 1
+    f = ref.wide(xs.dtype)
+    dxs = torch.zeros(xs.shape, dtype=f, device=xs.device)
+    dw = torch.zeros(w.shape, dtype=f, device=w.device)
+    for e, lo, hi in _expert_rows(offs):
+        g = grad_out[lo:hi].to(f)
+        dxs[lo:hi] = g @ w[e].to(f).t()
+        dw[e] = xs[lo:hi].to(f).t() @ g
+    return dxs.to(xs.dtype), dw.to(w.dtype)
+
+
+grouped_gemm_plain_vjp.calls = 0
+
+
+class GroupedGemm(torch.autograd.Function):
+    """``forward(xs, w, offs, fn)``: ``fn`` (the kernel,
+    :func:`grouped_gemm`; the tests hand it :func:`grouped_gemm_plain`)
+    computes the f32 output; the backward is
+    :func:`grouped_gemm_plain_vjp`."""
+
+    @staticmethod
+    def forward(ctx, xs, w, offs, fn):
+        ctx.save_for_backward(xs, w, offs)
+        return fn(xs, w, offs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*grouped_gemm_plain_vjp(*ctx.saved_tensors, grad_out),
+                None, None)
 
 
 def check_inputs(xs: torch.Tensor, w: torch.Tensor,

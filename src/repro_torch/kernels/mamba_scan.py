@@ -29,6 +29,14 @@ length the chunk does not divide, or a plan whose ring does not fit one
 block's 232448 B of shared memory is refused with the numbers, never
 shrunk. :func:`mamba_scan_plain` beside it is the plain PyTorch version; a
 CPU tensor takes it, a CUDA tensor takes the kernel.
+
+Training reaches the kernel through :class:`MambaScan`, an autograd
+Function whose forward is the kernel, unchanged, from a zero state and
+without the final one (a training forward carries no state), and whose
+backward is :func:`mamba_scan_plain_vjp`: the plain scan recomputed from
+the saved inputs and differentiated, one Python step a position, as the
+JAX package differentiates its ``lax.scan`` oracle. A backward kernel is
+ROADMAP B6.
 """
 
 from __future__ import annotations
@@ -218,3 +226,32 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 mamba_scan.launches = 0
+
+
+def mamba_scan_plain_vjp(x, dt, a, b, c, d, grad_y) -> tuple:
+    """``(dx, ddt, da, db, dc, dd)`` of the plain scan (zero initial state,
+    y only) at these inputs against ``grad_y``, in the inputs' dtypes.
+    Counts its calls (not :func:`mamba_scan_plain`'s)."""
+    mamba_scan_plain_vjp.calls += 1
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, dt, a, b, c, d)]
+        y = ref.selective_scan_ref(*leaves)
+        return torch.autograd.grad(y, leaves, grad_y)
+
+
+mamba_scan_plain_vjp.calls = 0
+
+
+class MambaScan(torch.autograd.Function):
+    """``forward(x, dt, a, b, c, d, fn)``: ``fn(x, dt, a, b, c, d)`` (the
+    kernel under its plan; the tests hand it the plain scan) computes y
+    from a zero state; the backward is :func:`mamba_scan_plain_vjp`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d, fn):
+        ctx.save_for_backward(x, dt, a, b, c, d)
+        return fn(x, dt, a, b, c, d)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        return (*mamba_scan_plain_vjp(*ctx.saved_tensors, grad_y), None)

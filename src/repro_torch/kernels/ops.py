@@ -23,12 +23,14 @@ import torch.nn.functional as F
 from repro_torch.core import planner, tiling
 from repro_torch.core.target import get_target
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.grouped_gemm import GroupedGemm
 from repro_torch.kernels.grouped_gemm import grouped_gemm as _grouped
 from repro_torch.kernels.matmul3d import (SMEM_BYTES, check_plan,
                                           kernel_blocks)
 from repro_torch.kernels.matmul3d import matmul3d as _matmul
-from repro_torch.kernels.mamba_scan import check_in_place
+from repro_torch.kernels.mamba_scan import MambaScan, check_in_place
 from repro_torch.kernels.mamba_scan import mamba_scan as _scan
 from repro_torch.kernels.mamba_scan import mamba_scan_plain
 
@@ -41,6 +43,11 @@ def _use_kernel(impl: Impl, x: torch.Tensor) -> bool:
     if impl not in ("kernel", "ref"):
         raise ValueError(f"unknown impl {impl!r} (auto | kernel | ref)")
     return impl == "kernel"
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _gpu_target(op: str, kernel: str):
@@ -122,6 +129,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 q_offset=q_offset)
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale, q_offset=q_offset)
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, scale,
+                                    int(q_offset), _flash)
     return _flash(q, k, v, causal=causal, window=window, scale=scale,
                   q_offset=int(q_offset))
 
@@ -133,7 +143,9 @@ def grouped_matmul(xs: torch.Tensor, w: torch.Tensor,
     ``offs (E,)`` int32 ending each expert's rows (on ``xs``'s device: no
     count is read to the host). Returns ``(m, N)`` f32: the grouped_gemm
     kernel for a CUDA tensor, its plain version (f32-widened operands) for
-    a CPU one."""
+    a CPU one. Under autograd it runs inside ``GroupedGemm``."""
+    if _needs_grad(xs, w):
+        return GroupedGemm.apply(xs, w, offs, _grouped)
     return _grouped(xs, w, offs)
 
 
@@ -152,8 +164,17 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     without a carried state, runs the kernel. ``impl="kernel"`` needs a
     CUDA tensor. ``state_in_place`` (with ``h0`` and ``return_state``)
     writes the final state into ``h0`` and returns ``(y, h0)``.
+
+    Under autograd the kernel runs inside ``MambaScan``, from a zero state
+    and returning y alone: a CUDA tensor with ``h0`` or ``return_state``
+    raises there, and ``state_in_place`` raises on either device.
     """
+    grad = _needs_grad(x, dt, a, b, c, d)
     if state_in_place:
+        if grad:
+            raise ValueError("state_in_place overwrites h0, which autograd "
+                             "cannot differentiate: a training scan carries "
+                             "no state")
         check_in_place(h0, return_state)
     if not _use_kernel(impl, x):
         out = mamba_scan_plain(x, dt, a, b, c, d, h0=h0,
@@ -172,6 +193,15 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             target=_gpu_target("ops.selective_scan", "mamba_scan"))
     else:
         eff = planner.clamp_scan_plan(plan, length)
+    if grad:
+        if h0 is not None or return_state:
+            raise ValueError("the mamba_scan kernel's autograd Function "
+                             "scans from a zero state and returns y alone: "
+                             "a training forward carries no state")
+        return MambaScan.apply(
+            x.contiguous(), dt.contiguous(), a.float().contiguous(),
+            b.contiguous(), c.contiguous(), d.float().contiguous(),
+            lambda *t: _scan(*t, plan=eff))
     return _scan(x.contiguous(), dt.contiguous(), a.float().contiguous(),
                  b.contiguous(), c.contiguous(), d.float().contiguous(),
                  plan=eff, return_state=return_state,

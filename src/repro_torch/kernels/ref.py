@@ -2,7 +2,8 @@
 
 Mirrors ``src/repro/kernels/ref.py``: these are the ground truth the kernels
 are checked against and the implementations the model stack uses on the
-CPU. All math is f32; outputs come back in the input's dtype unless an
+CPU. All math is f32 (f64 for f64 inputs, so that gradient checks can run
+through them); outputs come back in the input's dtype unless an
 ``out_dtype`` is given.
 """
 
@@ -13,6 +14,12 @@ from typing import Optional, Union
 import torch
 
 Offset = Union[int, torch.Tensor]
+
+
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type the oracles compute in for inputs of ``dtype``: f32, or
+    f64 for f64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,
@@ -53,12 +60,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     group = hq // hkv
     kk = k if group == 1 else k.repeat_interleave(group, dim=1)
     vv = v if group == 1 else v.repeat_interleave(group, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+    f = wide(q.dtype)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f), kk.to(f)) * scale
     mask = _mask(sq, skv, q_offset, causal, window, q.device)
     logits = torch.where(mask[None, None], logits, -torch.inf)
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(torch.isnan(probs), 0.0, probs)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, vv.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vv.to(f))
     return out.to(q.dtype)
 
 
@@ -126,16 +134,17 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """
     bsz, length, di = x.shape
     ds = a.shape[1]
-    xf, dtf, bf, cf, af = (t.float() for t in (x, dt, b, c, a))
-    h = (torch.zeros((bsz, di, ds), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    f = wide(x.dtype)
+    xf, dtf, bf, cf, af = (t.to(f) for t in (x, dt, b, c, a))
+    h = (torch.zeros((bsz, di, ds), dtype=f, device=x.device)
+         if h0 is None else h0.to(f))
     ys = []
     for t in range(length):
         decay = torch.exp(dtf[:, t, :, None] * af[None])
         h = decay * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
         ys.append(torch.einsum("bis,bs->bi", h, cf[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bsz, 0, di))
-    y = (y + xf * d.float()[None, None, :]).to(x.dtype)
+    y = (y + xf * d.to(f)[None, None, :]).to(x.dtype)
     if return_state:
         return y, h
     return y

@@ -123,26 +123,29 @@ class Model:
         return walk(params)
 
     # ------------------------------------------------------------- loss
-    @torch.no_grad()
     def loss(self, params, batch: Dict[str, torch.Tensor], *,
-             plans: Optional[KernelPlans] = None):
-        """Causal LM loss of one full-sequence forward (no caches), forward
-        only: ``batch`` holds ``tokens`` and ``labels`` (B, S), -1 =
-        ignore, and for a frontend model ``frontend_embeds`` (B, Sf, d),
-        for an enc-dec model ``src_embeds`` (B, Ss, d). Returns ``(total,
-        {loss, aux, tokens})`` as the reference. The backward pass comes
-        with training (ROADMAP A11)."""
+             remat: bool = True, plans: Optional[KernelPlans] = None):
+        """Causal LM loss of one full-sequence forward (no caches):
+        ``batch`` holds ``tokens`` and ``labels`` (B, S), -1 = ignore, and
+        for a frontend model ``frontend_embeds`` (B, Sf, d), for an enc-dec
+        model ``src_embeds`` (B, Ss, d). Returns ``(total, {loss, aux,
+        tokens})`` as the reference. Differentiable: where ``params``
+        require grad, autograd records the forward (on the card through
+        the kernels' autograd Functions), and ``remat`` recomputes each
+        layer and each loss chunk in the backward instead of keeping its
+        activations."""
         cfg = self.cfg
         if cfg.family == "encdec":
             plans = plans or self.kernel_plans(batch["src_embeds"].shape[1])
             return encdec.encdec_loss(cfg, params, batch["src_embeds"],
                                       batch["tokens"], batch["labels"],
-                                      plans=plans)
+                                      remat=remat, plans=plans)
         plans = plans or self.kernel_plans(batch["tokens"].shape[1]
                                            + cfg.frontend_len)
         return transformer.lm_loss(
             cfg, params, batch["tokens"], batch["labels"],
-            frontend_embeds=batch.get("frontend_embeds"), plans=plans)
+            frontend_embeds=batch.get("frontend_embeds"), remat=remat,
+            plans=plans)
 
     # ---------------------------------------------------------- serving
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_len: int,

@@ -14,6 +14,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.train.optimizer import QTensor
+
 
 def params_from_numpy(tree: Any, device) -> Any:
     """Nested dicts of numpy arrays -> the same tree of tensors on
@@ -28,3 +30,26 @@ def params_to_numpy(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def opt_state_from_numpy(state: Any, device) -> Any:
+    """An optimizer state of numpy arrays (the reference's ``{m, v, step}``
+    converted by the caller, its int8 moments any object with ``q`` and
+    ``scale`` fields) -> the port's, on ``device``: int8 moments become
+    :class:`repro_torch.train.optimizer.QTensor`\\ s of tensors."""
+    if isinstance(state, dict):
+        return {k: opt_state_from_numpy(v, device) for k, v in state.items()}
+    if hasattr(state, "q") and hasattr(state, "scale"):
+        return QTensor(params_from_numpy(state.q, device),
+                       params_from_numpy(state.scale, device))
+    return params_from_numpy(state, device)
+
+
+def opt_state_to_numpy(state: Any) -> Any:
+    """The inverse of :func:`opt_state_from_numpy`; int8 moments stay
+    ``QTensor``\\ s, of numpy arrays."""
+    if isinstance(state, dict):
+        return {k: opt_state_to_numpy(v) for k, v in state.items()}
+    if isinstance(state, QTensor):
+        return QTensor(params_to_numpy(state.q), params_to_numpy(state.scale))
+    return params_to_numpy(state)

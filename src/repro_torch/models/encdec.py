@@ -29,7 +29,7 @@ from repro_torch.core.planner import KernelPlans
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models.config import LayerKind, ModelConfig
-from repro_torch.models.transformer import _index, chunked_xent
+from repro_torch.models.transformer import _index, chunked_xent, remat_call
 
 Params = Dict[str, Any]
 _KIND = LayerKind(attn="gqa", mlp="mlp")
@@ -61,10 +61,23 @@ def init_encdec(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
 
 
+def _encoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   positions: torch.Tensor, plan) -> torch.Tensor:
+    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, _ = attn_mod.gqa_attention(p["attn"], h, cfg=cfg, kind=_KIND,
+                                  positions=positions, causal=False,
+                                  plan=plan)
+    x = x + y
+    return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
+                                                    cfg.norm_eps))
+
+
 def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
-           plans: Optional[KernelPlans] = None) -> torch.Tensor:
+           plans: Optional[KernelPlans] = None,
+           remat: bool = False) -> torch.Tensor:
     """src_embeds: (B, Ss, d) frame embeddings from the (stub) frontend.
-    Returns the normed encoder output (B, Ss, d)."""
+    Returns the normed encoder output (B, Ss, d). ``remat`` recomputes
+    each layer in the backward."""
     b, s, _ = src_embeds.shape
     plan = plans.attention if plans else None
     positions = torch.broadcast_to(
@@ -72,14 +85,8 @@ def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
         (b, s))
     x = src_embeds.to(layers.COMPUTE_DTYPE)
     for i in range(cfg.n_encoder_layers):
-        p = _index(params["encoder"], i)
-        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        y, _ = attn_mod.gqa_attention(p["attn"], h, cfg=cfg, kind=_KIND,
-                                      positions=positions, causal=False,
-                                      plan=plan)
-        x = x + y
-        x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
-                                                     cfg.norm_eps))
+        x = remat_call(remat, _encoder_layer, cfg,
+                       _index(params["encoder"], i), x, positions, plan)
     return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -94,13 +101,31 @@ def _cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
     return k, v
 
 
+def _decoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   enc_out: torch.Tensor, positions: torch.Tensor, cache,
+                   cache_len, plan) -> torch.Tensor:
+    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, _ = attn_mod.gqa_attention(p["attn"], h, cfg=cfg, kind=_KIND,
+                                  positions=positions, cache=cache,
+                                  cache_len=cache_len, plan=plan)
+    x = x + y
+    h = layers.rmsnorm(p["lnx"], x, cfg.norm_eps)
+    y, _ = attn_mod.gqa_attention(
+        p["xattn"], h, cfg=cfg, kind=_KIND, positions=positions,
+        cross_kv=_cross_kv(cfg, p["xattn"], enc_out), plan=plan)
+    x = x + y
+    return x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
+                                                    cfg.norm_eps))
+
+
 def decode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
            enc_out: torch.Tensor, *, caches=None, cache_len=None,
-           plans: Optional[KernelPlans] = None):
+           plans: Optional[KernelPlans] = None, remat: bool = False):
     """The decoder stack over ``tokens`` (B, S) at ``cache_len`` (an int
     for a prefill, a 0-d tensor for a decode step; None without caches).
     Returns (final-normed hidden (B, S, d), caches), the caches written in
-    place."""
+    place. ``remat`` recomputes each layer in the backward (without
+    caches only, as in the reference)."""
     x = layers.embed(params["tok"], tokens)
     b, s, _ = x.shape
     plan = plans.attention if plans else None
@@ -108,34 +133,27 @@ def decode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     positions = torch.broadcast_to(
         start + torch.arange(s, dtype=torch.int32, device=x.device)[None, :],
         (b, s))
+    remat = remat and caches is None
     for i in range(cfg.n_layers):
-        p = _index(params["decoder"], i)
         cache = _index(caches, i) if caches is not None else None
-        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        y, _ = attn_mod.gqa_attention(p["attn"], h, cfg=cfg, kind=_KIND,
-                                      positions=positions, cache=cache,
-                                      cache_len=cache_len, plan=plan)
-        x = x + y
-        h = layers.rmsnorm(p["lnx"], x, cfg.norm_eps)
-        y, _ = attn_mod.gqa_attention(
-            p["xattn"], h, cfg=cfg, kind=_KIND, positions=positions,
-            cross_kv=_cross_kv(cfg, p["xattn"], enc_out), plan=plan)
-        x = x + y
-        x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
-                                                     cfg.norm_eps))
+        x = remat_call(remat, _decoder_layer, cfg,
+                       _index(params["decoder"], i), x, enc_out, positions,
+                       cache, cache_len, plan)
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
 
 
 def encdec_loss(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor,
                 tokens: torch.Tensor, labels: torch.Tensor, *,
-                loss_chunk: int = 2048,
+                remat: bool = True, loss_chunk: int = 2048,
                 plans: Optional[KernelPlans] = None):
     """The decoder's chunked LM loss over ``tokens`` given the source
-    frames. Returns (loss, {loss, aux (0), tokens}), as the reference."""
-    enc_out = encode(cfg, params, src_embeds, plans=plans)
-    x, _ = decode(cfg, params, tokens, enc_out, plans=plans)
+    frames. Returns (loss, {loss, aux (0), tokens}), as the reference.
+    ``remat`` recomputes each encoder and decoder layer and each loss
+    chunk in the backward, as the reference remats all three."""
+    enc_out = encode(cfg, params, src_embeds, plans=plans, remat=remat)
+    x, _ = decode(cfg, params, tokens, enc_out, plans=plans, remat=remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return chunked_xent(cfg, params, x, labels, aux, loss_chunk)
+    return chunked_xent(cfg, params, x, labels, aux, loss_chunk, remat=remat)
 
 
 def init_dec_caches(cfg: ModelConfig, batch: int, max_len: int, device,

@@ -22,15 +22,45 @@ def cast(x: torch.Tensor, dtype=COMPUTE_DTYPE) -> torch.Tensor:
     return x.to(dtype)
 
 
+class _DotF32(torch.autograd.Function):
+    """``x (M, K) @ w (K, N)``, bf16 operands, f32 out, on cuBLAS — an op
+    without an autograd formula, so this Function gives it one. The
+    backward rounds the f32 cotangent to bf16 and takes the same GEMM for
+    ``dx = g w^T`` and ``dw = x^T g`` (f32 sums, cast to the operands'
+    bf16): the reference's transposed dots multiply an f32 cotangent by a
+    bf16 operand, which the TPU's default precision runs as one bf16
+    pass."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(COMPUTE_DTYPE)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w.t(), out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x.t(), g, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with f32 output from bf16 weights: every product is exact
     in f32 and the sum accumulates in f32 (the reference's
     ``preferred_element_type=jnp.float32``). On the card a bf16 ``x`` takes
-    cuBLAS's bf16 GEMM with an f32 output; elsewhere both sides widen to
-    f32 first, which computes the same sums."""
+    cuBLAS's bf16 GEMM with an f32 output (under autograd through
+    :class:`_DotF32`); elsewhere both sides widen to f32 first, which
+    computes the same sums."""
     if x.is_cuda and x.dtype == torch.bfloat16:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), cast(w),
-                       out_dtype=torch.float32)
+        x2, wb = x.reshape(-1, x.shape[-1]), cast(w)
+        if torch.is_grad_enabled() and (x2.requires_grad or wb.requires_grad):
+            out = _DotF32.apply(x2, wb)
+        else:
+            out = torch.mm(x2, wb, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), cast(w).float())
 

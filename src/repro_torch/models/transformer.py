@@ -17,6 +17,13 @@ writes its slice in place (:mod:`repro_torch.models.attention`,
 :mod:`repro_torch.models.ssm`). Attention layers keep K/V (MLA: the
 latent), paged or in a dense slab; mamba layers keep one recurrent row
 per sequence, never paged.
+
+A training forward (no caches, grad enabled, ``remat``) runs each layer
+and each chunk of the loss under ``torch.utils.checkpoint``, keeping only
+the layer's input, the counterpart of the reference's ``jax.checkpoint``
+with ``nothing_saveable`` per superblock and the loss chunks that save
+only the unembed table: the backward recomputes the layer's forward, so
+each attention layer's kernel runs twice a training step.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.planner import KernelPlans
 from repro_torch.kernels.paged_attention import as_bits
@@ -122,6 +130,15 @@ def _apply_layer(cfg: ModelConfig, kind: LayerKind, p: Params,
     return x, aux
 
 
+def remat_call(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in the backward (its
+    activations not kept) when ``remat`` and autograd records."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
 def _index(tree, i: int):
     if torch.is_tensor(tree):
         return tree[i]
@@ -130,8 +147,11 @@ def _index(tree, i: int):
 
 def _run_groups(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 positions, positions3=None, caches=None, cache_len=None,
-                plans: Optional[KernelPlans] = None, block_tables=None):
-    """Returns (x, aux summed over the layers)."""
+                plans: Optional[KernelPlans] = None, block_tables=None,
+                remat: bool = False):
+    """Returns (x, aux summed over the layers). ``remat`` recomputes each
+    layer in the backward (a forward without caches only)."""
+    remat = remat and caches is None
     aux = 0.0
     for group in cfg.layer_groups():
         stacked = params["groups"][group.name]
@@ -140,11 +160,11 @@ def _run_groups(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
             for pos, kind in enumerate(group.pattern):
                 key = f"pos{pos}"
                 cache = _index(g_caches[key], r) if g_caches else None
-                x, aux_i = _apply_layer(cfg, kind, _index(stacked[key], r),
-                                        x, positions=positions, cache=cache,
-                                        cache_len=cache_len,
-                                        positions3=positions3, plans=plans,
-                                        block_tables=block_tables)
+                x, aux_i = remat_call(
+                    remat, _apply_layer, cfg, kind, _index(stacked[key], r),
+                    x, positions=positions, cache=cache,
+                    cache_len=cache_len, positions3=positions3, plans=plans,
+                    block_tables=block_tables)
                 aux = aux + aux_i
     return x, aux
 
@@ -156,13 +176,15 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             caches=None, cache_len=None,
             positions: Optional[torch.Tensor] = None,
             plans: Optional[KernelPlans] = None,
-            block_tables: Optional[torch.Tensor] = None):
+            block_tables: Optional[torch.Tensor] = None,
+            remat: bool = False):
     """tokens: (B, S) int; optional ``frontend_embeds`` (B, Sf, d), a stub
     frontend's patch or frame embeddings, go before the token embeddings.
     Returns (final-normed hidden (B, Sf + S, d), the MoE aux loss summed
     over the layers (0.0 without MoE layers), caches); the caches are
     updated in place. An M-RoPE model's three position streams are the
-    positions broadcast three times, as in the reference."""
+    positions broadcast three times, as in the reference. ``remat``: see
+    :func:`_run_groups`."""
     x = layers.embed(params["tok"], tokens)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
@@ -180,54 +202,63 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     x, aux = _run_groups(cfg, params, x, positions=positions,
                          positions3=positions3, caches=caches,
                          cache_len=cache_len, plans=plans,
-                         block_tables=block_tables)
+                         block_tables=block_tables, remat=remat)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, aux, caches
 
 
 def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             labels: torch.Tensor, *, frontend_embeds=None,
-            loss_chunk: int = 2048, plans: Optional[KernelPlans] = None):
+            remat: bool = True, loss_chunk: int = 2048,
+            plans: Optional[KernelPlans] = None):
     """Causal LM loss of a full-sequence forward. labels: (B, S) int, -1 =
     ignore. As in the reference, the vocab projection and the softmax run
     in sequence chunks (the largest power-of-two share of ``loss_chunk``
     that divides S), with the padded vocab masked, so the (tokens x vocab)
     logits never materialize whole. Returns (total, {loss, aux, tokens}),
     ``total = loss + router_aux_weight * aux``. Frontend positions carry
-    no label."""
+    no label. ``remat`` recomputes each layer and each loss chunk in the
+    backward."""
     x, aux, _ = forward(cfg, params, tokens, frontend_embeds=frontend_embeds,
-                        plans=plans)
+                        plans=plans, remat=remat)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     if frontend_embeds is not None:
         pad = labels.new_full(frontend_embeds.shape[:2], -1)
         labels = torch.cat([pad, labels], dim=1)
-    return chunked_xent(cfg, params, x, labels, aux, loss_chunk)
+    return chunked_xent(cfg, params, x, labels, aux, loss_chunk, remat=remat)
+
+
+def _chunk_nll(cfg: ModelConfig, tok: Params, xi: torch.Tensor,
+               li: torch.Tensor):
+    """One loss chunk: (summed NLL over labelled positions, their count)."""
+    neg = torch.finfo(torch.float32).min
+    col = torch.arange(cfg.padded_vocab, device=xi.device)
+    logits = layers.unembed_logits(tok, xi)
+    logits = torch.where(col < cfg.vocab_size, logits.float(), neg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li.clamp(min=0).long()[..., None])[..., 0]
+    valid = (li >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
 
 
 def chunked_xent(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                 labels: torch.Tensor, aux, loss_chunk: int = 2048):
+                 labels: torch.Tensor, aux, loss_chunk: int = 2048, *,
+                 remat: bool = False):
     """The chunked LM cross-entropy of final hidden states ``x`` against
     ``labels`` (-1 = ignore), shared by the decoder-only and the enc-dec
     losses. Returns (loss + router_aux_weight * aux, {loss, aux,
-    tokens})."""
+    tokens}). ``remat`` recomputes each chunk's logits in the backward."""
     b, s, _ = x.shape
     chunk = min(loss_chunk, s)
     while s % chunk:
         chunk //= 2
-    neg = torch.finfo(torch.float32).min
-    col = torch.arange(cfg.padded_vocab, device=x.device)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, chunk):
-        li = labels[:, i:i + chunk]
-        logits = layers.unembed_logits(params["tok"], x[:, i:i + chunk])
-        logits = torch.where(col < cfg.vocab_size, logits.float(), neg)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            li.clamp(min=0).long()[..., None])[..., 0]
-        valid = (li >= 0).float()
-        tot = tot + ((lse - gold) * valid).sum()
-        cnt = cnt + valid.sum()
+        nll, n = remat_call(remat, _chunk_nll, cfg, params["tok"],
+                            x[:, i:i + chunk], labels[:, i:i + chunk])
+        tot = tot + nll
+        cnt = cnt + n
     loss = tot / torch.clamp(cnt, min=1.0)
     return loss + cfg.router_aux_weight * aux, {"loss": loss, "aux": aux,
                                                  "tokens": cnt}
