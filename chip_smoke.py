@@ -36,7 +36,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      at gemma3-27b's widths (1 x 32 heads over 16, 4096 positions, window
      1024, timed beside SDPA given the band mask, bound over the band);
      paged decode windowed at gemma3's widths (4 slots at frontiers
-     2048-4095, window 1024); these new cases' outputs digested from
+     2048-4095, window 1024); flash at jamba's admission (phase 15's
+     inputs); these new cases' outputs digested from
      numpy-seeded inputs and held to NEW_CASE_DIGESTS; matmul3d at
      ``tests/test_kernels.py``'s tolerances (f32 2e-4, bf16 2e-2) at
      small and ragged shapes (bf16 with f32 and bf16 out), and at M = 8192
@@ -186,14 +187,35 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      continues: the resumed losses and the final params and moments equal
      an uninterrupted run's bit for bit), its saves and restore timed;
      the phase's seconds;
- 15. the ``kernels`` summary line (launches on the main path, the paged
+ 15. jamba-1.5-large-398b's kernels at its published widths, no model
+     weights (its model on the card is ROADMAP A9b), each held against its
+     plain version and timed as phase 3 times: flash at its one-shot
+     admission (4 x 256, 64 query heads over 8, causal, on the model's
+     views; beside SDPA ``is_causal, enable_gqa``; the same inputs are in
+     phase 3's repeat set and digested as ``jamba_flash``); paged decode
+     with 8 KV heads at group 8, 4 slots of 16-token pages at frontiers
+     past split edges (each slot alone bit for bit its row of the batch,
+     one CUDA kernel a call); mamba_scan at Di = 16384, Ds = 16 under
+     h100 plans, the prefill 1 x 512 from a zero state and decode B = 4
+     from a random state written in place (== the functional state bit
+     for bit), y at ATOL and the final state at SCAN_TOL; grouped_gemm at
+     16 experts top-2 on a seeded router's routes at d = 8192, T = 1024
+     and T = 4, the gate (K 8192, N 24576) and down (K 24576, N 8192)
+     projections each alone and freed after, within GEMM_REL_TOL, beside
+     ``F.grouped_mm`` (bf16 out) and the hit experts' bytes, by CUDA-graph
+     replay too, with ``launch_config``'s pick printed; then
+     ``build_model(CONFIG, device="cuda")`` must raise naming A9b; the
+     phase's seconds;
+ 16. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream; flash at D = 192 a row of
      its own, launched by deepseek-v2's paged stream; flash at D = 64 a
      row launched by seamless-m4t-medium's one-shot; grouped_gemm a row
      launched by qwen3-moe's paged stream; the training launches a step,
      and each Function's check and plain backward time, on the flash,
-     mamba_scan and grouped_gemm rows), the card line, and the result
-     line.
+     mamba_scan and grouped_gemm rows; four rows at jamba's widths from
+     phase 15, whose ``launches`` are each kernel's on the path their
+     ``launches_path`` names, since no jamba model runs on the card), the
+     card line, and the result line.
 
 After every phase from 3 on, every counter buffer of paged decode's
 in-launch merge (one per device and stream) must read all zeros: each
@@ -293,15 +315,16 @@ FLASH_DIGESTS = {"admission": "2be6a11c2e88583d", "ragged": "df2f42699612d5ac",
                  "offset": "1eb79b3a10b47377", "mha": "329f070aa7763e0a",
                  "noncausal": "63d113eb070f630c"}
 #: the windowed and (64, 64) attention cases (``new_attention_cases``: flash
-#: at (64, 64), windowed flash and paged decode), digested as the kernels
-#: printed them on an NVIDIA H100 80GB HBM3; a later change must not move a
-#: bit
+#: at (64, 64), windowed flash and paged decode; flash at jamba's admission),
+#: digested as the kernels printed them on an NVIDIA H100 80GB HBM3; a later
+#: change must not move a bit
 NEW_CASE_DIGESTS = {"d64_encoder": "aea592b592485ddb",
                     "d64_decoder": "9443e92d6e2995b8",
                     "d64_cross": "9ad63f4b0801c5c7",
                     "d64_cross_decode": "053aecdb506d646c",
                     "window": "4368ebeded649f77",
-                    "paged_window": "90ef91573dbe1ad4"}
+                    "paged_window": "90ef91573dbe1ad4",
+                    "jamba_flash": "4e6d007a2931ac24"}
 #: (B, Hq, Hkv, Sq, Skv, kwargs, transposed views) of each digest case
 FLASH_DIGEST_CASES = {
     "admission": (4, 16, 2, 256, 256, {}, False),
@@ -364,6 +387,19 @@ FLASH_D64_CASES = {"encoder": (4, 512, 512, False),
 #: the grouped_gemm kernel against its plain version (the same exact f32
 #: products summed in another order): max |d| over the output's largest
 GEMM_REL_TOL = 1e-4
+#: phase 15: jamba-1.5-large-398b's four kernels at its published widths on
+#: numpy-seeded inputs, no model weights (its model on the card is ROADMAP
+#: A9b): flash at its one-shot admission (B, S: 64 query heads over 8,
+#: causal); paged decode over 4 slots of 16-token pages at frontiers past
+#: split (4-page) edges; mamba_scan's prefill (B, L) from a zero state and
+#: decode from a random one written in place; grouped_gemm at a prefill's
+#: and a decode step's tokens (16 experts, top-2)
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_ADMISSION = (4, 256)
+JAMBA_PAGED_LENS = [64, 129, 1025, 4095]
+JAMBA_PAGE_TOKENS = 16
+JAMBA_SCAN = {"prefill": (1, 512, False), "decode": (4, 1, True)}
+JAMBA_GEMM_TOKENS = {"prefill": 1024, "decode": 4}
 #: phase 14: qwen2.5-3b --full trained through the launcher (remat on)
 TRAIN_STEPS = 10
 #: at the launcher's default peak lr of 3e-3 (sized for the smoke configs)
@@ -565,7 +601,7 @@ def compare(name: str, got, want, tol: float = ATOL) -> float:
 
 def phase_environment() -> str:
     import torch
-    log(f"[1/15] environment: python {sys.version.split()[0]}, torch "
+    log(f"[1/16] environment: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -587,7 +623,7 @@ def phase_build() -> dict:
     (TMA loads). Returns {library: its SASS counts of HGMMA, UTMALDG and
     HMMA (``mma.sync``, the tensor cores without wgmma)}."""
     from repro_torch.kernels import build
-    log("[2/15] build: nvcc " + " ".join(build.NVCC_FLAGS))
+    log("[2/16] build: nvcc " + " ".join(build.NVCC_FLAGS))
     t0 = time.perf_counter()
     build.build_all()
     log(f"  built {', '.join(build.SOURCES)} in "
@@ -623,7 +659,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
     from repro_torch.benchmarks.common import median_ms
     from repro_torch.kernels.paged_attention import (paged_flash_decode,
                                                      paged_flash_decode_plain)
-    log(f"[3/15] kernels against their plain versions (attention: bf16, "
+    log(f"[3/16] kernels against their plain versions (attention: bf16, "
         f"atol = rtol = {ATOL})")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1163,6 +1199,14 @@ def new_attention_cases(repeats) -> dict:
         None, "paged_decode_kernel",
         2 * 2 * visible * hkv * d + 2 * 2 * qd.numel() + 4 * bt.numel()
         + 4 * b, 4.0 * d * hq * visible))
+    q, k, v = jamba_flash_inputs()
+    label = jamba_flash_label(q, k)
+    got = flash_attention(q, k, v, causal=True)
+    compare(label, got, flash_attention_plain(q, k, v, causal=True))
+    repeats.append((label, functools.partial(flash_attention, q, k, v,
+                                             causal=True), got))
+    digests["jamba_flash"] = digest(got)
+    del q, k, v
     differ = {case: got for case, got in digests.items()
               if case in NEW_CASE_DIGESTS and NEW_CASE_DIGESTS[case] != got}
     if differ:
@@ -1171,6 +1215,24 @@ def new_attention_cases(repeats) -> dict:
         f"(recorded: {sorted(NEW_CASE_DIGESTS)})")
     out["digests"] = digests
     return out
+
+
+def jamba_flash_inputs():
+    """q, k, v of jamba's one-shot admission at its widths (JAMBA_ADMISSION,
+    64 query heads over 8 at D = 128), numpy-seeded, on the model's
+    ``transpose(1, 2)`` views."""
+    from repro_torch.configs import get_config
+    cfg = get_config(JAMBA)
+    b, n = JAMBA_ADMISSION
+    make = seeded(330)
+    return tuple(make(b, n, h, cfg.head_dim).transpose(1, 2)
+                 for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+
+
+def jamba_flash_label(q, k) -> str:
+    b, hq, n, _ = q.shape
+    return (f"flash jamba B={b} Hq={hq} Hkv={k.shape[1]} S={n} causal "
+            f"(model views)")
 
 
 def phase_matmul_kernel() -> dict:
@@ -1289,14 +1351,44 @@ def phase_matmul_kernel() -> dict:
                 f32_bound_ms=bound32)
 
 
+def scan_inputs(gen, di, ds, b, length, dtype) -> tuple:
+    """x, dt, A, B, C, D of a selective scan on the card, drawn from
+    ``gen`` as the model gives them: x, B, C in ``dtype``, dt f32 in the
+    model's [1e-3, 1e-1], A = -(1..Ds) per channel (S4D-real), D = 1."""
+    import math
+    import torch
+    dev = gen.device
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    x = torch.randn((b, length, di), generator=gen, device=dev)
+    u = torch.rand((b, length, di), generator=gen, device=dev)
+    bc = torch.randn((2, b, length, ds), generator=gen, device=dev)
+    a = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device=dev).expand(di, ds).contiguous()
+    return (x.to(dtype), torch.exp(lo + u * (hi - lo)), a, bc[0].to(dtype),
+            bc[1].to(dtype), torch.ones((di,), device=dev))
+
+
+def scan_state(gen, di, ds, b, random):
+    """A zero initial state, or a random one drawn from ``gen``."""
+    import torch
+    if not random:
+        return torch.zeros((b, di, ds), device=gen.device)
+    return torch.randn((b, di, ds), generator=gen, device=gen.device)
+
+
+def scan(args, h0, **kw):
+    """``ops.selective_scan`` from ``h0``, returning the state with one."""
+    from repro_torch.kernels import ops
+    return ops.selective_scan(*args, h0=h0, return_state=h0 is not None,
+                              **kw)
+
+
 def phase_scan_kernel(fcfg) -> dict:
     """mamba_scan against its plain version at falcon-mamba-7b's shapes,
-    through ``ops.selective_scan`` under the h100 target's plans: x, B, C
-    as the model gives them (bf16; f32 in the f32 cases), dt f32 in the
-    model's [1e-3, 1e-1], A = -(1..Ds) per channel (S4D-real), D = 1. The
-    prefill case (L = 512 from a zero state) is timed and its error is the
-    ``kernels`` row's."""
-    import math
+    through ``ops.selective_scan`` under the h100 target's plans, on
+    :func:`scan_inputs` (bf16; f32 in the f32 cases). The prefill case (L
+    = 512 from a zero state) is timed and its error is the ``kernels``
+    row's."""
     import torch
     from repro_torch.benchmarks.common import median_ms
     from repro_torch.core.hw_profiles import H100_SXM
@@ -1308,26 +1400,8 @@ def phase_scan_kernel(fcfg) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     di, ds = fcfg.ssm_d_inner, fcfg.ssm_d_state
-    lo, hi = math.log(1e-3), math.log(1e-1)
-
-    def inputs(b, length, dtype):
-        x = torch.randn((b, length, di), generator=gen, device=dev)
-        u = torch.rand((b, length, di), generator=gen, device=dev)
-        bc = torch.randn((2, b, length, ds), generator=gen, device=dev)
-        a = -torch.arange(1, ds + 1, dtype=torch.float32,
-                          device=dev).expand(di, ds).contiguous()
-        return (x.to(dtype), torch.exp(lo + u * (hi - lo)), a,
-                bc[0].to(dtype), bc[1].to(dtype),
-                torch.ones((di,), device=dev))
-
-    def state(b, random):
-        if not random:
-            return torch.zeros((b, di, ds), device=dev)
-        return torch.randn((b, di, ds), generator=gen, device=dev)
-
-    def scan(args, h0, **kw):
-        return ops.selective_scan(*args, h0=h0, return_state=h0 is not None,
-                                  **kw)
+    inputs = functools.partial(scan_inputs, gen, di, ds)
+    state = functools.partial(scan_state, gen, di, ds)
 
     cases = [("prefill", 1, 512, torch.bfloat16, False),
              ("prefill ragged", 1, 300, torch.bfloat16, False),
@@ -1562,7 +1636,7 @@ def one_shot(cfg, argv, label) -> dict:
 
 
 def phase_one_shot(cfg) -> None:
-    log("[4/15] one-shot generate: " + " ".join(ONE_SHOT))
+    log("[4/16] one-shot generate: " + " ".join(ONE_SHOT))
     rec = one_shot(cfg, ONE_SHOT, "one-shot")
     teacher_forced_check(cfg, reference_params(cfg), one_shot_prompts(cfg)[0],
                          rec["tokens"].numpy()[0], "one-shot row 0")
@@ -1692,7 +1766,7 @@ def phase_stream(cfg) -> dict:
                                              repetitive_stream,
                                              shared_prefix_stream,
                                              synthetic_stream)
-    log("[5/15] qwen2.5-3b streams (every decode and verify chunk under "
+    log("[5/16] qwen2.5-3b streams (every decode and verify chunk under "
         "set_sync_debug_mode('error')); the prefix-shared stream's requests "
         "are all held to the teacher-forced rule")
     recs = {"stream": run_stream(cfg, STREAM, "stream")}
@@ -1807,7 +1881,7 @@ def phase_serve_bench(cfg) -> dict:
     counted around the phase."""
     from repro_torch.benchmarks import serve_bench as sb
     from repro_torch.benchmarks.common import ARTIFACT_ROOT
-    log(f"[6/15] serve_bench head-to-heads: qwen2.5-3b --full, "
+    log(f"[6/16] serve_bench head-to-heads: qwen2.5-3b --full, "
         f"{BENCH_REQUESTS} requests, each run once")
     t0 = time.perf_counter()
     common = dict(arch="qwen2.5-3b", n_requests=BENCH_REQUESTS, full=True,
@@ -2125,7 +2199,7 @@ def phase_falcon(fcfg) -> dict:
     from repro_torch.core.target import use_target
     from repro_torch.models.api import build_model
     from repro_torch.serve.scheduler import synthetic_stream
-    log("[7/15] falcon-mamba-7b at full width: " + " ".join(FALCON)
+    log("[7/16] falcon-mamba-7b at full width: " + " ".join(FALCON)
         + f" (the launcher's target on the card, {SERVING_TARGET}; every "
         "decode chunk under set_sync_debug_mode('error'))")
     n_ssm = layer_counts(fcfg)[1]
@@ -2251,48 +2325,53 @@ def grouped_gemm_cases(cfg, p, x, label) -> dict:
     time a call (``host_ms``: ``grouped_gemm_ab.N_HOST`` calls with no
     synchronisation). The cases, their work and the host count are
     ``benchmarks/grouped_gemm_ab.py``'s."""
+    from repro_torch.benchmarks.grouped_gemm_ab import routed_inputs
+    return {f"gemm_{label}_{proj}": gemm_case(f"{label} {proj}", *args)
+            for proj, args in routed_inputs(cfg, p, x).items()}
+
+
+def gemm_case(label, xs, w, offs) -> dict:
+    """One grouped_gemm call held and timed as :func:`grouped_gemm_cases`
+    says; the pick of ``launch_config`` printed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.benchmarks.common import graph_ms, host_ms
     from repro_torch.benchmarks.grouped_gemm_ab import (N_HOST, case_work,
-                                                        experts_hit,
-                                                        routed_inputs)
+                                                        experts_hit)
     from repro_torch.kernels.grouped_gemm import (grouped_gemm,
                                                   grouped_gemm_plain,
                                                   launch_config)
-    out = {}
-    for proj, (xs, w, offs) in routed_inputs(cfg, p, x).items():
-        cap, k, n = xs.shape[0], w.shape[1], w.shape[2]
-        hit = experts_hit(offs)
-        got = grouped_gemm(xs, w, offs)
-        want = grouped_gemm_plain(xs, w, offs)
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        conf = launch_config(cap, k, n, w.shape[0])
-        name = (f"grouped_gemm {label} {proj} ({cap} hits of {hit} "
-                f"experts, K={k}, N={n}; {conf.regime}, {conf.bm} x "
-                f"{conf.bn} tiles)")
-        if not (torch.isfinite(got).all() and rel <= GEMM_REL_TOL):
-            fail(f"{name}: max |d| {err:.3e}, {rel:.2e} of the largest value "
-                 f"(tolerance {GEMM_REL_TOL})")
-        log(f"  {name}: max |d| {err:.3e} ({rel:.2e} of the largest)  ok")
-        kernel = functools.partial(grouped_gemm, xs, w, offs)
-        library = functools.partial(F.grouped_mm, xs, w, offs=offs)
-        timing = time_case(
-            name, kernel, functools.partial(grouped_gemm_plain, xs, w, offs),
-            library, "grouped_gemm_kernel", *case_work(xs, w, offs),
-            back_to_back=True)
-        timing.update(graph_ms=graph_ms(kernel, N_TIMED),
-                      library_graph_ms=graph_ms(library, N_TIMED),
-                      host_ms=host_ms(kernel, N_HOST))
-        log(f"    device alone (CUDA graph, {N_TIMED} calls): kernel "
-            f"{timing['graph_ms']:.4f} ms, F.grouped_mm "
-            f"{timing['library_graph_ms']:.4f} ms; the wrapper's host time "
-            f"{timing['host_ms']:.4f} ms a call")
-        out[f"gemm_{label}_{proj}"] = dict(err=err, rel_err=rel, hits=cap,
-                                           experts_hit=hit,
-                                           regime=conf.regime, **timing)
-    return out
+    cap, k, n = xs.shape[0], w.shape[1], w.shape[2]
+    hit = experts_hit(offs)
+    got = grouped_gemm(xs, w, offs)
+    want = grouped_gemm_plain(xs, w, offs)
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    conf = launch_config(cap, k, n, w.shape[0])
+    name = (f"grouped_gemm {label} ({cap} hits of {hit} experts, K={k}, "
+            f"N={n}; {conf.regime}, {conf.bm} x {conf.bn} tiles, grid "
+            f"{conf.grid})")
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    if not (finite and rel <= GEMM_REL_TOL):
+        fail(f"{name}: max |d| {err:.3e}, {rel:.2e} of the largest value "
+             f"(tolerance {GEMM_REL_TOL})")
+    log(f"  {name}: max |d| {err:.3e} ({rel:.2e} of the largest)  ok")
+    kernel = functools.partial(grouped_gemm, xs, w, offs)
+    library = functools.partial(F.grouped_mm, xs, w, offs=offs)
+    timing = time_case(
+        name, kernel, functools.partial(grouped_gemm_plain, xs, w, offs),
+        library, "grouped_gemm_kernel", *case_work(xs, w, offs),
+        back_to_back=True)
+    timing.update(graph_ms=graph_ms(kernel, N_TIMED),
+                  library_graph_ms=graph_ms(library, N_TIMED),
+                  host_ms=host_ms(kernel, N_HOST))
+    log(f"    device alone (CUDA graph, {N_TIMED} calls): kernel "
+        f"{timing['graph_ms']:.4f} ms, F.grouped_mm "
+        f"{timing['library_graph_ms']:.4f} ms; the wrapper's host time "
+        f"{timing['host_ms']:.4f} ms a call")
+    return dict(err=err, rel_err=rel, hits=cap, experts_hit=hit,
+                regime=conf.regime, tiles=[conf.bm, conf.bn], **timing)
 
 
 def swap_kv(params, cfg):
@@ -2418,7 +2497,7 @@ def phase_moe(arch: str, n_layers: int, phase: int) -> dict:
     cfg = dataclasses.replace(full, n_layers=n_layers)
     groups = ", ".join(f"{g.name} x {g.n_repeat}" for g in cfg.layer_groups())
     argv = ["--arch", arch, "--full"]
-    log(f"[{phase}/15] {arch} at its published widths, {n_layers} of "
+    log(f"[{phase}/16] {arch} at its published widths, {n_layers} of "
         f"{full.n_layers} layers ({groups}): " + " ".join(argv))
     moe_check = check_grouped_moe(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -2514,7 +2593,7 @@ def phase_gemma(phase: int) -> dict:
              for k in g.pattern]
     globals_ = [i for i, k in enumerate(kinds) if k.window is None]
     argv = ["--arch", arch, "--full"]
-    log(f"[{phase}/15] {arch} at its published widths, {n_layers} of "
+    log(f"[{phase}/16] {arch} at its published widths, {n_layers} of "
         f"{full.n_layers} layers (window {full.window}, global layers "
         f"{globals_}): " + " ".join(argv))
     if globals_ != [5, 11] or len(kinds) != n_layers:
@@ -2570,7 +2649,7 @@ def phase_families(phase: int) -> dict:
     from repro_torch.models.frontends import fake_frontend
     from repro_torch.serve.engine import Engine, EngineConfig
     t0 = time.perf_counter()
-    log(f"[{phase}/15] the other attention families uncut, one-shot: "
+    log(f"[{phase}/16] the other attention families uncut, one-shot: "
         + " ".join(QWEN_VL) + f"; {SEAMLESS[0]} --full through "
         f"Engine.generate ({SEAMLESS[1]} source frames, {SEAMLESS[2]}-token "
         f"prompts)")
@@ -2642,7 +2721,7 @@ def phase_paper() -> dict:
     from repro_torch.kernels.matmul3d import matmul3d
     from repro_torch.launch import mempool_matmul
     from repro_torch.launch.mempool_matmul import REL_TOL
-    log("[12/15] the paper path: python -m repro_torch.launch.mempool_matmul; "
+    log("[12/16] the paper path: python -m repro_torch.launch.mempool_matmul; "
         "python -m repro_torch.benchmarks.kernel_bench --target h100")
     matmul3d.launches = 0
     rec = mempool_matmul.run([])
@@ -2931,7 +3010,7 @@ def phase_train(phase: int) -> dict:
     from repro_torch.launch import train as train_cli
     from repro_torch.train.optimizer import tree_leaves
     t_phase = time.perf_counter()
-    log(f"[{phase}/15] training: the kernels' autograd Functions; "
+    log(f"[{phase}/16] training: the kernels' autograd Functions; "
         f"python -m repro_torch.launch.train " + " ".join(TRAIN_ARGS)
         + "; the crash drill")
     checks = train_grad_checks()
@@ -2972,6 +3051,225 @@ def phase_train(phase: int) -> dict:
             "step_ms": step_s * 1e3, "tok_per_s": tokens / step_s,
             "peak_gb": peak / 1e9, "reckoning_gb": reckoning / 1e9,
             "plain_backward_calls": vjp, "drill": drill, "seconds": seconds}
+
+
+def jamba_flash_case() -> dict:
+    """Flash at jamba's admission: held, timed beside SDPA ``is_causal,
+    enable_gqa`` (phase 3 repeats and digests the same call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = jamba_flash_inputs()
+    label = jamba_flash_label(q, k)
+    call = functools.partial(flash_attention, q, k, v, causal=True)
+    plain = functools.partial(flash_attention_plain, q, k, v, causal=True)
+    err = compare(label, call(), plain())
+    sdpa = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                             is_causal=True, enable_gqa=True)
+    compare("flash jamba: SDPA vs the plain version", sdpa(), plain())
+    b, hq, n, d = q.shape
+    pairs = b * hq * sum(min(r + 1, n) for r in range(n))
+    return dict(err=err, **time_case(
+        label, call, plain, sdpa, "flash_fwd_kernel",
+        2 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * d * pairs))
+
+
+def jamba_paged_case() -> dict:
+    """Paged decode at jamba's widths (8 KV heads, group 8): 4 slots over
+    JAMBA_PAGE_TOKENS-token pages at JAMBA_PAGED_LENS, held, each slot
+    alone bit for bit its row of the batch, one CUDA kernel a call,
+    timed; no library call walks a block table."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import (paged_flash_decode,
+                                                     paged_flash_decode_plain)
+    cfg = get_config(JAMBA)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pt, lens = JAMBA_PAGE_TOKENS, JAMBA_PAGED_LENS
+    b, p_max = len(lens), -(-(max(lens) + 1) // pt)
+    make = seeded(340)
+    kp, vp = (make(b * p_max + 1, hkv, pt, d) for _ in range(2))
+    perm = torch.from_numpy(np.random.RandomState(341).permutation(
+        b * p_max) + 1).cuda()
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    mapped = torch.arange(p_max, device="cuda")[None, :] * pt <= cl[:, None]
+    bt = torch.where(mapped, perm.reshape(b, p_max), 0).to(
+        torch.int32).contiguous()
+    q = make(b, hq, 1, d)
+    label = (f"paged jamba B={b} Hq={hq} Hkv={hkv} pt={pt} P={p_max} "
+             f"lens={lens}")
+    call = functools.partial(paged_flash_decode, q, kp, vp, bt, cl)
+    plain = functools.partial(paged_flash_decode_plain, q, kp, vp, bt, cl)
+    got = call()
+    err = compare(label, got, plain())
+    for i in range(b):
+        if not torch.equal(paged_flash_decode(q[i:i + 1], kp, vp,
+                                              bt[i:i + 1], cl[i:i + 1]),
+                           got[i:i + 1]):
+            fail(f"{label}: slot {i} alone differs from its row of the batch")
+    n_kernels = device_profile(call, "paged_decode_kernel")[1]
+    if n_kernels != 1:
+        fail(f"{label}: a call launched {n_kernels:g} CUDA kernels, want 1")
+    log(f"  {label}: each slot alone == its row of the batch, bit for bit; "
+        f"one CUDA kernel a call  ok")
+    visible = sum(n + 1 for n in lens)
+    return dict(err=err, **time_case(
+        label, call, plain, None, "paged_decode_kernel",
+        2 * 2 * visible * hkv * d + 2 * 2 * q.numel() + 4 * bt.numel()
+        + 4 * b, 4.0 * d * hq * visible))
+
+
+def jamba_scan_cases() -> dict:
+    """mamba_scan at jamba's widths (Di 16384, Ds 16) under h100 plans:
+    the prefill from a zero state and decode from a random state written
+    in place (== the functional state bit for bit), y at ATOL and the
+    final state at SCAN_TOL of the plain scan; each timed, the plain scan
+    N_TIMED_PLAIN_SCAN times. Returns {label: row}."""
+    import torch
+    from repro_torch.benchmarks.common import median_ms
+    from repro_torch.configs import get_config
+    from repro_torch.core.hw_profiles import H100_SXM
+    from repro_torch.core.target import use_target
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain, scan_work
+    cfg = get_config(JAMBA)
+    di, ds = cfg.ssm_d_inner, cfg.ssm_d_state
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = {}
+    with use_target("h100"):
+        for label, (b, length, random) in JAMBA_SCAN.items():
+            args = scan_inputs(gen, di, ds, b, length, torch.bfloat16)
+            h0 = scan_state(gen, di, ds, b, random)
+            y, h = scan(args, h0)
+            want_y, want_h = mamba_scan_plain(*args, h0=h0,
+                                              return_state=True)
+            name = f"mamba_scan jamba {label} B={b} L={length} Di={di}"
+            err = compare(f"{name} y", y, want_y)
+            compare(f"{name} final state", h, want_h, SCAN_TOL)
+            if random:
+                cache = h0.clone()
+                y_i, _ = ops.selective_scan(*args, h0=cache,
+                                            return_state=True,
+                                            state_in_place=True)
+                if not (torch.equal(y_i, y) and torch.equal(cache, h)):
+                    fail(f"{name}: the state written in place differs "
+                         f"from the functional state")
+                log(f"  {name}: state in place == functional, bit for "
+                    f"bit  ok")
+            ms = median_ms(lambda: scan(args, h0), N_TIMED)
+            dev = device_ms(lambda: scan(args, h0), "mamba_scan")
+            plain = median_ms(lambda: mamba_scan_plain(
+                *args, h0=h0, return_state=True), N_TIMED_PLAIN_SCAN)
+            n_bytes, exps = scan_work(*args, h0=h0, return_state=True)
+            bound, by = bound_ms(n_bytes, exps, H100_SXM.special_ops)
+            log(f"  {name}: kernel {ms:.4f} ms (device {dev:.4f} ms), "
+                f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
+                f"{n_bytes} B, {exps} exp), no library call")
+            rows[label] = dict(err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                               library_ms=None, bound_ms=bound, bound_by=by)
+    return rows
+
+
+def expert_weights(gen, e, k, n):
+    """(e, k, n) bf16 expert weights drawn from ``gen``, one expert at a
+    time (an f32 draw of all of them would take 12.9 GB at jamba's)."""
+    import torch
+    w = torch.empty((e, k, n), dtype=torch.bfloat16, device="cuda")
+    for i in range(e):
+        w[i] = torch.randn((k, n), generator=gen, device="cuda").mul_(
+            k ** -0.5)
+    return w
+
+
+def jamba_gemm_cases() -> dict:
+    """grouped_gemm at jamba's widths: 16 experts top-2, routes of a seeded
+    router at d 8192 for JAMBA_GEMM_TOKENS; the gate projection (K 8192,
+    N 24576) and then the down projection (K 24576, N 8192), each made,
+    held and timed alone and freed after (:func:`gemm_case`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(JAMBA)
+    d, f, e, top = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    router = torch.randn((d, e), generator=gen, device="cuda") * d ** -0.5
+    routes = {}
+    for label, t in JAMBA_GEMM_TOKENS.items():
+        x = torch.randn((t, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        _, idx, _ = moe._route(router, x, top)
+        flat = idx.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        routes[label] = (x[order // top].contiguous(),
+                         moe._offsets(flat[order], e))
+    out = {}
+    for proj, (k, n) in (("gate", (d, f)), ("down", (f, d))):
+        w = expert_weights(gen, e, k, n)
+        for label, (xs, offs) in routes.items():
+            if proj == "down":      # the down projection's rows: f wide
+                xs = torch.randn((xs.shape[0], f), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+            out[f"{label}_{proj}"] = gemm_case(f"jamba {label} {proj}", xs,
+                                               w, offs)
+            free_memory()
+        del w
+        free_memory()
+    return out
+
+
+def phase_jamba(phase: int) -> dict:
+    """jamba-1.5-large-398b's four kernels at its published widths, no
+    model weights: flash, paged decode, mamba_scan and grouped_gemm, each
+    held against its plain version and timed beside its bound (and its
+    library call where there is one); then the model on the card must
+    raise naming ROADMAP A9b. Prints the phase's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    log(f"[{phase}/16] {JAMBA}'s kernels at its published widths, no model "
+        f"weights")
+    out = {"flash": jamba_flash_case(), "paged": jamba_paged_case()}
+    free_memory()
+    out["scan"] = jamba_scan_cases()
+    free_memory()
+    out["gemm"] = jamba_gemm_cases()
+    try:
+        build_model(get_config(JAMBA), device="cuda")
+    except NotImplementedError as e:
+        if "ROADMAP A9b" not in str(e):
+            fail(f"{JAMBA} on the card raised without naming A9b: {e}")
+        log(f"  {JAMBA} on the card raises: {e}  ok")
+    else:
+        fail(f"{JAMBA} built on the card; the hybrid family is ROADMAP A9b")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  {JAMBA}: the phase took {out['seconds']:.1f} s")
+    return out
+
+
+def jamba_rows(jamba, counts) -> list:
+    """The kernels line's rows at jamba's widths: (name, library, replaces,
+    path, launches, timing), ``counts`` giving each kernel's (path,
+    launches). No jamba model runs on the card (ROADMAP A9b), so each
+    row's launches are its kernel's on the path named."""
+    scan_row = dict(jamba["scan"]["prefill"], extra={
+        f"decode_{key}": value for key, value
+        in jamba["scan"]["decode"].items()})
+    gemm = jamba["gemm"]
+    gemm_row = dict(gemm["prefill_gate"], extra={
+        f"{label}_{key}": value for label, case in gemm.items()
+        for key, value in case.items()})
+    return [("flash_attention_jamba", "flash_attention",
+             "src/repro/kernels/flash_attention.py:30", *counts["flash"],
+             jamba["flash"]),
+            ("paged_flash_decode_jamba", "paged_attention",
+             "src/repro/kernels/paged_attention.py:154", *counts["paged"],
+             jamba["paged"]),
+            ("mamba_scan_jamba", "mamba_scan",
+             "src/repro/kernels/mamba_scan.py:29", *counts["scan"],
+             scan_row),
+            ("grouped_gemm_jamba", "grouped_gemm",
+             "src/repro/models/moe.py:145", *counts["grouped"], gemm_row)]
 
 
 def grouped_gemm_row(moe_runs) -> dict:
@@ -3039,7 +3337,7 @@ def main() -> int:
     free_memory()
     paper = phase_paper()
     check_merge_counters("phase 12")
-    log("[13/15] where the time goes: torch.profiler (CUDA activity)")
+    log("[13/16] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
     phase_profile(cfg, kv_quant="int8")
     phase_profile(fcfg)
@@ -3047,10 +3345,13 @@ def main() -> int:
     free_memory()
     train = phase_train(14)
     check_merge_counters("phase 14")
+    free_memory()
+    jamba = phase_jamba(15)
+    check_merge_counters("phase 15")
     if bench["failed"]:
         fail(f"serve_bench outputs gates: {bench['failed']}")
 
-    log(f"[15/15] summary ({time.perf_counter() - t_start:.0f} s)")
+    log(f"[16/16] summary ({time.perf_counter() - t_start:.0f} s)")
     rows = [("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:30",
              rec["launches"]["flash"], timing["flash"]),
@@ -3076,6 +3377,17 @@ def main() -> int:
             ("grouped_gemm", "grouped_gemm", "src/repro/models/moe.py:145",
              moe_runs[QWEN_MOE[0]]["recs"]["stream"]["launches"]["grouped"],
              grouped_gemm_row(moe_runs))]
+    # jamba's widths: each kernel's launches on a path that runs it
+    qwen_moe_stream = moe_runs[QWEN_MOE[0]]["recs"]["stream"]["launches"]
+    paths = {name: ("the qwen2.5-3b paged stream", rec["launches"][name])
+             for name in ("flash", "paged")}
+    paths["scan"] = ("the falcon-mamba-7b paged stream", falcon["launches"])
+    paths["grouped"] = (f"the {QWEN_MOE[0]} paged stream",
+                        qwen_moe_stream["grouped"])
+    launches_path = {}
+    for name, lib, replaces, path, launches, t in jamba_rows(jamba, paths):
+        rows.append((name, lib, replaces, launches, t))
+        launches_path[name] = path
     kernels = []
     for name, lib, replaces, launches, t in rows:
         row = {"name": name, "route": "cuda",
@@ -3105,6 +3417,8 @@ def main() -> int:
         if name == "flash_attention":
             row["train_launches_per_step"] = (train["launches"]["flash"]
                                               // TRAIN_STEPS)
+        if name in launches_path:
+            row["launches_path"] = launches_path[name]
         kernels.append(row)
     # every stream's own counts, each read around that stream alone
     by_path = {f"qwen {name}": r["launches"] for name, r in streams.items()}

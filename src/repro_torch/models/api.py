@@ -2,7 +2,9 @@
 row moves.
 
 The counterpart of ``src/repro/models/api.py`` for ``family="dense"``,
-``family="moe"`` (GQA or MLA attention), ``family="ssm"``, ``family="vlm"``
+``family="moe"`` (GQA or MLA attention), ``family="ssm"``,
+``family="hybrid"`` (jamba; the CPU only, see
+:func:`repro_torch.models.transformer.check_supported`), ``family="vlm"``
 (M-RoPE, a stub frontend's embeddings before the text) and
 ``family="encdec"`` (:mod:`repro_torch.models.encdec`). The last two serve
 one-shot only, as in the reference: the pools, resumed prefill and
@@ -70,9 +72,9 @@ class Model:
     def __init__(self, cfg: ModelConfig,
                  target: Optional[HardwareTarget] = None,
                  device: Device = None):
-        transformer.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        transformer.check_supported(cfg, self.device)
         self.planner = Mem3DPlanner(target)
 
     # ------------------------------------------------------------ plans

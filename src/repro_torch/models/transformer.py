@@ -3,9 +3,10 @@
 The counterpart of ``src/repro/models/transformer.py`` for dense GQA
 stacks (with sliding-window layers: gemma3), mixture-of-experts stacks with
 GQA or multi-head latent attention (``family="moe"``), attention-free
-Mamba-1 stacks (``family="ssm"``) and the vision-language stack with
-M-RoPE and a stub frontend's embeddings before the text
-(``family="vlm"``). The encoder-decoder family is
+Mamba-1 stacks (``family="ssm"``), the hybrid attention + Mamba stack
+with MoE layers (``family="hybrid"``, jamba; the CPU only) and the
+vision-language stack with M-RoPE and a stub frontend's embeddings before
+the text (``family="vlm"``). The encoder-decoder family is
 :mod:`repro_torch.models.encdec`.
 Each layer dispatches on its kind: the attention (``gqa`` / ``mla`` /
 ``mamba``) and the MLP (``mlp`` / ``moe`` / none). The layer
@@ -43,14 +44,16 @@ from repro_torch.models.config import LayerKind, ModelConfig
 Params = Dict[str, Any]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet, naming the ROADMAP item
-    that brings it."""
-    if cfg.family == "hybrid":
+def check_supported(cfg: ModelConfig, device) -> None:
+    """Raise for what the port does not run yet on ``device``, naming the
+    ROADMAP item that brings it. The hybrid attention + mamba family
+    (jamba) runs on the CPU only: its serving copy of the weights on the
+    card is still to come."""
+    if cfg.family == "hybrid" and torch.device(device).type == "cuda":
         raise NotImplementedError(
-            f"{cfg.name}: the hybrid attention + mamba family is not ported "
-            f"yet (ROADMAP A9)")
-    if cfg.family not in ("dense", "moe", "ssm", "vlm", "encdec"):
+            f"{cfg.name}: the hybrid attention + mamba family does not run "
+            f"on the card yet (ROADMAP A9b); pass device='cpu'")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "encdec"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported")
 
@@ -84,7 +87,7 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random f32 params on ``gen``'s device, in the reference's tree:
     ``params["groups"][name]["pos{i}"]`` stacked over repeats, matrices
     stored ``(d_in, d_out)``."""
-    check_supported(cfg)
+    check_supported(cfg, gen.device)
     params: Params = {
         "tok": layers.init_embed(gen, cfg.padded_vocab, cfg.d_model,
                                  tie=cfg.tie_embeddings),

@@ -498,6 +498,8 @@ FLASH_CASES = {
     "q-offset": (1, 16, 2, 37, 576, {"q_offset": 16}, False),
     "mha": (1, 16, 16, 512, 576, {}, False),
     "non-causal": (1, 8, 2, 100, 130, {"causal": False}, False),
+    # jamba-1.5-large-398b's admission at its widths: 64 query heads over 8
+    "jamba-admission-views": (4, 64, 8, 256, 256, {}, True),
 }
 
 
@@ -507,7 +509,8 @@ def test_flash_kernel_cases_on_the_card(case):
     """The tensor-core flash kernel against its plain version (bf16, atol
     = rtol = 2e-2): the one-shot's admission batch, an Sq no query tile
     divides over a ragged Skv, the strided views models/attention.py
-    passes, a window, a q_offset, Hq == Hkv and no causal mask."""
+    passes, a window, a q_offset, Hq == Hkv, no causal mask and jamba's
+    admission (64 query heads over 8)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     b, hq, hkv, sq, skv, kw, views = FLASH_CASES[case]

@@ -1,5 +1,5 @@
-"""The port's models (dense GQA, MoE with GQA or MLA) against the JAX
-package, on the CPU.
+"""The port's models (dense GQA, MoE with GQA or MLA, the hybrid
+attention + mamba + MoE stack) against the JAX package, on the CPU.
 
 Weights come from the reference's ``Model.init`` through the numpy bridge,
 inputs from numpy seeds. Layers compare in bf16 at ``rtol = 1.6e-2`` (1-2
@@ -23,6 +23,23 @@ tolerance. Measured on the CPU: gemma3 1.20e-2 (prefill + dense decode)
 and 1.01e-2 (paged); the control 1.03e-2 and 1.24e-2. The window adds
 nothing the depth does not.
 
+``jamba-1.5-large-398b``'s smoke config (8 layers: GQA at layer 4, mamba
+at the other seven, MoE with 4 experts top-2 at the odd layers) runs on
+the reference's routes (:class:`RouteReplay`): its own router parts from
+the reference's at margins above ``ROUTE_TIE`` (measured: 1.97e-3,
+4.52e-3 and 1.96e-2 in the dense test's prefill; 1.07e-2, 2.00e-3 and
+1.95e-4 in the paged test's), and a parted token takes other experts
+through the rest of the stack. It is held at ``HYBRID_LOGIT_TOL = 5e-2``
+beside two 8-layer depth controls without MoE, at the same tolerance:
+the same network without experts (``jamba-1.5-large-398b-noexperts``)
+and falcon-mamba-7b's smoke config deepened from 2 to 8 layers
+(``falcon-mamba-7b-8layers``, no attention). Measured on the CPU
+(prefill + dense decode / paged): jamba 3.10e-2 / 2.85e-2, without
+experts 4.04e-2 / 3.23e-2, falcon at 8 layers 3.00e-2 / 2.45e-2 (7.0e-3
+at its 2 layers). Each of jamba's three layer kinds alone holds to
+``BF16_RTOL`` (max |dy| 3.1e-2 at |y| up to 5.1: 1-2 bf16 ulp): the gap
+is the mamba stack's depth, not a fault of the port.
+
 MoE models (qwen3-moe-30b-a3b, deepseek-v2-236b) route every token in both
 frameworks; the routes are recorded (the reference's through
 ``jax.debug.callback``) and must name the same experts. Where they part,
@@ -35,7 +52,10 @@ another expert. The test reports each part; it never re-seeds to avoid
 one.
 """
 
+import collections
 import dataclasses
+import functools
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -60,15 +80,38 @@ ROUTE_TIE = 1e-2
 #: gemma3-27b's smoke config (8 layers, window 16, 5:1 local:global) and
 #: the same network without its window, the depth control
 WINDOW_FREE = "gemma3-27b-nowindow"
+#: jamba-1.5-large-398b's smoke config (8 layers: GQA at 4, mamba elsewhere,
+#: MoE at the odd layers) and its two depth controls: the same network
+#: without experts, and falcon-mamba-7b's smoke config deepened to 8 layers
+HYBRID = "jamba-1.5-large-398b"
+HYBRID_DENSE = "jamba-1.5-large-398b-noexperts"
+SSM_DEEP = "falcon-mamba-7b-8layers"
+#: each control: (the arch it cuts, the fields it replaces)
+CONTROLS = {WINDOW_FREE: ("gemma3-27b", dict(window=None)),
+            HYBRID_DENSE: (HYBRID, dict(n_experts=0)),
+            SSM_DEEP: ("falcon-mamba-7b", dict(n_layers=8))}
 ARCHS = ["qwen2.5-3b", "yi-6b", "mistral-nemo-12b", "qwen3-moe-30b-a3b",
-         "deepseek-v2-236b", "gemma3-27b", WINDOW_FREE]
+         "deepseek-v2-236b", "gemma3-27b", WINDOW_FREE, HYBRID, HYBRID_DENSE,
+         SSM_DEEP]
+#: the archs run on the reference's routes (RouteReplay), not held to them
+REPLAYED = {HYBRID}
 #: logit tolerance by depth: the smoke configs' 2 layers, gemma3's 8
 DEEP_LOGIT_TOL = 2e-2
-TOL = {WINDOW_FREE: DEEP_LOGIT_TOL, "gemma3-27b": DEEP_LOGIT_TOL}
+HYBRID_LOGIT_TOL = 5e-2
+TOL = {WINDOW_FREE: DEEP_LOGIT_TOL, "gemma3-27b": DEEP_LOGIT_TOL,
+       HYBRID: HYBRID_LOGIT_TOL, HYBRID_DENSE: HYBRID_LOGIT_TOL,
+       SSM_DEEP: HYBRID_LOGIT_TOL}
 
 
 def _to_np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def configs(arch):
+    """(the reference's config, the port's) of an arch or a control."""
+    base, fields = CONTROLS.get(arch, (arch, {}))
+    return (dataclasses.replace(j_get_reduced(base), **fields),
+            dataclasses.replace(get_reduced(base), **fields))
 
 
 @pytest.fixture(scope="module")
@@ -76,13 +119,7 @@ def pair():
     """(jax model, jax params, port model, port params) per arch, built once."""
     out = {}
     for arch in ARCHS:
-        if arch == WINDOW_FREE:
-            jcfg = dataclasses.replace(j_get_reduced("gemma3-27b"),
-                                       window=None)
-            tcfg = dataclasses.replace(get_reduced("gemma3-27b"),
-                                       window=None)
-        else:
-            jcfg, tcfg = j_get_reduced(arch), get_reduced(arch)
+        jcfg, tcfg = configs(arch)
         jm = j_build_model(jcfg)
         jp = jm.init(jax.random.PRNGKey(0))
         tm = build_model(tcfg, device="cpu")
@@ -147,6 +184,44 @@ def test_rmsnorm_linear_mlp_match_jax():
     _close_bf16(layers.mlp({k: _t(v) for k, v in mp.items()}, xt),
                 jl.mlp({k: jnp.asarray(v) for k, v in mp.items()}, xb)
                 .astype(jnp.float32))
+
+
+@pytest.mark.parametrize("pos", ["pos0", "pos1", "pos4"],
+                         ids=["mamba-mlp", "mamba-moe", "gqa-mlp"])
+def test_hybrid_layer_kinds_match_jax(pair, pos, replay):
+    """Each of jamba's three layer kinds alone, with the reference's
+    weights (its ``blocks`` group: mamba + MLP at pos0, mamba + MoE at
+    pos1, GQA + MLP at pos4), on the same bf16 input at ``BF16_RTOL``; the
+    MoE layer on the reference's routes, its aux loss within 1e-5. One
+    layer holds to 1-2 bf16 ulp: the whole model's larger gap
+    (``HYBRID_LOGIT_TOL``) is its depth's."""
+    import repro.models.transformer as jt
+    jm, jp, tm, tp = pair[HYBRID]
+    kind = tm.cfg.layer_groups()[0].pattern[int(pos[3:])]
+    assert (kind.attn, kind.mlp) == {"pos0": ("mamba", "mlp"),
+                                     "pos1": ("mamba", "moe"),
+                                     "pos4": ("gqa", "mlp")}[pos]
+    rng = np.random.RandomState(4)
+    x = _bf16(rng.randn(2, 9, tm.cfg.d_model))
+    positions = np.broadcast_to(np.arange(9, dtype=np.int32), (2, 9))
+    layer = jax.tree.map(lambda a: a[0], jp["groups"]["blocks"][pos])
+    jy, jaux, _ = jt._apply_layer(
+        jm.cfg, kind, layer, jnp.asarray(x, jnp.bfloat16),
+        positions=jnp.asarray(positions), positions3=None, cache=None,
+        cache_len=None)
+    ty, taux = transformer._apply_layer(
+        tm.cfg, kind, transformer._index(tp["groups"]["blocks"][pos], 0),
+        _t(x, torch.bfloat16), positions=_t(positions), cache=None,
+        cache_len=None)
+    replay(2, f"jamba {pos}")
+    assert ty.dtype == torch.bfloat16
+    want = np.asarray(jy, np.float32)
+    err = np.abs(ty.float().numpy() - want).max()
+    print(f"jamba {pos}: max |dy| {err:.3e} of max |y| "
+          f"{np.abs(want).max():.3e}")
+    _close_bf16(ty, want)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5,
+                               atol=1e-7)
 
 
 def test_embed_unembed_rope_match_jax():
@@ -215,6 +290,107 @@ def routing(monkeypatch):
     return parted
 
 
+class RouteReplay:
+    """The reference's MoE routes, replayed in the port.
+
+    :meth:`install` wraps both packages' ``moe._route``. The reference's
+    records each call's ``idx`` and ``probs`` (an ordered
+    ``jax.debug.callback``) under its layer, known by the bytes of the
+    layer's f32 router weights, which the bridge hands the port unchanged.
+    The port's computes its own router probabilities and takes the
+    reference's ``idx`` of the same layer's call of the same rank (its
+    n-th call of a layer takes the reference's n-th), in the reference's
+    order of the k experts, which the grouped MoE's capacity cut ranks
+    hits by; the gates are its own probabilities at those experts,
+    renormalised as ``_route`` does. Keyed by layer, a remat'd layer's
+    recompute in the backward takes the reference's recompute of that
+    layer, whatever order the two backwards walk the layers in (XLA's
+    recompute can route a near-tie otherwise than its own forward did).
+
+    Each token the port's own top-k would have sent elsewhere is printed
+    with the reference's margin between its k-th and (k+1)-th probability
+    and kept in ``margins``; nothing re-seeds. :meth:`drain` asserts that
+    the two packages' calls lined up one to one, in count and in rows.
+    """
+
+    def __init__(self):
+        self.ref = collections.defaultdict(list)     # layer -> [(idx, probs)]
+        self.used = collections.Counter()
+        self.margins = []
+
+    @staticmethod
+    def _layer(w) -> bytes:
+        return hashlib.sha1(np.ascontiguousarray(w, np.float32)
+                            .tobytes()).digest()
+
+    def install(self, monkeypatch):
+        j_route, t_route = jmoe._route, tmoe._route
+
+        def jr(w, xt, k):
+            out = j_route(w, xt, k)
+            jax.debug.callback(self._record, w, out[1], out[2], ordered=True)
+            return out
+
+        monkeypatch.setattr(jmoe, "_route", jr)
+        monkeypatch.setattr(tmoe, "_route", functools.partial(
+            self._replay, t_route))
+        return self
+
+    def _record(self, w, idx, probs):
+        self.ref[self._layer(np.asarray(w))].append(
+            (np.asarray(idx), np.asarray(probs)))
+
+    def _replay(self, t_route, w, xt, k):
+        _, own, probs = t_route(w, xt, k)
+        jax.effects_barrier()
+        key = self._layer(w.detach().float().numpy())
+        calls, n = self.ref.get(key, []), self.used[key]
+        assert n < len(calls), "the port made a MoE call the reference did not"
+        self.used[key] += 1
+        idx, ref_probs = calls[n]
+        assert idx.shape == tuple(own.shape), (idx.shape, tuple(own.shape))
+        idx_t = torch.from_numpy(idx.astype(np.int64))
+        gates = torch.gather(probs, -1, idx_t)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        top = np.sort(ref_probs, axis=1)[:, ::-1]
+        for tok in np.nonzero((np.sort(idx, 1) != np.sort(own.numpy(), 1))
+                              .any(1))[0]:
+            margin = float(top[tok, k - 1] - top[tok, k])
+            print(f"the port's router would route token {tok} apart at "
+                  f"margin {margin:.2e}")
+            self.margins.append(margin)
+        return gates, idx_t, probs
+
+    def drain(self, what):
+        """Assert every recorded call was replayed once; forget them."""
+        jax.effects_barrier()
+        for key, calls in self.ref.items():
+            assert self.used[key] == len(calls), (what, self.used[key],
+                                                  len(calls))
+        assert set(self.used) <= set(self.ref), what
+        self.ref.clear()
+        self.used.clear()
+
+
+@pytest.fixture
+def replay(monkeypatch):
+    """A :class:`RouteReplay` installed for the test. Returns ``parted(
+    n_rows, what)`` in :func:`routing`'s form: it drains the replay and
+    returns the empty set, since no row takes other experts."""
+    rep = RouteReplay().install(monkeypatch)
+
+    def parted(n_rows, what):
+        rep.drain(what)
+        return set()
+    return parted
+
+
+def _routes(request, arch):
+    """The route check of ``arch``: replayed or held (``REPLAYED``)."""
+    return request.getfixturevalue("replay" if arch in REPLAYED
+                                   else "routing")
+
+
 def _check_logits(got, want, what, skip_rows=(), tol=LOGIT_TOL):
     """Holds the rows not in ``skip_rows`` (at least one must be left)."""
     keep = [r for r in range(got.shape[0]) if r not in skip_rows]
@@ -232,9 +408,10 @@ def _check_logits(got, want, what, skip_rows=(), tol=LOGIT_TOL):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_and_dense_decode_match_jax(pair, arch, routing):
+def test_prefill_and_dense_decode_match_jax(pair, arch, request):
     """Prefill logits, then 16 teacher-forced decode steps over the dense
     slab (0-d cache_len, the one-shot generate path)."""
+    routing = _routes(request, arch)
     jm, jp, tm, tp = pair[arch]
     cfg = tm.cfg
     rng = np.random.RandomState(2)
@@ -260,10 +437,11 @@ def test_prefill_and_dense_decode_match_jax(pair, arch, routing):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_paged_decode_matches_jax(pair, arch, routing):
+def test_paged_decode_matches_jax(pair, arch, request):
     """Two prompts of different lengths prefilled one at a time, cut into
     pages at shuffled block-table rows, then 16 teacher-forced decode steps
     over the paged pool with per-slot frontiers."""
+    routing = _routes(request, arch)
     jm, jp, tm, tp = pair[arch]
     cfg = tm.cfg
     rng = np.random.RandomState(3)
@@ -334,12 +512,17 @@ def test_moe_loss_and_aux_match_jax(pair, arch, routing):
 
 
 def test_unported_families_raise():
-    """The families the port does not serve yet name the ROADMAP item that
-    brings them: the hybrid (jamba, A9). M-RoPE with its frontend
-    (qwen2-vl) and the encoder-decoder (seamless) build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        build_model(get_reduced("jamba-1.5-large-398b"), device="cpu")
+    """The families the port does not run yet name the ROADMAP item that
+    brings them: the hybrid (jamba) builds on the CPU, and on the card
+    raises naming A9b (checked on the device alone, so without a card).
+    M-RoPE with its frontend (qwen2-vl) and the encoder-decoder (seamless)
+    build."""
+    cfg = get_reduced("jamba-1.5-large-398b")
+    assert build_model(cfg, device="cpu").cfg.name == cfg.name
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+        transformer.check_supported(cfg, torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+        transformer.check_supported(cfg, "cuda:0")
     for arch in ("qwen2-vl-2b", "seamless-m4t-medium"):
         assert build_model(get_reduced(arch), device="cpu").cfg.name \
             == get_reduced(arch).name
-

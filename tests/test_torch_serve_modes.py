@@ -31,8 +31,11 @@ reference's own teacher-forced top-2 margin is under ``TIE_TOL = 2e-2``
 ``test_torch_serve.py``). The margin is computed, never assumed.
 
 falcon-mamba-7b's smoke config serves the dense stream with the
-reference's counters and tokens (same rule), and refuses prefix sharing
-and chunked prefill as the reference does. The CLI serves
+reference's counters and tokens (same rule); it and jamba-1.5-large-398b's
+refuse prefix sharing, chunked prefill, speculation and quantized pages as
+the reference does, and host parking, which the reference does not refuse
+(``test_falcon_refuses_what_the_reference_refuses``). jamba's streams are
+``test_torch_hybrid.py``'s. The CLI serves
 every new mode on ``--device cpu``. The page-id guard raises on a bad id
 before anything reaches the device. The ``cuda``-marked cases serve a dense
 and a prefix-shared stream on the card and hold their greedy tokens within
@@ -226,15 +229,29 @@ def test_admission_refuses_an_over_long_prompt(engines):
 # ------------------------------------------------------------- the SSM
 
 
-@pytest.fixture(scope="module")
-def falcon():
-    jm = j_build_model(j_get_reduced("falcon-mamba-7b"))
+FALCON, JAMBA = "falcon-mamba-7b", "jamba-1.5-large-398b"
+
+
+def _recurrent_engines(arch):
+    """(jax model, jax params, jax engine, port engine) of a smoke config
+    with recurrent state, the port's weights the reference's."""
+    jm = j_build_model(j_get_reduced(arch))
     jp = jm.init(jax.random.PRNGKey(0))
-    tm = build_model(get_reduced("falcon-mamba-7b"), device="cpu")
+    tm = build_model(get_reduced(arch), device="cpu")
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     ecfg = dict(max_len=32, sync_interval=4)
     return (jm, jp, JEngine(jm, jp, JEngineConfig(**ecfg)),
             Engine(tm, tp, EngineConfig(**ecfg)))
+
+
+@pytest.fixture(scope="module")
+def falcon():
+    return _recurrent_engines(FALCON)
+
+
+@pytest.fixture(scope="module")
+def jamba():
+    return _recurrent_engines(JAMBA)
 
 
 def _falcon_prompts(vocab):
@@ -269,20 +286,56 @@ def test_falcon_dense_stream_matches_jax(falcon):
         assert got.outputs[rid] == one[0].tolist()[:len(got.outputs[rid])]
 
 
-@pytest.mark.parametrize("mode", ["paged-share", "paged-chunk",
-                                  "dense-chunk"])
-def test_falcon_refuses_what_the_reference_refuses(falcon, mode):
-    jm, _, jeng, teng = falcon
-    for eng, mod, cfg in ((jeng, j_sm, jm.cfg), (teng, sm, teng.model.cfg)):
+#: the serving modes the reference refuses a model with recurrent state
+REFUSED = ["paged-share", "paged-chunk", "dense-chunk", "speculate", "int8",
+           "fp8", "park"]
+
+
+@pytest.mark.parametrize("model,mode", [
+    pytest.param(model, mode, id=mode if model == "falcon"
+                 else f"{model}-{mode}")
+    for model in ("falcon", "jamba") for mode in REFUSED])
+def test_falcon_refuses_what_the_reference_refuses(request, model, mode):
+    """falcon-mamba-7b and jamba-1.5-large-398b (the cases named
+    ``jamba-*``) refuse prefix sharing, chunked prefill on either pool,
+    speculation and int8 / fp8 pages in both packages, with the
+    reference's messages. Host parking is the exception: the port refuses
+    it for a model with recurrent state, while the reference parks one and
+    resumes it (it slices the slot's recurrent rows into the blob, though
+    its ``serve/park.py`` says recurrent families never park); the
+    ``park`` cases hold both behaviours as they stand."""
+    jm, jp, jeng, teng = request.getfixturevalue(model)
+    ports = ((jeng, j_sm, jm.cfg, JEngine, JEngineConfig, jm, jp),
+             (teng, sm, teng.model.cfg, Engine, EngineConfig, teng.model,
+              teng.params))
+    for eng, mod, cfg, engine_cls, ecfg_cls, m, params in ports:
+        if mode == "speculate":
+            with pytest.raises(ValueError, match="roll back"):
+                engine_cls(m, params, ecfg_cls(max_len=32,
+                                               speculate_tokens=4))
+            continue
+        if mode in ("int8", "fp8"):
+            with pytest.raises(ValueError, match="recurrent"):
+                mod.derive_page_geometry(cfg, 32, page_tokens=8,
+                                         max_slots=2, kv_quant=mode)
+            continue
         pages = None if mode.startswith("dense") else \
             mod.derive_page_geometry(cfg, 32, page_tokens=8, max_slots=2)
         sch = mod.Scheduler(n_slots=2, pages=pages,
                             prefix_share=(mode == "paged-share"),
                             chunk_prefill_tokens=(
                                 4 if mode.endswith("chunk") else None))
-        sch.submit(np.arange(2, 8, dtype=np.int32), 4)
-        with pytest.raises(ValueError, match="attention-only"):
-            eng.serve(scheduler=sch)
+        rid = sch.submit(np.arange(2, 8, dtype=np.int32), 12).rid
+        if mode != "park":
+            with pytest.raises(ValueError, match="attention-only"):
+                eng.serve(scheduler=sch)
+            continue
+        eng.serve(scheduler=sch, max_steps=4)
+        if eng is teng:
+            with pytest.raises(ValueError, match="attention-only"):
+                eng.park_request(sch, rid)
+        else:
+            assert isinstance(eng.park_request(sch, rid), bytes)
 
 
 def test_dense_stream_rejects_an_over_long_prompt(engines):

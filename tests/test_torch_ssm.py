@@ -660,7 +660,9 @@ def _card_inputs(dev, b, length, di, ds, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("length,chunk,di,ds", SWEEP + [(300, 4, 8192, 16),
                                                          (1, 8, 8192, 16),
-                                                         (37, 8, 100, 5)])
+                                                         (37, 8, 100, 5),
+                                                         (512, 8, 16384, 16),
+                                                         (1, 8, 16384, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_kernel_matches_plain_on_card(length, chunk, di, ds,
                                                  dtype):
