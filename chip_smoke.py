@@ -119,8 +119,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      teacher-forced passes at the served batch, and ``Model.loss``'s
      forward on 1 x 2048 tokens. Every forward call launches mamba_scan
      once per layer (64) and the plain scan never;
-  8. qwen3-moe-30b-a3b at its published widths, 16 of 48 layers (its f32
-     init must fit the card), through the launcher given the cut config:
+  8. qwen3-moe-30b-a3b at its published widths, 16 of 48 layers (cut when
+     its f32 init had to fit the card), through the launcher given the
+     cut config:
      the grouped MoE (bf16 experts) against the plain one (f32, every
      expert on every token) at one full-width layer, T = 1024 and T = 4,
      each grouped call under the sync guard (no count read to the host),
@@ -187,24 +188,46 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      continues: the resumed losses and the final params and moments equal
      an uninterrupted run's bit for bit), its saves and restore timed;
      the phase's seconds;
- 15. jamba-1.5-large-398b's kernels at its published widths, no model
-     weights (its model on the card is ROADMAP A9b), each held against its
-     plain version and timed as phase 3 times: flash at its one-shot
-     admission (4 x 256, 64 query heads over 8, causal, on the model's
-     views; beside SDPA ``is_causal, enable_gqa``; the same inputs are in
-     phase 3's repeat set and digested as ``jamba_flash``); paged decode
-     with 8 KV heads at group 8, 4 slots of 16-token pages at frontiers
-     past split edges (each slot alone bit for bit its row of the batch,
-     one CUDA kernel a call); mamba_scan at Di = 16384, Ds = 16 under
-     h100 plans, the prefill 1 x 512 from a zero state and decode B = 4
-     from a random state written in place (== the functional state bit
-     for bit), y at ATOL and the final state at SCAN_TOL; grouped_gemm at
-     16 experts top-2 on a seeded router's routes at d = 8192, T = 1024
-     and T = 4, the gate (K 8192, N 24576) and down (K 24576, N 8192)
-     projections each alone and freed after, within GEMM_REL_TOL, beside
-     ``F.grouped_mm`` (bf16 out) and the hit experts' bytes, by CUDA-graph
-     replay too, with ``launch_config``'s pick printed; then
-     ``build_model(CONFIG, device="cuda")`` must raise naming A9b; the
+ 15. jamba-1.5-large-398b at its published widths. First its four kernels
+     alone, each held against its plain version and timed as phase 3
+     times: flash at its one-shot admission (4 x 256, 64 query heads over
+     8, causal, on the model's views; beside SDPA ``is_causal,
+     enable_gqa``; the same inputs are in phase 3's repeat set and
+     digested as ``jamba_flash``); paged decode with 8 KV heads at group
+     8, 4 slots of 16-token pages at frontiers past split edges (each slot
+     alone bit for bit its row of the batch, one CUDA kernel a call);
+     mamba_scan at Di = 16384, Ds = 16 under h100 plans, the prefill 1 x
+     512 from a zero state and decode B = 4 from a random state written in
+     place (== the functional state bit for bit), y at ATOL and the final
+     state at SCAN_TOL; grouped_gemm at 16 experts top-2 on a seeded
+     router's routes at d = 8192, T = 1024 and T = 4, the gate (K 8192, N
+     24576) and down (K 24576, N 8192) projections each alone and freed
+     after, within GEMM_REL_TOL, beside ``F.grouped_mm`` (bf16 out) and
+     the hit experts' bytes, by CUDA-graph replay too, with
+     ``launch_config``'s pick printed. Then the serving copy
+     (``Model.init_serving``, built leaf by leaf) against
+     ``prepare(init(gen))`` bit for bit where both fit (qwen2.5-3b uncut,
+     qwen3-moe-30b-a3b at 2 layers: bf16 experts). Then the model cut to
+     its 5 shallowest layers (mamba + MLP, mamba + MoE, twice, then GQA +
+     MLP; 24.05 B parameters, 48.1 GB served) through the launcher: its
+     serving copy built alone, peak allocated and reserved against the
+     reckoning (the copy + its largest leaf in f32, 73.9 GB); the one-shot
+     (4 x 256 x 32), the paged stream, the dense stream and the paged
+     stream squeezed to 50 layer-0 pages (it must preempt, and emit the
+     roomy stream's tokens bit for bit), launches counted around each by
+     the rules of phases 4-5 and 8 (flash once per GQA layer and
+     admission, paged decode once per GQA layer and decode step,
+     mamba_scan once per mamba layer and forward, grouped_gemm 3 times
+     per MoE layer and forward; all four > 0 on the paged stream; host
+     syncs == chunks); every greedy token of the one-shot and the paged
+     stream, and requests 0 and 1 of the dense stream, held to
+     teacher-forced passes at the served batch and pool; a full-sequence
+     forward on the step-by-step pass's routes held to that pass, its
+     logits within FORCED_ROUTE_TOL and each sublayer's output (every
+     mixer and feed-forward block) within FORCED_SUBLAYER_TOL of its
+     largest, and three control faults in the decode steps alone that
+     must fail that gate (the GQA layer's K and V traded, its ``wo``
+     through fp8; every mamba layer's ``out_proj`` through fp8); the
      phase's seconds;
  16. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream; flash at D = 192 a row of
@@ -213,9 +236,8 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      launched by qwen3-moe's paged stream; the training launches a step,
      and each Function's check and plain backward time, on the flash,
      mamba_scan and grouped_gemm rows; four rows at jamba's widths from
-     phase 15, whose ``launches`` are each kernel's on the path their
-     ``launches_path`` names, since no jamba model runs on the card), the
-     card line, and the result line.
+     phase 15, whose ``launches`` are each kernel's on jamba's own paged
+     stream), the card line, and the result line.
 
 After every phase from 3 on, every counter buffer of paged decode's
 in-launch merge (one per device and stream) must read all zeros: each
@@ -235,9 +257,12 @@ GEMM shapes (and, for MLA, through decompressed bf16 heads where decode
 reads the f32 latent), and a router near-tie that it flips moves the
 logits by up to 0.41 (deepseek-v2 at 3 layers, measured). Such a forward,
 its routes forced to the step-by-step pass's, is held to that pass
-within ``FORCED_ROUTE_TOL``: the one check of the MoE paths on the card
-that does not replay the served code. The squeezed falcon stream must also emit the roomy stream's tokens bit for
-bit: its recurrent rows only move between slots and f32 seats.
+within ``FORCED_ROUTE_TOL`` (jamba also sublayer by sublayer, within
+``FORCED_SUBLAYER_TOL``: its one GQA layer adds too little to the logits
+for a fault there to show in them): the one check of the MoE paths on
+the card that does not replay the served code. The squeezed falcon and jamba
+streams must also emit the roomy stream's tokens bit for bit: their
+recurrent rows only move between slots and f32 seats.
 """
 
 from __future__ import annotations
@@ -335,8 +360,9 @@ FLASH_DIGEST_CASES = {
     "mha": (1, 16, 16, 512, 576, {}, False),
     "noncausal": (1, 8, 2, 100, 130, {"causal": False}, False),
 }
-#: the MoE family at published widths, depth cut so the f32 init fits the
-#: card (PERF.md section 4): (arch, layers kept of the published)
+#: the MoE family at published widths, depth cut when the f32 init had to
+#: fit the card (PERF.md section 4; the serving copy is now built leaf by
+#: leaf): (arch, layers kept of the published)
 QWEN_MOE = ("qwen3-moe-30b-a3b", 16)
 DEEPSEEK = ("deepseek-v2-236b", 3)
 #: the grouped MoE (bf16 experts, f32 expert products) against the plain
@@ -353,8 +379,23 @@ MOE_TOKENS = {"prefill": 1024, "decode": 4}
 #: positions, by arch: about 2.3x the sound runs' readings (up to 0.041
 #: and 0.110: GEMM shapes, and for MLA bf16 heads against the f32 latent)
 #: and at most half the weaker control's (0.206 and 0.988: ``wo`` through
-#: fp8 in the decode steps). NVIDIA H100 80GB HBM3, PERF.md section 6
-FORCED_ROUTE_TOL = {"qwen3-moe-30b-a3b": 0.1, "deepseek-v2-236b": 0.25}
+#: fp8 in the decode steps). NVIDIA H100 80GB HBM3, PERF.md section 6.
+#: jamba x 5: 1.27x its sound readings (0.1316 / 0.1419 / 0.1569: four
+#: bf16 mamba layers through other GEMM shapes; logits twice qwen3's
+#: scale at d 8192); ``swap_kv`` reads 0.2442, ``fp8_out_proj`` 1.9863,
+#: but ``fp8_wo`` 0.1401, under the sound readings: with random weights
+#: its one GQA layer's output is small beside the residual stream, so it
+#: is gated by sublayer too (FORCED_SUBLAYER_TOL)
+FORCED_ROUTE_TOL = {"qwen3-moe-30b-a3b": 0.1, "deepseek-v2-236b": 0.25,
+                    "jamba-1.5-large-398b": 0.2}
+#: jamba x 5, the same comparison by sublayer (sublayer_gaps): each mixer's
+#: and feed-forward block's largest |d| over the generated positions as a
+#: share of its largest output there. Sound readings up to 0.0219 (the
+#: GQA layer's 0.0151-0.0184), the controls' at their faulted sublayer
+#: 0.2203 (swap_kv), 0.0474 (fp8_wo), 0.0774-0.2934 (fp8_out_proj): the
+#: gate sits near their geometric mean, 1.46x the sound readings and 0.68x
+#: fp8_wo's (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, PR 27)
+FORCED_SUBLAYER_TOL = 0.032
 #: gemma3-27b at its published widths cut to two 5:1 periods (globals at 5
 #: and 11): 12 of 62 layers (PERF.md section 4); its prompts run past the
 #: 1024-token window, so flash skips the blocks behind the band and paged
@@ -387,9 +428,9 @@ FLASH_D64_CASES = {"encoder": (4, 512, 512, False),
 #: the grouped_gemm kernel against its plain version (the same exact f32
 #: products summed in another order): max |d| over the output's largest
 GEMM_REL_TOL = 1e-4
-#: phase 15: jamba-1.5-large-398b's four kernels at its published widths on
-#: numpy-seeded inputs, no model weights (its model on the card is ROADMAP
-#: A9b): flash at its one-shot admission (B, S: 64 query heads over 8,
+#: phase 15: jamba-1.5-large-398b's four kernels alone at its published
+#: widths on numpy-seeded inputs (the model follows, below): flash at its
+#: one-shot admission (B, S: 64 query heads over 8,
 #: causal); paged decode over 4 slots of 16-token pages at frontiers past
 #: split (4-page) edges; mamba_scan's prefill (B, L) from a zero state and
 #: decode from a random one written in place; grouped_gemm at a prefill's
@@ -400,6 +441,22 @@ JAMBA_PAGED_LENS = [64, 129, 1025, 4095]
 JAMBA_PAGE_TOKENS = 16
 JAMBA_SCAN = {"prefill": (1, 512, False), "decode": (4, 1, True)}
 JAMBA_GEMM_TOKENS = {"prefill": 1024, "decode": 4}
+#: phase 15's model: jamba at its published widths cut to its 5 shallowest
+#: layers, the shallowest cut with attention (``blocks`` x 2: mamba + MLP,
+#: mamba + MoE; ``tail``: GQA + MLP): 24.05 B parameters, 96.2 GB in f32,
+#: 48.1 GB as served
+JAMBA_LAYERS = 5
+#: the serving copy's reckoning from jamba's shapes: the bf16 copy plus one
+#: f32 expert leaf (2 x 16 x 8192 x 24576), 48.1 + 25.8 GB; the phase also
+#: computes it from the copy it builds
+JAMBA_RECKONING_GB = 73.9
+#: layer-0 pages that make jamba's STREAM preempt (a CPU rehearsal of the
+#: scheduler at jamba's vocab: 2 preemptions, 53 pages spilled; at 45 it
+#: does not preempt)
+JAMBA_SQUEEZED_PAGES = 50
+#: the serving copy against prepare(init(gen)) on the card, where both fit:
+#: (arch, layers kept; None: all)
+SERVING_COPY_CHECKS = (("qwen2.5-3b", None), ("qwen3-moe-30b-a3b", 2))
 #: phase 14: qwen2.5-3b --full trained through the launcher (remat on)
 TRAIN_STEPS = 10
 #: at the launcher's default peak lr of 3e-3 (sized for the smoke configs)
@@ -1590,11 +1647,12 @@ def served_batch_check(model, params, prompts, tokens, rows, label, *,
 
 
 def reference_params(cfg):
-    """The launcher's weights (seed 0), prepared for serving."""
+    """The launcher's weights (seed 0): the serving copy, built leaf by
+    leaf."""
     import torch
     from repro_torch.models.api import build_model
-    model = build_model(cfg)
-    return model.prepare(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    return build_model(cfg).init_serving(
+        torch.Generator(device="cuda").manual_seed(0))
 
 
 def one_shot_prompts(cfg, rows=4, length=256):
@@ -2222,8 +2280,8 @@ def phase_falcon(fcfg) -> dict:
     free_memory()
     with use_target("h100"):
         model = build_model(fcfg)
-        params = model.prepare(model.init(
-            torch.Generator(device="cuda").manual_seed(0)))
+        params = model.init_serving(
+            torch.Generator(device="cuda").manual_seed(0))
         stream = synthetic_stream(8, 512, 64, fcfg.vocab_size)
         rows = 4                                    # STREAM_ARGS' --batch
         checks = [(one_shot_prompts(fcfg), first["tokens"].numpy(),
@@ -2396,15 +2454,22 @@ def swap_kv(params, cfg):
     return out
 
 
-def fp8_wo(params, cfg=None):
-    """``params`` with every attention output projection ``wo`` rounded
-    through fp8-e4m3: a subtler control fault for forced_routes, given to
-    the decode steps only."""
+def fp8_wo(params, cfg=None, proj="wo"):
+    """``params`` with every attention output projection ``wo`` (or every
+    leaf named ``proj``) rounded through fp8-e4m3: a subtler control fault
+    for forced_routes, given to the decode steps only."""
     import torch
-    return {name: (fp8_wo(leaf) if isinstance(leaf, dict)
+    return {name: (fp8_wo(leaf, cfg, proj) if isinstance(leaf, dict)
                    else leaf.to(torch.float8_e4m3fn).to(leaf.dtype)
-                   if name == "wo" else leaf)
+                   if name == proj else leaf)
             for name, leaf in params.items()}
+
+
+def fp8_out_proj(params, cfg=None):
+    """``params`` with every mamba layer's output projection ``out_proj``
+    rounded through fp8-e4m3: a control fault confined to the mamba
+    layers, for forced_routes, given to the decode steps only."""
+    return fp8_wo(params, cfg, "out_proj")
 
 
 def forced_routes(model, params, prompt, tokens, decode_params=None) -> tuple:
@@ -2475,6 +2540,56 @@ def forced_routes(model, params, prompt, tokens, decode_params=None) -> tuple:
     return float(d), int(parted.sum()), float(margin)
 
 
+@contextlib.contextmanager
+def sublayer_outputs():
+    """Record, in call order, the output (f32) of every mixer (attention,
+    mamba) and feed-forward block (MLP, MoE) the model calls while the
+    block runs: [(kind, output (B, S, d))]."""
+    from repro_torch.models import attention, layers, moe, ssm
+    rec = []
+
+    def recording(kind, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            rec.append((kind, (out[0] if isinstance(out, tuple)
+                               else out).float()))
+            return out
+        return call
+
+    saved = (dict(attention.APPLY), ssm.mamba_block, layers.mlp,
+             moe.moe_block)
+    for kind, fn in saved[0].items():
+        attention.APPLY[kind] = recording(kind, fn)
+    ssm.mamba_block = recording("mamba", saved[1])
+    layers.mlp = recording("mlp", saved[2])
+    moe.moe_block = recording("moe", saved[3])
+    try:
+        yield rec
+    finally:
+        attention.APPLY.update(saved[0])
+        ssm.mamba_block, layers.mlp, moe.moe_block = saved[1:]
+
+
+def sublayer_gaps(rec, n_sub, n, start) -> dict:
+    """From :func:`sublayer_outputs`' record of one :func:`forced_routes`
+    call (``n_sub`` sublayers a forward; the step-by-step pass's prefill
+    and n - 1 decode steps, then the full-sequence forward): each
+    sublayer's largest |d| over the n generated positions, as a share of
+    its largest output there. {"<layer> <kind>": share}."""
+    import torch
+    if len(rec) != n_sub * (n + 1):
+        fail(f"sublayer record: {len(rec)} calls, want {n_sub} x {n + 1}")
+    out, layer = {}, -1
+    for i in range(n_sub):
+        kind = rec[i][0]
+        layer += kind not in ("mlp", "moe")     # a mixer opens a layer
+        steps = torch.cat([rec[t * n_sub + i][1][0, -1:] for t in range(n)])
+        whole = rec[n * n_sub + i][1][0, start:start + n]
+        out[f"{layer} {kind}"] = float(
+            (steps - whole).abs().max() / steps.abs().max())
+    return out
+
+
 def phase_moe(arch: str, n_layers: int, phase: int) -> dict:
     """One MoE model at its published widths, ``n_layers`` deep, through
     the launcher (``cli.run(argv, cfg=...)``) under its h100 default: the
@@ -2503,8 +2618,8 @@ def phase_moe(arch: str, n_layers: int, phase: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     recs = {"one_shot": one_shot(cfg, argv + ONE_SHOT_ARGS, "one-shot")}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  one-shot: peak device memory {peak:.1f} GB (the f32 init and "
-        f"its bf16 serving copy)")
+    log(f"  one-shot: peak device memory {peak:.1f} GB (its serving copy, "
+        f"built leaf by leaf, and the one-shot)")
     free_memory()
     recs["stream"] = run_stream(cfg, argv + STREAM_ARGS, "stream")
     free_memory()
@@ -2673,8 +2788,8 @@ def phase_families(phase: int) -> dict:
     gen_len = 32
     with use_target(SERVING_TARGET):
         model = build_model(cfg)
-        engine = Engine(model, model.init(torch.Generator(device="cuda")
-                                          .manual_seed(0)),
+        engine = Engine(model, model.init_serving(
+            torch.Generator(device="cuda").manual_seed(0)),
                         EngineConfig(max_len=n_prompt + gen_len))
         prompts = np.random.RandomState(1).randint(2, cfg.vocab_size,
                                                    size=(4, n_prompt))
@@ -2766,8 +2881,8 @@ def phase_profile(cfg, kv_quant=None) -> None:
                                     max_slots=4, kv_quant=kv_quant)
         n_slots = derive_n_slots(cfg, MAX_LEN, max_slots=4, pages=geom)
         model = build_model(cfg)
-        engine = Engine(model, model.init(torch.Generator(device="cuda")
-                                          .manual_seed(0)),
+        engine = Engine(model, model.init_serving(
+            torch.Generator(device="cuda").manual_seed(0)),
                         EngineConfig(max_len=MAX_LEN, sync_interval=8))
         # a trace that lost kernel records (see device_profile) traces the
         # port's kernels fewer times than their wrappers launched them
@@ -3218,40 +3333,253 @@ def jamba_gemm_cases() -> dict:
     return out
 
 
-def phase_jamba(phase: int) -> dict:
-    """jamba-1.5-large-398b's four kernels at its published widths, no
-    model weights: flash, paged decode, mamba_scan and grouped_gemm, each
-    held against its plain version and timed beside its bound (and its
-    library call where there is one); then the model on the card must
-    raise naming ROADMAP A9b. Prints the phase's seconds."""
+def check_serving_copy(arch: str, n_layers) -> dict:
+    """``Model.init_serving(gen)`` against ``prepare(init(gen))`` on the
+    card, bit for bit and dtype for dtype: ``arch`` at its published
+    widths, ``n_layers`` deep (None: uncut)."""
+    import dataclasses
+    import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models.api import build_model
+    from repro_torch.train.checkpoint import _flatten
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    got = model.init_serving(gen())
+    want = model.prepare(model.init(gen()))
+    dtypes = [(k, t.dtype) for k, t in _flatten(got)]
+    if not (dtypes == [(k, t.dtype) for k, t in _flatten(want)]
+            and same_bits(got, want)):
+        fail(f"{arch} x {cfg.n_layers}: the serving copy built leaf by leaf "
+             f"differs from prepare(init(gen))")
+    n_bf16 = sum(d == torch.bfloat16 for _, d in dtypes)
+    experts = {str(d) for k, d in dtypes
+               if k.rsplit("/", 1)[-1].startswith("we_")}
+    gb = sum(t.nbytes for _, t in _flatten(got)) / 1e9
+    log(f"  serving copy of {arch} x {cfg.n_layers}: {len(dtypes)} leaves "
+        f"({n_bf16} bf16; experts {sorted(experts) or 'none'}), {gb:.2f} GB, "
+        f"== prepare(init(gen)) bit for bit  ok")
+    del got, want
+    free_memory()
+    return {"leaves": len(dtypes), "gb": gb}
+
+
+def jamba_serving_copy(cfg) -> dict:
+    """Build jamba's serving copy alone on a drained card and read its
+    peak, allocated and reserved, against the reckoning: the copy's bytes
+    plus its largest leaf in f32 (the one f32 leaf alive at a time). The
+    f32 tree is never whole, so the peak must stay within the reckoning."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.train.checkpoint import _flatten
+    free_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
     t0 = time.perf_counter()
-    log(f"[{phase}/16] {JAMBA}'s kernels at its published widths, no model "
-        f"weights")
+    params = model.init_serving(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved()
+    leaves = [t for _, t in _flatten(params)]
+    served = sum(t.nbytes for t in leaves)
+    f32_tree = sum(4 * t.numel() for t in leaves)
+    largest = max(4 * t.numel() for t in leaves
+                  if t.dtype == torch.bfloat16)
+    card = torch.cuda.get_device_properties(0).total_memory
+    reckoning = served + largest
+    log(f"  serving copy of {cfg.name} x {cfg.n_layers}: {served / 1e9:.2f} "
+        f"GB served ({f32_tree / 1e9:.2f} GB as an f32 tree, never made), "
+        f"built in {seconds:.2f} s; peak allocated {peak / 1e9:.2f} GB, peak "
+        f"reserved {reserved / 1e9:.2f} GB, against the reckoning "
+        f"{reckoning / 1e9:.2f} GB (the copy + its largest leaf in f32, "
+        f"{largest / 1e9:.2f} GB; reckoned beforehand {JAMBA_RECKONING_GB} "
+        f"GB) and the card's {card / 1e9:.2f} GB")
+    # 64 MiB: the mamba init's dt temporaries and the allocator's rounding
+    if peak > reckoning + 2 ** 26 or reserved > card:
+        fail(f"{cfg.name}: the serving copy peaked at {peak / 1e9:.2f} GB "
+             f"allocated, {reserved / 1e9:.2f} GB reserved, over its "
+             f"reckoning {reckoning / 1e9:.2f} GB")
+    del params, leaves
+    free_memory()
+    return {"served_gb": served / 1e9, "f32_tree_gb": f32_tree / 1e9,
+            "reckoning_gb": reckoning / 1e9, "peak_gb": peak / 1e9,
+            "reserved_gb": reserved / 1e9, "build_s": seconds}
+
+
+def jamba_checks(cfg, recs) -> dict:
+    """jamba's served tokens against the teacher-forced rule at the served
+    batch and pool (every request of the one-shot and the paged stream,
+    requests 0 and 1 of the dense stream), and a full-sequence forward on
+    the step-by-step pass's routes held to that pass (its logits within
+    FORCED_ROUTE_TOL, each sublayer's output within FORCED_SUBLAYER_TOL of
+    its largest), with three control faults in the decode steps that must
+    fail it: the GQA layer's K and V traded, its ``wo`` through fp8, every
+    mamba layer's ``out_proj`` through fp8. Every reading is logged before
+    a gate fails."""
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.scheduler import synthetic_stream
+    model = build_model(cfg)
+    params = reference_params(cfg)
+    stream = synthetic_stream(8, 512, 64, cfg.vocab_size)
+    prompts, roomy = one_shot_prompts(cfg), recs["stream"]["outputs"]
+    gaps = [served_batch_check(model, params, prompts,
+                               recs["one_shot"]["tokens"].numpy(), 4,
+                               "one-shot")]
+    for rid in range(len(stream)):
+        gaps.append(served_batch_check(
+            model, params, [stream[rid]["prompt"]], [roomy[rid]], 4,
+            f"stream request {rid}", depth=MAX_LEN, page_tokens=16))
+    for rid in (0, 1):
+        gaps.append(served_batch_check(
+            model, params, [stream[rid]["prompt"]],
+            [recs["dense"]["outputs"][rid]], 4,
+            f"dense stream request {rid}", depth=MAX_LEN))
+    tol, sub_tol = FORCED_ROUTE_TOL[JAMBA], FORCED_SUBLAYER_TOL
+    n_sub = sum(2 if k.mlp != "none" else 1 for g in cfg.layer_groups()
+                for _ in range(g.n_repeat) for k in g.pattern)
+    readings = {}
+
+    def gate(label, prompt, toks, fault=None):
+        with sublayer_outputs() as rec:
+            d, parts, margin = forced_routes(
+                model, params, prompt, toks,
+                decode_params=fault(params, cfg) if fault else None)
+        sub = sublayer_gaps(rec, n_sub, len(toks), len(prompt) - 1)
+        worst = max(sub, key=sub.get)
+        readings[label] = (d, sub[worst])
+        log(f"  {label}: max |d logit| {d:.4f} (gated at {tol}); worst "
+            f"sublayer {worst} {sub[worst]:.4f} of its largest output "
+            f"(gated at {sub_tol}; " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sub.items()) + f"); the "
+            f"forward's own routes would part at {parts} positions, "
+            f"largest margin {margin:.2e}")
+
+    log("  a full-sequence forward on the step-by-step pass's routes "
+        "against that pass: the logits, and each sublayer's output")
+    for label, prompt, toks in (
+            ("one-shot row 0", prompts[0],
+             recs["one_shot"]["tokens"].numpy()[0]),
+            ("stream request 0", stream[0]["prompt"], roomy[0]),
+            ("stream request 1", stream[1]["prompt"], roomy[1])):
+        gate(label, prompt, toks)
+    for fault, what in ((swap_kv, "the GQA layer's K and V projections "
+                                  "traded"),
+                        (fp8_wo, "the GQA layer's wo rounded through "
+                                 "fp8-e4m3"),
+                        (fp8_out_proj, "the mamba layers' out_proj rounded "
+                                       "through fp8-e4m3")):
+        gate(f"control {fault.__name__} (stream request 0; in the decode "
+             f"steps, {what})", stream[0]["prompt"], roomy[0], fault)
+    sound = {k: v for k, v in readings.items() if not k.startswith("control")}
+    for label, (d, sub) in readings.items():
+        passes = d <= tol and sub <= sub_tol
+        if passes != (label in sound):
+            fail(f"{JAMBA} {label}: the forced-route gate "
+                 f"{'passes' if passes else 'fails'} it (logits {d:.4f}, "
+                 f"sublayer {sub:.4f})")
+    del params, model
+    free_memory()
+    return {"teacher_forced_gap": max(gaps),
+            "forced_route_gap": max(d for d, _ in sound.values()),
+            "forced_sublayer_gap": max(sub for _, sub in sound.values()),
+            "forced_route_controls": {k: v for k, v in readings.items()
+                                      if k not in sound}}
+
+
+def jamba_served() -> dict:
+    """jamba at its published widths cut to JAMBA_LAYERS layers, served
+    through the launcher (``cli.run(argv, cfg=<cut>)``) under its h100
+    default: its serving copy's peak; the one-shot, the paged stream, the
+    dense stream and the squeezed paged stream, launches counted around
+    each; the squeezed stream's tokens == the roomy one's bit for bit;
+    every greedy token of the one-shot and the paged stream (and requests
+    0 and 1 of the dense stream) held to teacher-forced passes at the
+    served batch and pool; a full-sequence forward on the step-by-step
+    pass's routes held to it, and three control faults in the decode
+    steps that must fail that gate (:func:`jamba_checks`)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.target import use_target
+    from repro_torch.serve.scheduler import kv_bytes_per_token
+    full = get_config(JAMBA)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    groups = ", ".join(
+        f"{g.name} x {g.n_repeat} ("
+        + ", ".join(f"{k.attn} + {k.mlp}" for k in g.pattern) + ")"
+        for g in cfg.layer_groups())
+    argv = ["--arch", JAMBA, "--full"]
+    log(f"  {JAMBA} served at its published widths, {JAMBA_LAYERS} of "
+        f"{full.n_layers} layers ({groups}): " + " ".join(argv))
+    out = {"copy": jamba_serving_copy(cfg)}
+    torch.cuda.reset_peak_memory_stats()
+    recs = {"one_shot": one_shot(cfg, argv + ONE_SHOT_ARGS, "one-shot")}
+    out["one_shot_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  one-shot: peak device memory {out['one_shot_peak_gb']:.2f} GB "
+        f"(the serving copy and the one-shot)")
+    free_memory()
+    recs["stream"] = run_stream(cfg, argv + STREAM_ARGS, "stream")
+    if not all(recs["stream"]["launches"][k] > 0
+               for k in ("flash", "paged", "scan", "grouped")):
+        fail(f"{JAMBA} paged stream: a kernel of its path did not launch: "
+             f"{recs['stream']['launches']}")
+    free_memory()
+    recs["dense"] = run_stream(cfg, argv + DENSE_STREAM_ARGS, "dense stream")
+    free_memory()
+    layer0 = kv_bytes_per_token(cfg) * 16 * JAMBA_SQUEEZED_PAGES
+    recs["squeezed"] = run_stream(cfg, argv + STREAM_ARGS + [
+        "--layer0-bytes", str(layer0)], "squeezed")
+    check_squeezed("squeezed stream", recs["squeezed"])
+    roomy, squeezed = recs["stream"]["outputs"], recs["squeezed"]["outputs"]
+    differ = [rid for rid, toks in roomy.items()
+              if squeezed.get(rid) != toks]
+    if differ or len(squeezed) != len(roomy):
+        fail(f"{JAMBA} squeezed stream: requests {differ} emit other tokens "
+             f"than the roomy stream")
+    log(f"  squeezed stream: all {len(roomy)} requests emit the roomy "
+        f"stream's tokens bit for bit")
+    free_memory()
+    with use_target(SERVING_TARGET):       # mamba_scan plans on the card
+        out.update(jamba_checks(cfg, recs))
+    out["recs"] = recs
+    return out
+
+
+def phase_jamba(phase: int) -> dict:
+    """jamba-1.5-large-398b at its published widths: its four kernels
+    alone (flash, paged decode, mamba_scan and grouped_gemm, each held
+    against its plain version and timed beside its bound and its library
+    call where there is one); the serving copy against prepare(init(gen))
+    bit for bit where both fit (SERVING_COPY_CHECKS); then the model cut to
+    JAMBA_LAYERS layers served through the launcher (:func:`jamba_served`).
+    Prints the phase's seconds."""
+    t0 = time.perf_counter()
+    log(f"[{phase}/16] {JAMBA} at its published widths: its kernels, then "
+        f"the model at {JAMBA_LAYERS} layers served")
     out = {"flash": jamba_flash_case(), "paged": jamba_paged_case()}
     free_memory()
     out["scan"] = jamba_scan_cases()
     free_memory()
     out["gemm"] = jamba_gemm_cases()
-    try:
-        build_model(get_config(JAMBA), device="cuda")
-    except NotImplementedError as e:
-        if "ROADMAP A9b" not in str(e):
-            fail(f"{JAMBA} on the card raised without naming A9b: {e}")
-        log(f"  {JAMBA} on the card raises: {e}  ok")
-    else:
-        fail(f"{JAMBA} built on the card; the hybrid family is ROADMAP A9b")
+    free_memory()
+    out["serving_copy"] = {arch: check_serving_copy(arch, n)
+                           for arch, n in SERVING_COPY_CHECKS}
+    out["served"] = jamba_served()
     out["seconds"] = time.perf_counter() - t0
     log(f"  {JAMBA}: the phase took {out['seconds']:.1f} s")
     return out
 
 
-def jamba_rows(jamba, counts) -> list:
+def jamba_rows(jamba) -> list:
     """The kernels line's rows at jamba's widths: (name, library, replaces,
-    path, launches, timing), ``counts`` giving each kernel's (path,
-    launches). No jamba model runs on the card (ROADMAP A9b), so each
-    row's launches are its kernel's on the path named."""
+    launches on jamba's paged stream, timing)."""
     scan_row = dict(jamba["scan"]["prefill"], extra={
         f"decode_{key}": value for key, value
         in jamba["scan"]["decode"].items()})
@@ -3259,17 +3587,17 @@ def jamba_rows(jamba, counts) -> list:
     gemm_row = dict(gemm["prefill_gate"], extra={
         f"{label}_{key}": value for label, case in gemm.items()
         for key, value in case.items()})
+    counts = jamba["served"]["recs"]["stream"]["launches"]
     return [("flash_attention_jamba", "flash_attention",
-             "src/repro/kernels/flash_attention.py:30", *counts["flash"],
+             "src/repro/kernels/flash_attention.py:30", counts["flash"],
              jamba["flash"]),
             ("paged_flash_decode_jamba", "paged_attention",
-             "src/repro/kernels/paged_attention.py:154", *counts["paged"],
+             "src/repro/kernels/paged_attention.py:154", counts["paged"],
              jamba["paged"]),
             ("mamba_scan_jamba", "mamba_scan",
-             "src/repro/kernels/mamba_scan.py:29", *counts["scan"],
-             scan_row),
+             "src/repro/kernels/mamba_scan.py:29", counts["scan"], scan_row),
             ("grouped_gemm_jamba", "grouped_gemm",
-             "src/repro/models/moe.py:145", *counts["grouped"], gemm_row)]
+             "src/repro/models/moe.py:145", counts["grouped"], gemm_row)]
 
 
 def grouped_gemm_row(moe_runs) -> dict:
@@ -3377,17 +3705,12 @@ def main() -> int:
             ("grouped_gemm", "grouped_gemm", "src/repro/models/moe.py:145",
              moe_runs[QWEN_MOE[0]]["recs"]["stream"]["launches"]["grouped"],
              grouped_gemm_row(moe_runs))]
-    # jamba's widths: each kernel's launches on a path that runs it
-    qwen_moe_stream = moe_runs[QWEN_MOE[0]]["recs"]["stream"]["launches"]
-    paths = {name: ("the qwen2.5-3b paged stream", rec["launches"][name])
-             for name in ("flash", "paged")}
-    paths["scan"] = ("the falcon-mamba-7b paged stream", falcon["launches"])
-    paths["grouped"] = (f"the {QWEN_MOE[0]} paged stream",
-                        qwen_moe_stream["grouped"])
+    # jamba's widths: each kernel's launches on jamba's own paged stream
+    jamba_path = f"the {JAMBA} x {JAMBA_LAYERS} paged stream"
     launches_path = {}
-    for name, lib, replaces, path, launches, t in jamba_rows(jamba, paths):
-        rows.append((name, lib, replaces, launches, t))
-        launches_path[name] = path
+    for row in jamba_rows(jamba):
+        rows.append(row)
+        launches_path[row[0]] = jamba_path
     kernels = []
     for name, lib, replaces, launches, t in rows:
         row = {"name": name, "route": "cuda",
@@ -3433,8 +3756,11 @@ def main() -> int:
     by_path.update({path: r["launches"] for path, r in families.items()
                     if path != "seconds"})
     by_path["qwen train"] = train["launches"]
+    by_path.update({f"{JAMBA} x {JAMBA_LAYERS} {name}": r["launches"]
+                    for name, r in jamba["served"]["recs"].items()})
     for row, key in zip(kernels, ("flash", "paged", None, "scan",
-                                  "flash_d192", "flash_d64", "grouped")):
+                                  "flash_d192", "flash_d64", "grouped",
+                                  "flash", "paged", "scan", "grouped")):
         if key:
             row["launches_by_path"] = {path: c[key]
                                        for path, c in by_path.items()}

@@ -133,8 +133,9 @@ def _emit_bench_json(meta: Dict, metrics: Dict) -> str:
 @contextlib.contextmanager
 def _bench(target_name, arch: str, device, full: bool, params):
     """The card unless ``device`` says otherwise; ``target_name``, else the
-    launcher's serving target; the REDUCED config unless ``full``; weights
-    from a seeded generator unless ``params`` are given. Yields (device,
+    launcher's serving target; the REDUCED config unless ``full``; the
+    serving copy of the weights (``Model.init_serving``) from a seeded
+    generator unless ``params`` are given. Yields (device,
     target, config, model, params)."""
     dev = resolve_device(device)
     name = target_name or serving_target(dev)
@@ -142,7 +143,8 @@ def _bench(target_name, arch: str, device, full: bool, params):
         cfg = get_config(arch) if full else get_reduced(arch)
         model = build_model(cfg, device=dev)
         if params is None:
-            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            params = model.init_serving(
+                torch.Generator(device=dev).manual_seed(0))
         yield dev, get_target(), cfg, model, params
 
 

@@ -42,7 +42,7 @@ ONE_SHOT_ARCHS = ("yi-6b", "deepseek-v2-236b", "falcon-mamba-7b",
 def _engine(arch: str, device: torch.device, max_len: int, **ecfg):
     cfg = get_reduced(arch)
     model = build_model(cfg, device=device)
-    params = model.init(torch.Generator(device=device).manual_seed(0))
+    params = model.init_serving(torch.Generator(device=device).manual_seed(0))
     return cfg, Engine(model, params, EngineConfig(max_len=max_len, **ecfg))
 
 

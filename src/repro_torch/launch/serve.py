@@ -399,7 +399,8 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     tgt_ctx = use_target(target) if target else contextlib.nullcontext()
     with tgt_ctx:
         model = build_model(cfg, device=dev)
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        params = model.init_serving(
+            torch.Generator(device=dev).manual_seed(0))
         max_len = args.prompt_len + args.gen_len + cfg.frontend_len
         spec_k = args.speculate_tokens
         if spec_k == 0:

@@ -3,8 +3,7 @@ row moves.
 
 The counterpart of ``src/repro/models/api.py`` for ``family="dense"``,
 ``family="moe"`` (GQA or MLA attention), ``family="ssm"``,
-``family="hybrid"`` (jamba; the CPU only, see
-:func:`repro_torch.models.transformer.check_supported`), ``family="vlm"``
+``family="hybrid"`` (jamba), ``family="vlm"``
 (M-RoPE, a stub frontend's embeddings before the text) and
 ``family="encdec"`` (:mod:`repro_torch.models.encdec`). The last two serve
 one-shot only, as in the reference: the pools, resumed prefill and
@@ -61,6 +60,20 @@ def _is_matrix(name: str, grouped_moe: bool) -> bool:
             or name in _MAMBA_MATRICES)
 
 
+def _serving_leaf(grouped_moe: bool) -> layers.Leaf:
+    """The serving copy's rule for one leaf: a matrix (:func:`_is_matrix`)
+    cast to bf16, anything else kept as it is."""
+    def leaf(name: str, x: torch.Tensor) -> torch.Tensor:
+        return layers.cast(x) if _is_matrix(name, grouped_moe) else x
+    return leaf
+
+
+def _cast_tree(params: Any, leaf: layers.Leaf) -> Any:
+    """``params`` with every leaf passed through ``leaf``."""
+    return {k: (_cast_tree(v, leaf) if isinstance(v, dict) else leaf(k, v))
+            for k, v in params.items()}
+
+
 class Model:
     """Facade over the dense / MoE transformer and Mamba-1 substrate on one
     device.
@@ -99,12 +112,26 @@ class Model:
     def init(self, gen: torch.Generator) -> Any:
         """Random f32 params from ``gen``, made directly on the model's
         device (``gen`` must live there)."""
+        return self._draw(gen, layers.keep)
+
+    def init_serving(self, gen: torch.Generator) -> Any:
+        """The serving copy ``prepare(init(gen))``, bit for bit, built
+        leaf by leaf: each leaf is drawn (the same draws in the same order
+        as :meth:`init`), scaled in place and cast by :meth:`prepare`'s
+        rule before the next is drawn, so the f32 tree never exists. The
+        peak is the serving copy plus its largest f32 leaf."""
+        return self._draw(gen, self._leaf())
+
+    def _draw(self, gen: torch.Generator, leaf: layers.Leaf) -> Any:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
         if self.cfg.family == "encdec":
-            return encdec.init_encdec(self.cfg, gen)
-        return transformer.init_lm(self.cfg, gen)
+            return encdec.init_encdec(self.cfg, gen, leaf)
+        return transformer.init_lm(self.cfg, gen, leaf)
+
+    def _leaf(self) -> layers.Leaf:
+        return _serving_leaf(grouped_moe=self.device.type == "cuda")
 
     def prepare(self, params: Any) -> Any:
         """The serving copy of ``params``: matrices cast to bf16 ONCE
@@ -114,15 +141,10 @@ class Model:
         weights follow the MoE the model's device runs
         (:func:`repro_torch.models.moe.moe_block`): bf16 for the card's
         grouped version, f32 for the CPU's plain one, which computes in f32
-        as the reference's ``_moe_dense`` does."""
-        grouped = self.device.type == "cuda"
-
-        def walk(tree):
-            return {k: (walk(v) if isinstance(v, dict)
-                        else layers.cast(v) if _is_matrix(k, grouped)
-                        else v)
-                    for k, v in tree.items()}
-        return walk(params)
+        as the reference's ``_moe_dense`` does. On a prepared copy it
+        returns the same tensors (a cast to a leaf's own dtype is the
+        leaf)."""
+        return _cast_tree(params, self._leaf())
 
     # ------------------------------------------------------------- loss
     def loss(self, params, batch: Dict[str, torch.Tensor], *,

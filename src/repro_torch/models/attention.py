@@ -170,21 +170,23 @@ def _paged_cache_write_q(pages: torch.Tensor, scales: torch.Tensor,
 
 # ---------------------------------------------------------------------- GQA
 
-def init_gqa(cfg: ModelConfig, gen: torch.Generator, n: int = 1) -> Dict:
+def init_gqa(cfg: ModelConfig, gen: torch.Generator, n: int = 1,
+             leaf: layers.Leaf = layers.keep) -> Dict:
     """GQA weights, stacked ``n`` deep on a leading axis."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = 1.0 / math.sqrt(d)
     p = {
-        "wq": randn(gen, (n, d, hq * hd), s),
-        "wk": randn(gen, (n, d, hkv * hd), s),
-        "wv": randn(gen, (n, d, hkv * hd), s),
-        "wo": randn(gen, (n, hq * hd, d), 1.0 / math.sqrt(hq * hd)),
+        "wq": leaf("wq", randn(gen, (n, d, hq * hd), s)),
+        "wk": leaf("wk", randn(gen, (n, d, hkv * hd), s)),
+        "wv": leaf("wv", randn(gen, (n, d, hkv * hd), s)),
+        "wo": leaf("wo", randn(gen, (n, hq * hd, d),
+                               1.0 / math.sqrt(hq * hd))),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", hq * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):
-            p[name] = torch.zeros((n, width), dtype=torch.float32,
-                                  device=gen.device)
+            p[name] = leaf(name, torch.zeros((n, width), dtype=torch.float32,
+                                             device=gen.device))
     return p
 
 
@@ -311,28 +313,35 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
 
 # ---------------------------------------------------------------------- MLA
 
-def init_mla(cfg: ModelConfig, gen: torch.Generator, n: int = 1) -> Dict:
+def init_mla(cfg: ModelConfig, gen: torch.Generator, n: int = 1,
+             leaf: layers.Leaf = layers.keep) -> Dict:
     """MLA weights in the reference's tree, stacked ``n`` deep."""
     d, h = cfg.d_model, cfg.n_heads
     nope, rope_d, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                           cfg.v_head_dim)
     lora, q_lora = cfg.kv_lora_rank, cfg.q_lora_rank
+
+    def norm(width):
+        return {"scale": leaf("scale", torch.ones(
+            (n, width), dtype=torch.float32, device=gen.device))}
+
     p = {}
     if q_lora:
-        p["wq_a"] = randn(gen, (n, d, q_lora), 1.0 / math.sqrt(d))
-        p["q_norm"] = {"scale": torch.ones((n, q_lora), dtype=torch.float32,
-                                           device=gen.device)}
-        p["wq_b"] = randn(gen, (n, q_lora, h * (nope + rope_d)),
-                          1.0 / math.sqrt(q_lora))
+        p["wq_a"] = leaf("wq_a", randn(gen, (n, d, q_lora),
+                                       1.0 / math.sqrt(d)))
+        p["q_norm"] = norm(q_lora)
+        p["wq_b"] = leaf("wq_b", randn(gen, (n, q_lora, h * (nope + rope_d)),
+                                       1.0 / math.sqrt(q_lora)))
     else:
-        p["wq_b"] = randn(gen, (n, d, h * (nope + rope_d)),
-                          1.0 / math.sqrt(d))
-    p["wkv_a"] = randn(gen, (n, d, lora + rope_d), 1.0 / math.sqrt(d))
-    p["kv_norm"] = {"scale": torch.ones((n, lora), dtype=torch.float32,
-                                        device=gen.device)}
-    p["wkv_b"] = randn(gen, (n, lora, h * (nope + vdim)),
-                       1.0 / math.sqrt(lora))
-    p["wo"] = randn(gen, (n, h * vdim, d), 1.0 / math.sqrt(h * vdim))
+        p["wq_b"] = leaf("wq_b", randn(gen, (n, d, h * (nope + rope_d)),
+                                       1.0 / math.sqrt(d)))
+    p["wkv_a"] = leaf("wkv_a", randn(gen, (n, d, lora + rope_d),
+                                     1.0 / math.sqrt(d)))
+    p["kv_norm"] = norm(lora)
+    p["wkv_b"] = leaf("wkv_b", randn(gen, (n, lora, h * (nope + vdim)),
+                                     1.0 / math.sqrt(lora)))
+    p["wo"] = leaf("wo", randn(gen, (n, h * vdim, d),
+                               1.0 / math.sqrt(h * vdim)))
     return p
 
 

@@ -35,29 +35,32 @@ Params = Dict[str, Any]
 _KIND = LayerKind(attn="gqa", mlp="mlp")
 
 
-def _norm(n: int, d: int, device) -> Dict:
-    return {"scale": torch.ones((n, d), dtype=torch.float32, device=device)}
-
-
-def init_encdec(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    """Random f32 params on ``gen``'s device, in the reference's tree."""
+def init_encdec(cfg: ModelConfig, gen: torch.Generator,
+                leaf: layers.Leaf = layers.keep) -> Params:
+    """Random f32 params on ``gen``'s device, in the reference's tree; each
+    leaf goes through ``leaf`` as it is made."""
     d, dev = cfg.d_model, gen.device
     ne, nd = cfg.n_encoder_layers, cfg.n_layers
+
+    def norm(n):
+        return {"scale": leaf("scale", torch.ones(
+            (n, d), dtype=torch.float32, device=dev))}
+
     return {
         "tok": layers.init_embed(gen, cfg.padded_vocab, d,
-                                 tie=cfg.tie_embeddings),
-        "encoder": {"ln1": _norm(ne, d, dev),
-                    "attn": attn_mod.init_gqa(cfg, gen, ne),
-                    "ln2": _norm(ne, d, dev),
-                    "mlp": layers.init_mlp(gen, d, cfg.d_ff, ne)},
-        "decoder": {"ln1": _norm(nd, d, dev),
-                    "attn": attn_mod.init_gqa(cfg, gen, nd),
-                    "lnx": _norm(nd, d, dev),
-                    "xattn": attn_mod.init_gqa(cfg, gen, nd),
-                    "ln2": _norm(nd, d, dev),
-                    "mlp": layers.init_mlp(gen, d, cfg.d_ff, nd)},
-        "enc_norm": layers.init_rmsnorm(d, dev),
-        "final_norm": layers.init_rmsnorm(d, dev),
+                                 tie=cfg.tie_embeddings, leaf=leaf),
+        "encoder": {"ln1": norm(ne),
+                    "attn": attn_mod.init_gqa(cfg, gen, ne, leaf),
+                    "ln2": norm(ne),
+                    "mlp": layers.init_mlp(gen, d, cfg.d_ff, ne, leaf)},
+        "decoder": {"ln1": norm(nd),
+                    "attn": attn_mod.init_gqa(cfg, gen, nd, leaf),
+                    "lnx": norm(nd),
+                    "xattn": attn_mod.init_gqa(cfg, gen, nd, leaf),
+                    "ln2": norm(nd),
+                    "mlp": layers.init_mlp(gen, d, cfg.d_ff, nd, leaf)},
+        "enc_norm": layers.init_rmsnorm(d, dev, leaf),
+        "final_norm": layers.init_rmsnorm(d, dev, leaf),
     }
 
 

@@ -10,7 +10,7 @@ rounding of 150k logits would tie and move the argmax).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +20,18 @@ COMPUTE_DTYPE = torch.bfloat16
 
 def cast(x: torch.Tensor, dtype=COMPUTE_DTYPE) -> torch.Tensor:
     return x.to(dtype)
+
+
+#: What the init functions do with each leaf the moment it is made:
+#: ``leaf(name, tensor)`` returns what the tree keeps under ``name``.
+#: :func:`keep` keeps the f32 leaf; the serving copy's rule
+#: (``repro_torch.models.api``) casts it there, so the f32 leaf is freed
+#: before the next one is drawn.
+Leaf = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def keep(name: str, x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 class _DotF32(torch.autograd.Function):
@@ -67,8 +79,9 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------------- norms
 
-def init_rmsnorm(d: int, device) -> Dict:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+def init_rmsnorm(d: int, device, leaf: Leaf = keep) -> Dict:
+    return {"scale": leaf("scale", torch.ones((d,), dtype=torch.float32,
+                                              device=device))}
 
 
 def rmsnorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -81,9 +94,11 @@ def rmsnorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # ----------------------------------------------------------------- linear
 
 def randn(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    """Standard-normal f32 weights times ``scale``, on ``gen``'s device."""
+    """Standard-normal f32 weights times ``scale``, on ``gen``'s device
+    (scaled in place: one tensor, the same bits as ``randn(...) *
+    scale``)."""
     return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
@@ -97,14 +112,14 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 # ----------------------------------------------------------------- SwiGLU
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
-             n: int = 1) -> Dict:
+             n: int = 1, leaf: Leaf = keep) -> Dict:
     """SwiGLU weights, stacked ``n`` deep on a leading axis."""
     s_in = 1.0 / math.sqrt(d_model)
     s_out = 1.0 / math.sqrt(d_ff)
     return {
-        "w_gate": randn(gen, (n, d_model, d_ff), s_in),
-        "w_up": randn(gen, (n, d_model, d_ff), s_in),
-        "w_down": randn(gen, (n, d_ff, d_model), s_out),
+        "w_gate": leaf("w_gate", randn(gen, (n, d_model, d_ff), s_in)),
+        "w_up": leaf("w_up", randn(gen, (n, d_model, d_ff), s_in)),
+        "w_down": leaf("w_down", randn(gen, (n, d_ff, d_model), s_out)),
     }
 
 
@@ -116,10 +131,10 @@ def mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------- embeddings
 
 def init_embed(gen: torch.Generator, vocab: int, d_model: int, *,
-               tie: bool) -> Dict:
-    p = {"embed": randn(gen, (vocab, d_model), 0.02)}
+               tie: bool, leaf: Leaf = keep) -> Dict:
+    p = {"embed": leaf("embed", randn(gen, (vocab, d_model), 0.02))}
     if not tie:
-        p["unembed"] = randn(gen, (vocab, d_model), 0.02)
+        p["unembed"] = leaf("unembed", randn(gen, (vocab, d_model), 0.02))
     return p
 
 

@@ -38,21 +38,24 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cast, randn
 
-def init_moe(cfg: ModelConfig, gen: torch.Generator, n: int = 1) -> Dict:
+def init_moe(cfg: ModelConfig, gen: torch.Generator, n: int = 1,
+             leaf: layers.Leaf = layers.keep) -> Dict:
     """MoE weights in the reference's tree, stacked ``n`` deep: ``router``
     ``(d, E)``, ``we_gate`` / ``we_up`` ``(E, d, f)``, ``we_down`` ``(E, f,
     d)`` and, with shared experts, ``shared``: one SwiGLU of width
-    ``moe_d_ff * n_shared_experts``."""
+    ``moe_d_ff * n_shared_experts``. Each expert leaf is one draw, however
+    large (the draws' order and shapes fix the bits)."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     p = {
-        "router": randn(gen, (n, d, e), s_in),
-        "we_gate": randn(gen, (n, e, d, f), s_in),
-        "we_up": randn(gen, (n, e, d, f), s_in),
-        "we_down": randn(gen, (n, e, f, d), s_out),
+        "router": leaf("router", randn(gen, (n, d, e), s_in)),
+        "we_gate": leaf("we_gate", randn(gen, (n, e, d, f), s_in)),
+        "we_up": leaf("we_up", randn(gen, (n, e, d, f), s_in)),
+        "we_down": leaf("we_down", randn(gen, (n, e, f, d), s_out)),
     }
     if cfg.n_shared_experts:
-        p["shared"] = layers.init_mlp(gen, d, f * cfg.n_shared_experts, n)
+        p["shared"] = layers.init_mlp(gen, d, f * cfg.n_shared_experts, n,
+                                      leaf)
     return p
 
 

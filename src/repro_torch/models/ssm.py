@@ -25,10 +25,11 @@ import torch.nn.functional as F
 from repro_torch.core import tiling
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import cast, linear, randn
+from repro_torch.models.layers import Leaf, cast, keep, linear, randn
 
 
-def init_mamba(cfg: ModelConfig, gen: torch.Generator, n: int = 1) -> Dict:
+def init_mamba(cfg: ModelConfig, gen: torch.Generator, n: int = 1,
+               leaf: Leaf = keep) -> Dict:
     """The reference's tree and leaf names, stacked ``n`` deep on a leading
     axis: S4D-real A, and a dt bias whose softplus is log-uniform in
     [1e-3, 1e-1]."""
@@ -41,15 +42,21 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, n: int = 1) -> Dict:
     dt_bias = dt + torch.log(-torch.expm1(-dt))     # inverse softplus
     k = cfg.ssm_conv
     return {
-        "in_proj": randn(gen, (n, d, 2 * di), 1 / math.sqrt(d)),
-        "conv_w": randn(gen, (n, k, di), 1 / math.sqrt(k)),
-        "conv_b": torch.zeros((n, di), dtype=torch.float32, device=dev),
-        "x_proj": randn(gen, (n, di, dr + 2 * ds), 1 / math.sqrt(di)),
-        "dt_proj": randn(gen, (n, dr, di), 1 / math.sqrt(dr)),
-        "dt_bias": dt_bias,
-        "a_log": torch.log(a_init),
-        "ssm_d": torch.ones((n, di), dtype=torch.float32, device=dev),
-        "out_proj": randn(gen, (n, di, d), 1 / math.sqrt(di)),
+        "in_proj": leaf("in_proj", randn(gen, (n, d, 2 * di),
+                                         1 / math.sqrt(d))),
+        "conv_w": leaf("conv_w", randn(gen, (n, k, di), 1 / math.sqrt(k))),
+        "conv_b": leaf("conv_b", torch.zeros((n, di), dtype=torch.float32,
+                                             device=dev)),
+        "x_proj": leaf("x_proj", randn(gen, (n, di, dr + 2 * ds),
+                                       1 / math.sqrt(di))),
+        "dt_proj": leaf("dt_proj", randn(gen, (n, dr, di),
+                                         1 / math.sqrt(dr))),
+        "dt_bias": leaf("dt_bias", dt_bias),
+        "a_log": leaf("a_log", torch.log(a_init)),
+        "ssm_d": leaf("ssm_d", torch.ones((n, di), dtype=torch.float32,
+                                          device=dev)),
+        "out_proj": leaf("out_proj", randn(gen, (n, di, d),
+                                           1 / math.sqrt(di))),
     }
 
 

@@ -4,7 +4,7 @@ The counterpart of ``src/repro/models/transformer.py`` for dense GQA
 stacks (with sliding-window layers: gemma3), mixture-of-experts stacks with
 GQA or multi-head latent attention (``family="moe"``), attention-free
 Mamba-1 stacks (``family="ssm"``), the hybrid attention + Mamba stack
-with MoE layers (``family="hybrid"``, jamba; the CPU only) and the
+with MoE layers (``family="hybrid"``, jamba) and the
 vision-language stack with M-RoPE and a stub frontend's embeddings before
 the text (``family="vlm"``). The encoder-decoder family is
 :mod:`repro_torch.models.encdec`.
@@ -45,14 +45,7 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig, device) -> None:
-    """Raise for what the port does not run yet on ``device``, naming the
-    ROADMAP item that brings it. The hybrid attention + mamba family
-    (jamba) runs on the CPU only: its serving copy of the weights on the
-    card is still to come."""
-    if cfg.family == "hybrid" and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid attention + mamba family does not run "
-            f"on the card yet (ROADMAP A9b); pass device='cpu'")
+    """Raise for a family the port does not run, on any device."""
     if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "encdec"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported")
@@ -61,42 +54,44 @@ def check_supported(cfg: ModelConfig, device) -> None:
 # ----------------------------------------------------------------- init
 
 def _init_layer(cfg: ModelConfig, kind: LayerKind, gen: torch.Generator,
-                n: int) -> Params:
+                n: int, leaf: layers.Leaf) -> Params:
     d = cfg.d_model
 
     def norm():
-        return {"scale": torch.ones((n, d), dtype=torch.float32,
-                                    device=gen.device)}
+        return {"scale": leaf("scale", torch.ones(
+            (n, d), dtype=torch.float32, device=gen.device))}
 
     p: Params = {"ln1": norm()}
     if kind.attn == "mamba":
-        p["mamba"] = ssm.init_mamba(cfg, gen, n)
+        p["mamba"] = ssm.init_mamba(cfg, gen, n, leaf)
         if kind.mlp != "none":
             p["ln2"] = norm()
     else:
-        p["attn"] = attn_mod.INIT[kind.attn](cfg, gen, n)
+        p["attn"] = attn_mod.INIT[kind.attn](cfg, gen, n, leaf)
         p["ln2"] = norm()
     if kind.mlp == "mlp":
-        p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, n)
+        p["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, n, leaf)
     elif kind.mlp == "moe":
-        p["moe"] = moe_mod.init_moe(cfg, gen, n)
+        p["moe"] = moe_mod.init_moe(cfg, gen, n, leaf)
     return p
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_lm(cfg: ModelConfig, gen: torch.Generator,
+            leaf: layers.Leaf = layers.keep) -> Params:
     """Random f32 params on ``gen``'s device, in the reference's tree:
     ``params["groups"][name]["pos{i}"]`` stacked over repeats, matrices
-    stored ``(d_in, d_out)``."""
+    stored ``(d_in, d_out)``. Each leaf goes through ``leaf`` as it is
+    made (:data:`repro_torch.models.layers.Leaf`)."""
     check_supported(cfg, gen.device)
     params: Params = {
         "tok": layers.init_embed(gen, cfg.padded_vocab, cfg.d_model,
-                                 tie=cfg.tie_embeddings),
-        "final_norm": layers.init_rmsnorm(cfg.d_model, gen.device),
+                                 tie=cfg.tie_embeddings, leaf=leaf),
+        "final_norm": layers.init_rmsnorm(cfg.d_model, gen.device, leaf),
         "groups": {},
     }
     for group in cfg.layer_groups():
         params["groups"][group.name] = {
-            f"pos{pos}": _init_layer(cfg, kind, gen, group.n_repeat)
+            f"pos{pos}": _init_layer(cfg, kind, gen, group.n_repeat, leaf)
             for pos, kind in enumerate(group.pattern)}
     return params
 

@@ -512,17 +512,19 @@ def test_moe_loss_and_aux_match_jax(pair, arch, routing):
 
 
 def test_unported_families_raise():
-    """The families the port does not run yet name the ROADMAP item that
-    brings them: the hybrid (jamba) builds on the CPU, and on the card
-    raises naming A9b (checked on the device alone, so without a card).
-    M-RoPE with its frontend (qwen2-vl) and the encoder-decoder (seamless)
-    build."""
+    """Every family the reference serves is admitted on both devices: the
+    hybrid (jamba) builds on the CPU and passes the gate on the card
+    (checked on the device alone, so without a card; ROADMAP A9b brought
+    its serving copy there). M-RoPE with its frontend (qwen2-vl) and the
+    encoder-decoder (seamless) build. A family the port does not know
+    still raises."""
     cfg = get_reduced("jamba-1.5-large-398b")
     assert build_model(cfg, device="cpu").cfg.name == cfg.name
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        transformer.check_supported(cfg, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        transformer.check_supported(cfg, "cuda:0")
+    transformer.check_supported(cfg, torch.device("cuda"))
+    transformer.check_supported(cfg, "cuda:0")
     for arch in ("qwen2-vl-2b", "seamless-m4t-medium"):
         assert build_model(get_reduced(arch), device="cpu").cfg.name \
             == get_reduced(arch).name
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        transformer.check_supported(dataclasses.replace(cfg, family="rnn"),
+                                    "cuda")
