@@ -37,7 +37,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      1024, timed beside SDPA given the band mask, bound over the band);
      paged decode windowed at gemma3's widths (4 slots at frontiers
      2048-4095, window 1024); flash at jamba's admission (phase 15's
-     inputs); these new cases' outputs digested from
+     inputs); flash at D = Dv = 32 and 16 at the training examples'
+     shapes (FLASH_NARROW_CASES, timed beside SDPA); these new cases'
+     outputs digested from
      numpy-seeded inputs and held to NEW_CASE_DIGESTS; matmul3d at
      ``tests/test_kernels.py``'s tolerances (f32 2e-4, bf16 2e-2) at
      small and ragged shapes (bf16 with f32 and bf16 out), and at M = 8192
@@ -187,7 +189,17 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      every 2 steps, an injected crash before step 3 exits 17, ``--resume``
      continues: the resumed losses and the final params and moments equal
      an uninterrupted run's bit for bit), its saves and restore timed;
-     the phase's seconds;
+     ``repro_torch.examples.quickstart`` (300 steps, flash at (32, 32):
+     8 launches a step, 4 plain backwards; final loss under 0.8 x uniform;
+     its tok/s); qwen3-moe-30b-a3b at its published widths cut to
+     MOE_TRAIN_LAYERS layers, trained through ``launch.train.run``
+     (MOE_TRAIN_ARGS: 5 steps of 8 x 128 tokens at lr 3e-4): every loss
+     finite and the last below the first, step time, peak memory beside
+     its reckoning (18 B a parameter), grouped_gemm's launches (3 a MoE
+     layer in the forward and 3 in the recompute) and plain backwards (3 a
+     layer) a step, flash's at (128, 128); ``repro_torch.examples.
+     elastic_restart`` through the mesh path on NCCL world 1 (1x1 then
+     1x1; flash at (16, 16)), its continuity check; the phase's seconds;
  15. jamba-1.5-large-398b at its published widths. First its four kernels
      alone, each held against its plain version and timed as phase 3
      times: flash at its one-shot admission (4 x 256, 64 query heads over
@@ -340,7 +352,8 @@ FLASH_DIGESTS = {"admission": "2be6a11c2e88583d", "ragged": "df2f42699612d5ac",
                  "offset": "1eb79b3a10b47377", "mha": "329f070aa7763e0a",
                  "noncausal": "63d113eb070f630c"}
 #: the windowed and (64, 64) attention cases (``new_attention_cases``: flash
-#: at (64, 64), windowed flash and paged decode; flash at jamba's admission),
+#: at (64, 64), windowed flash and paged decode; flash at jamba's admission;
+#: flash at (32, 32) and (16, 16), FLASH_NARROW_CASES),
 #: digested as the kernels printed them on an NVIDIA H100 80GB HBM3; a later
 #: change must not move a bit
 NEW_CASE_DIGESTS = {"d64_encoder": "aea592b592485ddb",
@@ -349,7 +362,9 @@ NEW_CASE_DIGESTS = {"d64_encoder": "aea592b592485ddb",
                     "d64_cross_decode": "053aecdb506d646c",
                     "window": "4368ebeded649f77",
                     "paged_window": "90ef91573dbe1ad4",
-                    "jamba_flash": "4e6d007a2931ac24"}
+                    "jamba_flash": "4e6d007a2931ac24",
+                    "d32_quickstart": "32296beb00d49315",
+                    "d16_elastic": "097455ccf3d972e2"}
 #: (B, Hq, Hkv, Sq, Skv, kwargs, transposed views) of each digest case
 FLASH_DIGEST_CASES = {
     "admission": (4, 16, 2, 256, 256, {}, False),
@@ -425,6 +440,12 @@ FLASH_D64_CASES = {"encoder": (4, 512, 512, False),
                    "decoder": (4, 256, 256, True),
                    "cross": (4, 256, 512, False),
                    "cross_decode": (4, 1, 512, False)}
+#: flash at (32, 32) and (16, 16), the training examples' causal
+#: self-attention at their own shapes on the model's views: (B, Hq, Hkv, S,
+#: D) of repro_torch.examples.quickstart (8 x 256 tokens, 8 heads over 4)
+#: and elastic_restart (8 x 64, 4 over 2)
+FLASH_NARROW_CASES = {"d32_quickstart": (8, 8, 4, 256, 32),
+                      "d16_elastic": (8, 4, 2, 64, 16)}
 #: the grouped_gemm kernel against its plain version (the same exact f32
 #: products summed in another order): max |d| over the output's largest
 GEMM_REL_TOL = 1e-4
@@ -474,6 +495,17 @@ TRAIN_ARGS = ["--arch", "qwen2.5-3b", "--full", "--steps", str(TRAIN_STEPS),
 DRILL_LAYERS = 1
 DRILL_ARGS = ["--steps", "4", "--global-batch", "8", "--seq-len", "128",
               "--quantized-moments", "--ckpt-every", "2", "--log-every", "1"]
+#: phase 14: qwen3-moe-30b-a3b at its published widths trained on the card
+#: (launch.train.run, remat on), cut to its first MOE_TRAIN_LAYERS layers:
+#: an untied 2 x 311.2 M embedding plus ~623 M a layer, 3.11 B parameters,
+#: ~56 GB at 18 B a parameter (f32 params, grads, m, v and the bf16 copy)
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = 5
+MOE_TRAIN_ARGS = ["--arch", "qwen3-moe-30b-a3b", "--full", "--steps",
+                  str(MOE_TRAIN_STEPS), "--global-batch", "8", "--seq-len",
+                  "128", "--lr", "3e-4", "--log-every", "1"]
+#: repro_torch.examples.quickstart's steps (its default): flash at (32, 32)
+QUICKSTART_STEPS = 300
 #: the kernels' autograd Functions against autograd through their plain
 #: versions: output and each input gradient within this share of its
 #: largest value (bf16 operands)
@@ -599,15 +631,16 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Each kernel's launches; flash by instance: ``flash`` at D = Dv =
-    128, ``flash_d192`` at D = 192, Dv = 128, ``flash_d64`` at D = Dv =
-    64."""
+    128, ``flash_d192`` at D = 192, Dv = 128, ``flash_d64``, ``flash_d32``
+    and ``flash_d16`` at D = Dv = 64, 32 and 16."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.grouped_gemm import grouped_gemm
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
     from repro_torch.kernels.paged_attention import paged_flash_decode
     by_dims = flash_attention.launches_by_dims
     return {"flash": by_dims[128, 128], "flash_d192": by_dims[192, 128],
-            "flash_d64": by_dims[64, 64],
+            "flash_d64": by_dims[64, 64], "flash_d32": by_dims[32, 32],
+            "flash_d16": by_dims[16, 16],
             "paged": paged_flash_decode.launches,
             "scan": mamba_scan.launches, "plain_scan": mamba_scan_plain.calls,
             "grouped": grouped_gemm.launches}
@@ -923,6 +956,8 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                                  new_cases["flash_d64"].items()
                                  for key in row},
                           digests=new_cases["digests"]),
+        "flash_d32": new_cases["flash_d32"],
+        "flash_d16": new_cases["flash_d16"],
         "paged": dict(err=paged_err, ms=p_ms, device_ms=p_dev,
                       plain_ms=p_plain,
                       library_ms=None, bound_ms=p_bound, bound_by=p_by,
@@ -1256,6 +1291,26 @@ def new_attention_cases(repeats) -> dict:
         None, "paged_decode_kernel",
         2 * 2 * visible * hkv * d + 2 * 2 * qd.numel() + 4 * bt.numel()
         + 4 * b, 4.0 * d * hq * visible))
+    for i, (case, (b, hq, hkv, n, d)) in enumerate(
+            FLASH_NARROW_CASES.items()):
+        make = seeded(340 + i)
+        q, k, v = (make(b, n, h, d).transpose(1, 2) for h in (hq, hkv, hkv))
+        label = (f"flash D={d} {case} B={b} Hq={hq} Hkv={hkv} S={n} causal "
+                 f"(model views)")
+        got = flash_attention(q, k, v, causal=True)
+        plain = functools.partial(flash_attention_plain, q, k, v, causal=True)
+        err = compare(label, got, plain())
+        call = functools.partial(flash_attention, q, k, v, causal=True)
+        repeats.append((label, call, got))
+        digests[case] = digest(got)
+        pairs = b * hq * sum(r + 1 for r in range(n))
+        out[f"flash_d{d}"] = dict(err=err, **time_case(
+            f"flash D={d} {case}", call, plain,
+            functools.partial(F.scaled_dot_product_attention, q, k, v,
+                              is_causal=True, enable_gqa=True),
+            "flash_fwd_kernel", 2 * (2 * q.numel() + k.numel() + v.numel()),
+            4.0 * d * pairs))
+        del q, k, v
     q, k, v = jamba_flash_inputs()
     label = jamba_flash_label(q, k)
     got = flash_attention(q, k, v, causal=True)
@@ -1268,7 +1323,8 @@ def new_attention_cases(repeats) -> dict:
               if case in NEW_CASE_DIGESTS and NEW_CASE_DIGESTS[case] != got}
     if differ:
         fail(f"outputs moved from their recorded digests: {differ}")
-    log(f"  digests of the windowed and (64, 64) cases: {digests} "
+    log(f"  digests of the windowed, (64, 64), (32, 32) and (16, 16) "
+        f"cases: {digests} "
         f"(recorded: {sorted(NEW_CASE_DIGESTS)})")
     out["digests"] = digests
     return out
@@ -3160,12 +3216,135 @@ def phase_train(phase: int) -> dict:
     del rec
     free_memory()
     drill = crash_drill()
+    examples = train_examples()
+    moe = train_moe()
     seconds = time.perf_counter() - t_phase
     log(f"  training: the phase took {seconds:.1f} s")
     return {"checks": checks, "launches": counts, "losses": losses,
             "step_ms": step_s * 1e3, "tok_per_s": tokens / step_s,
             "peak_gb": peak / 1e9, "reckoning_gb": reckoning / 1e9,
-            "plain_backward_calls": vjp, "drill": drill, "seconds": seconds}
+            "plain_backward_calls": vjp, "drill": drill, "seconds": seconds,
+            "examples": examples, "moe": moe}
+
+
+def train_examples() -> dict:
+    """The training examples on the card, each run as its ``main()``
+    runs it: quickstart's QUICKSTART_STEPS steps (flash at (32, 32), 8
+    launches a step: 4 layers, forward and recompute; its loss rule);
+    elastic_restart through the mesh path on NCCL world 1 (flash at (16,
+    16), 4 launches a step over its 60 steps; its continuity check).
+    Launches counted around each."""
+    import torch.distributed as dist
+    from repro_torch.examples import elastic_restart, quickstart
+    from repro_torch.kernels.flash_attention import flash_attention_plain_vjp
+    t0 = time.perf_counter()
+    reset_counts()
+    flash_attention_plain_vjp.calls = 0
+    qs = quickstart.run(["--steps", str(QUICKSTART_STEPS)])
+    counts, vjp = read_counts(), flash_attention_plain_vjp.calls
+    check_counts("quickstart", counts, {"flash_d32": 8 * QUICKSTART_STEPS})
+    if vjp != 4 * QUICKSTART_STEPS:
+        fail(f"quickstart: flash's plain backward ran {vjp} times, want "
+             f"{4 * QUICKSTART_STEPS}")
+    if qs["exit"] != 0:
+        fail(f"quickstart: final loss {qs['final']:.4f} not under 0.8 x "
+             f"uniform {qs['uniform']:.4f}")
+    qs_s = time.perf_counter() - t0
+    log(f"  quickstart ok: {QUICKSTART_STEPS} steps, loss "
+        f"{qs['losses'][0]:.4f} -> {qs['final']:.4f} (< 0.8 x "
+        f"{qs['uniform']:.4f}), {qs['tok_per_s']:.0f} tok/s (host clock, "
+        f"the whole run), checkpoints {qs['checkpoints']}; flash (32, 32) "
+        f"{counts['flash_d32'] // QUICKSTART_STEPS} launches a step; "
+        f"{qs_s:.1f} s")
+    t0 = time.perf_counter()
+    reset_counts()
+    el = elastic_restart.run([])
+    el_counts = read_counts()
+    steps = len(el["phase1"]) + len(el["phase2"])
+    check_counts("elastic_restart", el_counts, {"flash_d16": 4 * steps})
+    if not el["ok"] or dist.is_initialized():
+        fail(f"elastic_restart: continuity check failed ({el}) or its "
+             f"process group was left behind")
+    el_s = time.perf_counter() - t0
+    log(f"  elastic_restart ok (NCCL, world 1, mesh {el['mesh_a']} then "
+        f"{el['mesh_b']}): phase 1 {el['phase1'][0]:.3f} -> "
+        f"{el['phase1'][-1]:.3f}, restored at step {el['restored_step']}, "
+        f"phase 2 {el['phase2'][0]:.3f} -> {el['phase2'][-1]:.3f}; flash "
+        f"(16, 16) {el_counts['flash_d16']} launches; {el_s:.1f} s")
+    free_memory()
+    return {"quickstart": {"launches": counts, "losses_first_last": [
+                qs["losses"][0], qs["final"]], "uniform": qs["uniform"],
+                "tok_per_s": qs["tok_per_s"], "seconds": qs_s,
+                "plain_backward_calls": vjp},
+            "elastic": {"launches": el_counts, "phase1": el["phase1"],
+                        "phase2": el["phase2"], "seconds": el_s}}
+
+
+def train_moe() -> dict:
+    """qwen3-moe-30b-a3b at its published widths cut to MOE_TRAIN_LAYERS
+    layers trained through ``launch.train.run`` (MOE_TRAIN_ARGS, remat
+    on): losses finite and the last below the first; grouped_gemm 6
+    launches a MoE layer a step (gate, up and down; forward and the
+    backward's recompute) and its plain backward 3; flash (128, 128) 2 a
+    layer; step time and the peak beside the reckoning of 18 B a
+    parameter."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_plain_vjp
+    from repro_torch.kernels.grouped_gemm import grouped_gemm_plain_vjp
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = dataclasses.replace(get_config(QWEN_MOE[0]),
+                              n_layers=MOE_TRAIN_LAYERS)
+    n_moe = moe_layers(cfg)
+    log(f"  {QWEN_MOE[0]} at {MOE_TRAIN_LAYERS} layers: python -m "
+        f"repro_torch.launch.train " + " ".join(MOE_TRAIN_ARGS))
+    t0 = time.perf_counter()
+    free_memory()
+    reset_counts()
+    flash_attention_plain_vjp.calls = grouped_gemm_plain_vjp.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = train_cli.run(MOE_TRAIN_ARGS, cfg=cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved()
+    counts = read_counts()
+    g_vjp, f_vjp = grouped_gemm_plain_vjp.calls, flash_attention_plain_vjp.calls
+    n_params = sum(p.numel() for p in tree_leaves(rec["params"]))
+    reckoning = n_params * (4 + 4 + 4 + 4 + 2)
+    steps = MOE_TRAIN_STEPS
+    check_counts(f"{QWEN_MOE[0]} training", counts,
+                 {"flash": 2 * MOE_TRAIN_LAYERS * steps,
+                  "grouped": 6 * n_moe * steps})
+    if g_vjp != 3 * n_moe * steps or f_vjp != MOE_TRAIN_LAYERS * steps:
+        fail(f"{QWEN_MOE[0]} training: plain backwards grouped_gemm {g_vjp}"
+             f", flash {f_vjp}; want {3 * n_moe * steps} and "
+             f"{MOE_TRAIN_LAYERS * steps}")
+    losses = [rec["losses"][s] for s in range(steps)]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"{QWEN_MOE[0]} training: losses {losses}")
+    step_s = float(np.median(rec["step_s"][1:]))
+    seconds = time.perf_counter() - t0
+    log(f"  {QWEN_MOE[0]} x {MOE_TRAIN_LAYERS} trained {steps} steps: "
+        f"losses {[round(x, 4) for x in losses]}; step {step_s * 1e3:.1f} "
+        f"ms (median of steps 1-{steps - 1}, host clock; step 0 "
+        f"{rec['step_s'][0] * 1e3:.1f} ms), {8 * 128 / step_s:.0f} tok/s; "
+        f"grouped_gemm {counts['grouped'] // steps} launches a step, its "
+        f"plain backward {g_vjp // steps}; flash {counts['flash'] // steps}"
+        f"; {n_params / 1e9:.3f} B params, peak {peak / 1e9:.2f} GB "
+        f"allocated ({reserved / 1e9:.2f} GB reserved) against the "
+        f"{reckoning / 1e9:.2f} GB of f32 params, grads, m and v and the "
+        f"bf16 copy; {seconds:.1f} s")
+    del rec
+    free_memory()
+    return {"launches": counts, "losses": losses, "step_ms": step_s * 1e3,
+            "peak_gb": peak / 1e9, "reserved_gb": reserved / 1e9,
+            "reckoning_gb": reckoning / 1e9, "params": n_params,
+            "grouped_plain_backward_calls": g_vjp,
+            "flash_plain_backward_calls": f_vjp, "seconds": seconds}
 
 
 def jamba_flash_case() -> dict:
@@ -3700,6 +3879,16 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:30",
              families[f"{SEAMLESS[0]} one_shot"]["launches"]["flash_d64"],
              timing["flash_d64"]),
+            # the training examples' head dims: quickstart's run, and
+            # elastic_restart's on NCCL world 1
+            ("flash_attention_d32_dv32", "flash_attention",
+             "src/repro/kernels/flash_attention.py:30",
+             train["examples"]["quickstart"]["launches"]["flash_d32"],
+             timing["flash_d32"]),
+            ("flash_attention_d16_dv16", "flash_attention",
+             "src/repro/kernels/flash_attention.py:30",
+             train["examples"]["elastic"]["launches"]["flash_d16"],
+             timing["flash_d16"]),
             # the reference's ragged_dot (XLA, no Pallas kernel): qwen3-moe's
             # paged stream; timed at its 1024-token admission's gate GEMM
             ("grouped_gemm", "grouped_gemm", "src/repro/models/moe.py:145",
@@ -3707,7 +3896,11 @@ def main() -> int:
              grouped_gemm_row(moe_runs))]
     # jamba's widths: each kernel's launches on jamba's own paged stream
     jamba_path = f"the {JAMBA} x {JAMBA_LAYERS} paged stream"
-    launches_path = {}
+    launches_path = {
+        "flash_attention_d32_dv32": f"repro_torch.examples.quickstart, "
+                                    f"{QUICKSTART_STEPS} steps",
+        "flash_attention_d16_dv16": "repro_torch.examples.elastic_restart "
+                                    "on NCCL world 1, 60 steps"}
     for row in jamba_rows(jamba):
         rows.append(row)
         launches_path[row[0]] = jamba_path
@@ -3740,6 +3933,12 @@ def main() -> int:
         if name == "flash_attention":
             row["train_launches_per_step"] = (train["launches"]["flash"]
                                               // TRAIN_STEPS)
+        if name == "grouped_gemm":    # qwen3-moe trained on the card
+            row["train_launches_per_step"] = (
+                train["moe"]["launches"]["grouped"] // MOE_TRAIN_STEPS)
+            row["train_plain_backward_per_step"] = (
+                train["moe"]["grouped_plain_backward_calls"]
+                // MOE_TRAIN_STEPS)
         if name in launches_path:
             row["launches_path"] = launches_path[name]
         kernels.append(row)
@@ -3756,10 +3955,16 @@ def main() -> int:
     by_path.update({path: r["launches"] for path, r in families.items()
                     if path != "seconds"})
     by_path["qwen train"] = train["launches"]
+    by_path["quickstart train"] = train["examples"]["quickstart"]["launches"]
+    by_path["elastic_restart train"] = train["examples"]["elastic"][
+        "launches"]
+    by_path[f"{QWEN_MOE[0]} x {MOE_TRAIN_LAYERS} train"] = train["moe"][
+        "launches"]
     by_path.update({f"{JAMBA} x {JAMBA_LAYERS} {name}": r["launches"]
                     for name, r in jamba["served"]["recs"].items()})
     for row, key in zip(kernels, ("flash", "paged", None, "scan",
-                                  "flash_d192", "flash_d64", "grouped",
+                                  "flash_d192", "flash_d64", "flash_d32",
+                                  "flash_d16", "grouped",
                                   "flash", "paged", "scan", "grouped")):
         if key:
             row["launches_by_path"] = {path: c[key]

@@ -35,8 +35,8 @@ at the inter-token p99, both runs phase-timed) and ``--kv-quant`` the
 tier-codec head-to-head (concurrent residents per layer-0 byte; with
 ``--park-idle N`` the layer-2 host tier inside both runs). ``--mesh N``
 with N > 1 raises ``NotImplementedError``: the mesh-sharded head-to-head
-needs ``distributed/`` and ``launch/mesh.py``, which are not ported yet
-(ROADMAP A13).
+(``run_mesh``) needs sharded serving, which is not ported yet (ROADMAP
+A13b).
 
 Latency on the host's wall clock, beside the reference's step clocks:
 
@@ -1312,13 +1312,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="1",
                     help="device mesh sizes, 'DxM' or one int; any size "
                          "> 1 raises NotImplementedError: the mesh-sharded "
-                         "head-to-head is not ported yet (ROADMAP A13); 1 "
+                         "head-to-head is not ported yet (ROADMAP A13b); 1 "
                          "is the single-device path")
     ap.add_argument("--mesh-axes", default="data,model",
                     help="comma-separated axis names for --mesh")
     ap.add_argument("--require-scaling", action="store_true",
                     help="the mesh head-to-head's scaling gate (not "
-                         "ported yet: raises, ROADMAP A13)")
+                         "ported yet: raises, ROADMAP A13b)")
     ap.add_argument("--disaggregate", action="store_true",
                     help="run the prefill/decode role-split head-to-head "
                          "instead of the mode comparison: mixed long-"
@@ -1360,15 +1360,16 @@ def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
     try:
-        mesh_n = mesh_size(args.mesh)
+        mesh_n = mesh_size(args.mesh, args.mesh_axes)
     except ValueError:
-        ap.error(f"--mesh {args.mesh!r}: expected one int or 'DxM' sizes")
+        ap.error(f"--mesh {args.mesh!r}: expected one int or sizes matching "
+                 f"--mesh-axes {args.mesh_axes!r}")
     if mesh_n != 1 or args.require_scaling:
         raise NotImplementedError(
             f"serve_bench --mesh {args.mesh}: the mesh-sharded head-to-head "
-            f"(run_mesh) needs the port of distributed/ and launch/mesh.py, "
-            f"which is not done yet (ROADMAP A13); --mesh 1 is the "
-            f"single-device path")
+            f"(run_mesh) needs sharded serving (tensor-parallel layers, "
+            f"expert-parallel MoE, head-sharded page pools), which is not "
+            f"ported yet (ROADMAP A13b); --mesh 1 is the single-device path")
     common = dict(device=args.device, full=args.full)
     if args.disaggregate or args.require_disagg_win:
         print(run_disagg(

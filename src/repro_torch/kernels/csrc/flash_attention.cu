@@ -61,6 +61,19 @@
 // cross-attention with Sq != Skv, down to Sq = 1 at each decode step (one
 // valid row in the 64-row Q tile; TMA fills the rest with zeros and the
 // store skips them).
+//
+// (32, 32) and (16, 16) (the training examples' head dims: quickstart's 32,
+// the smoke configs' 16) run on the (64, 64) tile, as instances with a
+// third template argument W, the true width of q, k, v and o. The tensor
+// maps are made at width W with the same 64-column box, so TMA fills the
+// columns past W with zeros (the transaction still counts the whole box):
+// zero columns of Q and K add nothing to Q K^T, zero columns of V give zero
+// columns of O, and the store writes only the first W columns of each row
+// into a (B, Hq, Sq, W) output. The scale is the caller's, 1/sqrt(W). A
+// 64- or 32-byte row would need its own swizzle mode and wgmma
+// descriptors (64B / 32B layouts, P V at n32 / n16); the (64, 64) tile
+// reuses the 128-byte path that is already held bit for bit, at up to 4x
+// the tile's useful work (speed is later work).
 
 #include <math.h>
 
@@ -89,7 +102,7 @@ struct Tiles {
                                  + 8 * (1 + 2 * STAGES);
 };
 
-template <int D, int DV>
+template <int D, int DV, int W>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -99,6 +112,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  int window, int q_offset) {
   constexpr int QK_BYTES = Tiles<D, DV>::QK_BYTES;
   constexpr int V_BYTES = Tiles<D, DV>::V_BYTES;
+  constexpr int OW = W ? W : DV;   // columns of o stored a row
+  static_assert(W == 0 || (D == 64 && DV == 64 && W % 8 == 0 && W < 64),
+                "a narrow instance runs on the (64, 64) tile");
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* q_s = smem;
   unsigned char* k_s = q_s + QK_BYTES;               // [STAGES] tiles
@@ -258,9 +274,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int r = 0; r < 2; ++r) {
     const int row = row_in + 8 * r;
     if (row >= nq) continue;
-    __nv_bfloat16* orow = o + ((size_t(b) * hq + h) * sq + q0 + row) * DV;
+    __nv_bfloat16* orow = o + ((size_t(b) * hq + h) * sq + q0 + row) * OW;
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
+    for (int j = 0; j < OW / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col_in) =
           __floats2bfloat162_rn(acc_o[4 * j + 2 * r] * inv[r],
                                 acc_o[4 * j + 2 * r + 1] * inv[r]);
@@ -285,7 +301,7 @@ bool tma_ok(const void* p, long long sb, long long sh, long long ss) {
          ss > 0 && sb % 8 == 0 && sh % 8 == 0 && ss % 8 == 0;
 }
 
-template <int D, int DV>
+template <int D, int DV, int W = 0>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int hq, int hkv, int sq, int skv, long long q_sb, long long q_sh,
            long long q_ss, long long k_sb, long long k_sh, long long k_ss,
@@ -296,20 +312,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D, DV, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   CUtensorMap map_q, map_k, map_v;
-  cudaError_t err = make_map(&map_q, q, D, batch, hq, sq, q_sb, q_sh, q_ss);
+  // a narrow instance's maps are W wide: TMA zero-fills the box past W
+  constexpr int QK_W = W ? W : D, V_W = W ? W : DV;
+  cudaError_t err =
+      make_map(&map_q, q, QK_W, batch, hq, sq, q_sb, q_sh, q_ss);
   if (err == cudaSuccess)
-    err = make_map(&map_k, k, D, batch, hkv, skv, k_sb, k_sh, k_ss);
+    err = make_map(&map_k, k, QK_W, batch, hkv, skv, k_sb, k_sh, k_ss);
   if (err == cudaSuccess)
-    err = make_map(&map_v, v, DV, batch, hkv, skv, v_sb, v_sh, v_ss);
+    err = make_map(&map_v, v, V_W, batch, hkv, skv, v_sb, v_sh, v_ss);
   if (err != cudaSuccess) return int(err);
   dim3 grid((sq + BQ - 1) / BQ, hq, batch);
-  flash_fwd_kernel<D, DV>
+  flash_fwd_kernel<D, DV, W>
       <<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
           map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), hq, hkv, sq,
           skv, scale * 1.4426950408889634f, causal, has_window, window,
@@ -351,6 +370,16 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
     return launch<64, 64>(q, k, v, o, batch, hq, hkv, sq, skv, q_sb, q_sh,
                           q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
                           causal, has_window, window, q_offset, stream);
+  if (d == 32 && dv == 32)
+    return launch<64, 64, 32>(q, k, v, o, batch, hq, hkv, sq, skv, q_sb,
+                              q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                              scale, causal, has_window, window, q_offset,
+                              stream);
+  if (d == 16 && dv == 16)
+    return launch<64, 64, 16>(q, k, v, o, batch, hq, hkv, sq, skv, q_sb,
+                              q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                              scale, causal, has_window, window, q_offset,
+                              stream);
   return int(cudaErrorInvalidValue);
 }
 

@@ -17,11 +17,14 @@ are never repeated in memory. KV tiles wholly past the causal diagonal or
 behind the window are skipped, and ragged ``Sq``/``Skv`` edges are zero
 filled by TMA and masked: unlike the TPU kernel, no length has to divide a
 block. The tiles are fixed (64 x 64); sizing them from the ``h100``
-planner is ROADMAP work. The kernel is built at three head-dim pairs
+planner is ROADMAP work. The kernel is built at five head-dim pairs
 (:data:`HEAD_DIMS`): D = Dv = 128 (the GQA families), D = 192, Dv = 128
-(multi-head latent attention's prefill: nope 128 + rope 64 for Q and K)
-and D = Dv = 64 (seamless-m4t-medium's encoder, decoder and
-cross-attention, down to one query row a decode step).
+(multi-head latent attention's prefill: nope 128 + rope 64 for Q and K),
+D = Dv = 64 (seamless-m4t-medium's encoder, decoder and
+cross-attention, down to one query row a decode step), and D = Dv = 32
+and 16 (the training examples' models and the smoke configs), which run on
+the (64, 64) tile: TMA fills the columns past D with zeros, which change
+neither Q K^T nor P V, and the store keeps the first D columns.
 
 TMA reads the tensors through their own strides, so the model's
 ``transpose(1, 2)`` views go in without a copy; a tensor whose batch, head
@@ -50,7 +53,7 @@ from repro_torch.kernels import build, ref
 
 _LIB = "flash_attention"
 #: the (D, Dv) pairs the kernel is built at (``csrc/flash_attention.cu``)
-HEAD_DIMS = ((128, 128), (192, 128), (64, 64))
+HEAD_DIMS = ((128, 128), (192, 128), (64, 64), (32, 32), (16, 16))
 
 
 def tma_strides(t: torch.Tensor) -> tuple:

@@ -72,6 +72,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.target import (available_targets, get_target,
                                      use_target)
+from repro_torch.launch.mesh import mesh_ranks, parse_mesh
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import fake_frontend
@@ -99,13 +100,11 @@ def serving_target(device: torch.device) -> Optional[str]:
     return "h100" if device.type == "cuda" else None
 
 
-def mesh_size(spec: str) -> int:
-    """The device count of a ``--mesh`` spec ('2', '1x2', ...); raises
-    ``ValueError`` for a malformed one."""
-    n = 1
-    for part in spec.split("x"):
-        n *= int(part)
-    return n
+def mesh_size(spec: str, axes: str = "data,model") -> int:
+    """The device count of a ``--mesh`` spec ('2', '1x2', ...) over
+    ``--mesh-axes`` (``launch.mesh.parse_mesh``); raises ``ValueError``
+    for a malformed one."""
+    return mesh_ranks(parse_mesh(spec, axes)[0])
 
 
 def run_stream(engine: Engine, scheduler: Scheduler, stream: list, *,
@@ -344,7 +343,7 @@ def parser() -> argparse.ArgumentParser:
                     help="device mesh: one int or DxM sizes matching "
                          "--mesh-axes; 1 (the default) is the single-device "
                          "path, any size > 1 raises NotImplementedError "
-                         "(sharded serving is not ported yet: ROADMAP A13)")
+                         "(sharded serving is not ported yet: ROADMAP A13b)")
     ap.add_argument("--mesh-axes", default="data,model",
                     help="comma-separated axis names the --mesh sizes bind "
                          "to (default data,model)")
@@ -377,14 +376,15 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
         ap.error("--park-idle requires --paged (the layer-2 host tier "
                  "serializes pages, which the dense pool does not have)")
     try:
-        mesh_n = mesh_size(args.mesh)
+        mesh_n = mesh_size(args.mesh, args.mesh_axes)
     except ValueError:
-        ap.error(f"--mesh {args.mesh!r}: expected one int or 'DxM' sizes")
+        ap.error(f"--mesh {args.mesh!r}: expected one int or sizes matching "
+                 f"--mesh-axes {args.mesh_axes!r}")
     if mesh_n != 1:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded serving needs the port of "
-            f"distributed/ and launch/mesh.py, which is not done yet "
-            f"(ROADMAP A13); --mesh 1 is the single-device path")
+            f"--mesh {args.mesh}: sharded serving (tensor-parallel layers, "
+            f"expert-parallel MoE, head-sharded page pools) is not ported "
+            f"yet (ROADMAP A13b); --mesh 1 is the single-device path")
     system_len = args.system_len or max(1, args.prompt_len // 2)
     if args.prefix_share and system_len >= args.prompt_len:
         ap.error("--system-len must leave room for a unique tail "

@@ -10,31 +10,47 @@ latest checkpoint and continues bit for bit). Without ``--full`` it trains
 the REDUCED smoke config. Weights are random, made on the model's device
 from seed 0; on the card the kernels' plans come from the ``h100`` target.
 
-``--mesh`` above ``1x1`` raises: sharded training needs the port of
-``distributed/`` (ROADMAP A13). Unlike the reference, the closing save is
-skipped when the last periodic save already wrote the final step.
+``--mesh DxM`` trains on a data x model mesh of D x M ranks, one a
+device (``launch/mesh.py``): each rank keeps its shard of the params and
+moments and takes its slice of the batch (``train/loop.py``), and the
+checkpoints hold full arrays, so ``--resume`` restores onto any mesh.
+Without a process group set up, more than one rank are started here
+(``torch.multiprocessing``, a ``file://`` store: gloo on the CPU, NCCL on
+the card, where the mesh may not ask for more GPUs than there are); one
+rank (``1x1``, the default) runs in this process, through the same mesh
+path. A rank that fails fails the run. Unlike the reference, the closing
+save is skipped when the last periodic save already wrote the final step.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.target import use_target
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
-from repro_torch.launch.serve import mesh_size, serving_target
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.serve import serving_target
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import FailureInjector, StragglerDetector
-from repro_torch.train.loop import TrainConfig, make_train_step
+from repro_torch.train.loop import (TrainConfig, make_train_step, place,
+                                    state_placements)
 
 #: the exit code of an injected crash: restart with --resume
 CRASH_EXIT = 17
@@ -53,8 +69,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--quantized-moments", action="store_true")
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model; only 1x1 (one device) is ported "
-                         "(sharded training: ROADMAP A13)")
+                    help="data x model ranks, e.g. 1x2 (one rank a device; "
+                         "on the card at most the GPUs present)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -70,29 +86,64 @@ def parse_args(argv=None) -> argparse.Namespace:
 def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """Parse ``argv`` and train. A given ``cfg`` is trained in place of the
     one ``--arch`` / ``--full`` name (a caller's depth cut of a published
-    config). Returns ``{exit, params, opt, losses {step: loss}, step_s
-    [seconds a step], start_step, checkpoints}``: ``exit`` is 0, or
-    ``CRASH_EXIT`` after an injected crash; ``checkpoints`` holds the
-    checkpoint manager's records of its saves and restores."""
+    config). Returns ``{exit, params, opt, specs, losses {step: loss},
+    step_s [seconds a step], start_step, checkpoints}``: ``exit`` is 0, or
+    ``CRASH_EXIT`` after an injected crash; ``params`` and ``opt`` are this
+    rank's shards of ``specs``; ``checkpoints`` holds the checkpoint
+    manager's records of its saves and restores. When this call starts the
+    ranks itself, it returns rank 0's ``exit``, ``losses``, ``step_s`` and
+    ``start_step`` alone."""
     args = parse_args(argv)
     try:
-        devices = mesh_size(args.mesh)
-    except ValueError:
-        raise SystemExit(f"--mesh {args.mesh!r}: expected 'DxM' sizes")
-    if devices != 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training needs the port of "
-            f"distributed/ and launch/mesh.py, which is not done yet "
-            f"(ROADMAP A13); --mesh 1x1 is the single-device path")
+        sizes, names = mesh_lib.parse_mesh(args.mesh)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh!r}: expected 'DxM' sizes ({e})")
+    world = mesh_lib.mesh_ranks(sizes)
+    dev = resolve_device(args.device)
+    if world > 1 and not dist.is_initialized():
+        return _spawn(argv, cfg, world, dev)
     if cfg is None:
         cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
-    dev = resolve_device(args.device)
-    target = serving_target(dev)
-    with use_target(target) if target else contextlib.nullcontext():
-        return _train(args, cfg, dev)
+    with mesh_lib.ranks(world, dev):
+        mesh = mesh_lib.make_mesh(sizes, names, dev,
+                                  what=f"--mesh {args.mesh}")
+        target = serving_target(dev)
+        with use_target(target) if target else contextlib.nullcontext():
+            return _train(args, cfg, mesh)
 
 
-def _train(args, cfg: ModelConfig, dev: torch.device) -> Dict[str, Any]:
+def _rank_run(argv, cfg, result: str) -> None:
+    """One spawned rank: train, rank 0 writes its record to ``result``; a
+    crash drill exits with its code."""
+    rec = run(argv, cfg=cfg)
+    if dist.get_rank() == 0:
+        with open(result, "w") as f:
+            json.dump({k: rec[k] for k in ("exit", "losses", "step_s",
+                                           "start_step")}, f)
+    if rec["exit"]:
+        sys.exit(rec["exit"])
+
+
+def _spawn(argv, cfg, world: int, dev: torch.device) -> Dict[str, Any]:
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    result = os.path.join(tmp, "rank0.json")
+    try:
+        try:
+            mesh_lib.spawn(_rank_run, world, dev, args=(argv, cfg, result))
+        except mp.ProcessExitedException as e:
+            if e.exit_code != CRASH_EXIT:
+                raise
+        with open(result) as f:
+            rec = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["losses"] = {int(k): v for k, v in rec["losses"].items()}
+    return rec
+
+
+def _train(args, cfg: ModelConfig, mesh: shd.Mesh) -> Dict[str, Any]:
+    dev = mesh.device
+    rank = dist.get_rank()
     model = build_model(cfg, device=dev)
     tcfg = TrainConfig(
         opt=opt_mod.OptConfig(peak_lr=args.lr, warmup_steps=10,
@@ -109,16 +160,19 @@ def _train(args, cfg: ModelConfig, dev: torch.device) -> Dict[str, Any]:
                                if args.fail_at is not None else ())
     detector = StragglerDetector()
 
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    state = opt_mod.init_opt_state(params, tcfg.opt)
+    params, specs = place(
+        model.init(torch.Generator(device=dev).manual_seed(0)), mesh)
+    state = opt_mod.init_opt_state(params, tcfg.opt, mesh=mesh, specs=specs)
+    where = state_placements(params, specs, mesh, tcfg.opt)
     start_step, saved = 0, None
     if mgr and args.resume and mgr.latest_step() is not None:
-        start_step, restored = mgr.restore({"params": params, "opt": state})
+        start_step, restored = mgr.restore({"params": params, "opt": state},
+                                           placements=where)
         params, state = restored["params"], restored["opt"]
         saved = start_step
-        print(f"resumed from step {start_step}", flush=True)
+        log(f"resumed from step {start_step}")
 
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, mesh=mesh, specs=specs)
     rec: Dict[str, Any] = {"exit": 0, "losses": {}, "step_s": [],
                            "start_step": start_step}
     it = data.iterator(start_step=start_step, depth=2)
@@ -126,7 +180,7 @@ def _train(args, cfg: ModelConfig, dev: torch.device) -> Dict[str, Any]:
     try:
         for step in range(start_step, args.steps):
             if injector.check(step):
-                print(f"[drill] injected crash at step {step}", flush=True)
+                log(f"[drill] injected crash at step {step}")
                 if mgr:
                     mgr.wait()
                 rec["exit"] = CRASH_EXIT
@@ -139,30 +193,36 @@ def _train(args, cfg: ModelConfig, dev: torch.device) -> Dict[str, Any]:
             dt = time.monotonic() - t0
             rec["losses"][step] = loss
             rec["step_s"].append(dt)
-            detector.record(0, dt)
+            detector.record(rank, dt)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"step {step:5d}  loss {loss:.4f}  "
-                      f"lr {float(metrics['lr']):.2e}  "
-                      f"gnorm {float(metrics['grad_norm']):.2f}  "
-                      f"{dt * 1e3:.1f} ms  {t_tokens / dt:.0f} tok/s",
-                      flush=True)
+                log(f"step {step:5d}  loss {loss:.4f}  "
+                    f"lr {float(metrics['lr']):.2e}  "
+                    f"gnorm {float(metrics['grad_norm']):.2f}  "
+                    f"{dt * 1e3:.1f} ms  {t_tokens / dt:.0f} tok/s")
             if mgr and (step + 1) % args.ckpt_every == 0:
                 mgr.save(step + 1, {"params": params, "opt": state},
-                         extra={"loss": loss})
+                         extra={"loss": loss}, placements=where)
                 saved = step + 1
         else:
             if mgr and saved != args.steps:
-                mgr.save(args.steps, {"params": params, "opt": state})
+                mgr.save(args.steps, {"params": params, "opt": state},
+                         placements=where)
     finally:
         it.close()
         if mgr:
             mgr.wait()
     stragglers = detector.stragglers()
     if stragglers:
-        print(f"[telemetry] straggler hosts: {stragglers}", flush=True)
-    rec.update(params=params, opt=state,
+        log(f"[telemetry] straggler hosts: {stragglers}")
+    rec.update(params=params, opt=state, specs=specs,
                checkpoints=mgr.records if mgr else [])
     return rec
+
+
+def log(msg: str) -> None:
+    """Print on rank 0 only."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(msg, flush=True)
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,9 @@ The port keeps the reference's parameter tree (``params["groups"][name]
 ["pos{i}"]``, stacked over repeats, matrices stored ``(d_in, d_out)``), so
 weights made by the reference's ``Model.init`` and converted to numpy by
 the caller load here by a plain tree map: same keys, same shapes, no
-transposes.
+transposes. Under a mesh the same full tree is cut to each rank's shards
+(:func:`sharded_from_numpy`) and put back together
+(:func:`sharded_to_numpy`).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.train.optimizer import QTensor
+from repro_torch.distributed import sharding as shd
+from repro_torch.train.optimizer import QTensor, tree_map
 
 
 def params_from_numpy(tree: Any, device) -> Any:
@@ -53,3 +56,17 @@ def opt_state_to_numpy(state: Any) -> Any:
     if isinstance(state, QTensor):
         return QTensor(params_to_numpy(state.q), params_to_numpy(state.scale))
     return params_to_numpy(state)
+
+
+def sharded_from_numpy(tree: Any, mesh) -> tuple:
+    """A full numpy params tree -> ``(this rank's shards, specs)`` on
+    ``mesh``'s device (``train.loop.place``: the reference's rules)."""
+    from repro_torch.train.loop import place
+    return place(params_from_numpy(tree, mesh.device), mesh)
+
+
+def sharded_to_numpy(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's shards -> the full numpy tree (collective: every rank of
+    ``mesh`` calls it; each leaf is all-gathered)."""
+    return tree_map(lambda p, s: shd.gather_full(
+        p.detach().contiguous(), s, mesh).cpu().numpy(), tree, specs)

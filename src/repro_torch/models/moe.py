@@ -33,6 +33,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -69,9 +70,15 @@ def _route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int):
 
 def _aux_loss(probs: torch.Tensor, idx: torch.Tensor,
               n_experts: int) -> torch.Tensor:
-    """Load-balancing loss (Switch / GShard): ``E * sum_e f_e * P_e``."""
+    """Load-balancing loss (Switch / GShard): ``E * sum_e f_e * P_e``.
+    Under a sharded train step f_e and P_e are averaged over the ranks the
+    batch is split over before the product (``sharding.batch_mean``), so
+    the sharded aux equals the single-device one, as the reference's
+    ``batch_axes`` make it."""
     hits = F.one_hot(idx, n_experts).float().sum(1)            # (T, E)
-    return n_experts * torch.sum(hits.mean(0) * probs.mean(0))
+    f_e = shd.batch_mean(hits.mean(0))
+    p_e = shd.batch_mean(probs.mean(0))
+    return n_experts * torch.sum(f_e * p_e)
 
 
 # ------------------------------------------------------------------ dense

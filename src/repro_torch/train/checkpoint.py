@@ -30,6 +30,14 @@ the f32 params are gigabytes, which one zlib stream takes minutes to get
 through. An int8
 moment (``QTensor``) is stored as its two leaves, ``<path>/q`` and
 ``<path>/scale``.
+
+**Elastic**: under a mesh, ``save(..., placements=)`` writes full arrays:
+each sharded leaf is all-gathered over the mesh, leaf by leaf, and only
+rank 0 copies it to the host and writes; every rank calls it.
+``restore(..., placements=)`` cuts each stored full array to this rank's
+shard of the current mesh, whatever mesh saved it (the reference's
+``restore(..., shardings=)``). A distributed save's ``wait`` holds every
+rank until rank 0's write is renamed into place.
 """
 
 from __future__ import annotations
@@ -43,7 +51,9 @@ import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.train.optimizer import QTensor
 
 FORMAT = 1
@@ -97,23 +107,44 @@ class CheckpointManager:
         self._writer = cf.ThreadPoolExecutor(max_workers=1,
                                              thread_name_prefix="ckpt")
         self._pending: Optional[cf.Future] = None
+        self._distributed = False      # the last save was across ranks
         #: one record a finished save or restore: op, step, seconds (a
         #: save's from its call to its rename), raw bytes, bytes on disk
         self.records: List[Dict[str, Any]] = []
 
     # ---------------------------------------------------------------- save
     def save(self, step: int, state: Dict[str, Any], *,
-             blocking: bool = False, extra: Optional[Dict] = None) -> None:
+             blocking: bool = False, extra: Optional[Dict] = None,
+             placements: Any = None) -> None:
         """Write ``state`` (nested dicts of tensors and QTensors) as step
         ``step``. Returns once the state is on the host; the writer thread
-        compresses and renames it into place (``blocking`` waits for it)."""
+        compresses and renames it into place (``blocking`` waits for it).
+        With ``placements`` (a tree like ``state`` of
+        ``sharding.Placement``, or None for a leaf every rank holds whole)
+        the leaves are shards: every rank of the mesh calls ``save``, the
+        full arrays are gathered and rank 0 writes them."""
         self.wait()                      # at most one save in flight
         t0 = time.perf_counter()
-        host = [(key, t.detach().to("cpu", copy=True).contiguous())
-                for key, t in _flatten(state)]
-        manifest = {"format": FORMAT, "step": step, **(extra or {})}
-        self._pending = self._writer.submit(self._write, step, host,
-                                            manifest, t0)
+        leaves = _flatten(state)
+        where = (dict(_flatten(placements)) if placements is not None
+                 else {})
+        rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        self._distributed = (placements is not None and dist.is_initialized()
+                             and dist.get_world_size() > 1)
+        host = []
+        for key, t in leaves:
+            place = where.get(key)
+            if place is not None:
+                t = shd.gather_full(t.detach().contiguous(), place.spec,
+                                    place.mesh)
+            if rank0:
+                host.append((key, t.detach().to("cpu", copy=True)
+                             .contiguous()))
+            del t
+        if rank0:
+            manifest = {"format": FORMAT, "step": step, **(extra or {})}
+            self._pending = self._writer.submit(self._write, step, host,
+                                                manifest, t0)
         if blocking:
             self.wait()
 
@@ -146,10 +177,14 @@ class CheckpointManager:
             "disk_bytes": sum(len(b) for chunks in blobs for b in chunks)})
 
     def wait(self) -> None:
-        """Block until the save in flight is written; re-raise its error."""
+        """Block until the save in flight is written; re-raise its error.
+        After a save across ranks every rank waits here for rank 0's."""
         if self._pending is not None:
             pending, self._pending = self._pending, None
             pending.result()
+        if self._distributed:
+            self._distributed = False
+            dist.barrier()
 
     def _prune(self) -> None:
         steps = self.all_steps()
@@ -172,11 +207,13 @@ class CheckpointManager:
             return json.load(f)
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> Tuple[int, Any]:
+                device=None, placements: Any = None) -> Tuple[int, Any]:
         """Restore into the structure of ``template`` (nested dicts of
         tensors and QTensors, which give the expected shapes and dtypes):
         each leaf on ``device``, else on its template leaf's device.
-        Returns ``(step, tree)``."""
+        With ``placements`` (as :meth:`save` takes them, over the current
+        mesh) the template's leaves are shards: each stored full array is
+        cut to this rank's shard. Returns ``(step, tree)``."""
         t0 = time.perf_counter()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -203,11 +240,20 @@ class CheckpointManager:
                     else torch.empty(0, dtype=torch.uint8))
             stored[leaf["key"]] = flat.view(_dtype(leaf["dtype"])).reshape(
                 leaf["shape"])
+        where = (dict(_flatten(placements)) if placements is not None
+                 else {})
         leaves = {}
         for key, tmpl in _flatten(template):
             if key not in stored:
                 raise KeyError(f"checkpoint step {step} has no leaf {key!r}")
             t = stored[key]
+            place = where.get(key)
+            if place is not None:
+                want = shd.global_shape(tmpl.shape, place.spec, place.mesh)
+                if tuple(t.shape) != want:
+                    raise ValueError(f"{key}: stored {tuple(t.shape)}, the "
+                                     f"mesh's full shape {want}")
+                t = shd.local_shard(t, place.spec, place.mesh)
             if tuple(t.shape) != tuple(tmpl.shape) or t.dtype != tmpl.dtype:
                 raise ValueError(
                     f"{key}: stored {t.dtype} {tuple(t.shape)}, template "

@@ -12,6 +12,17 @@ tensors it is given (on the card a functional update would hold a second
 copy of the largest leaves; the reference's XLA program donates its
 buffers to the same end) and returns them; int8 moments are re-encoded
 into new ``QTensor``\\ s.
+
+Under a mesh (``mesh`` and the params' ``specs``) every leaf is this
+rank's shard and the update is elementwise on it. The global norm sums
+each leaf's squares over its distinct shards: a leaf held by several ranks
+(replicated, or split over fewer axes than the mesh has) counts once. The
+int8 codec's blocks run along the last dim, so a leaf split on its last
+dim keeps the single-device blocks only where the shard width is a
+multiple of ``QBLOCK``; the int8 moments of any other leaf split on its
+last dim are kept whole (replicated) on every rank and updated from the
+gathered gradient (:func:`moments_whole`), so the codec sees the blocks it
+sees on one device.
 """
 
 from __future__ import annotations
@@ -21,7 +32,10 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.distributed import sharding as shd
 
 QBLOCK = 256
 
@@ -110,32 +124,66 @@ def tree_leaves(tree: Any) -> list:
 
 # ----------------------------------------------------------------- adamw
 
-def init_opt_state(params: Any, cfg: OptConfig) -> Dict[str, Any]:
+def moments_whole(p: torch.Tensor, spec, mesh, quantized: bool) -> bool:
+    """True where a shard ``p`` of ``spec`` keeps whole int8 moments: its
+    last dim is split and the shard's width is not a multiple of
+    ``QBLOCK``."""
+    if mesh is None or spec is None or not quantized or not p.dim():
+        return False
+    split = any(shd.axis_size(mesh, n) > 1 for n in shd.spec_axes(spec[-1:]))
+    return split and p.shape[-1] % QBLOCK != 0
+
+
+def _no_specs(params: Any, specs: Any) -> Any:
+    return specs if specs is not None else tree_map(lambda _: None, params)
+
+
+def init_opt_state(params: Any, cfg: OptConfig, *, mesh=None,
+                   specs: Any = None) -> Dict[str, Any]:
     """Zero moments (f32, or int8 ``QTensor``\\ s) beside every leaf and a
-    0-d int32 step, on the params' device."""
-    def zeros(p):
-        return _enc(torch.zeros(p.shape, dtype=torch.float32,
+    0-d int32 step, on the params' device; under a mesh each beside its
+    shard, or whole (:func:`moments_whole`)."""
+    def zeros(p, spec):
+        shape = (shd.global_shape(p.shape, spec, mesh)
+                 if moments_whole(p, spec, mesh, cfg.quantized_moments)
+                 else p.shape)
+        return _enc(torch.zeros(shape, dtype=torch.float32,
                                 device=p.device), cfg.quantized_moments)
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+    specs = _no_specs(params, specs)
+    return {"m": tree_map(zeros, params, specs),
+            "v": tree_map(zeros, params, specs),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=tree_leaves(params)[0].device)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)])))
+def global_norm(tree: Any, *, mesh=None, specs: Any = None) -> torch.Tensor:
+    """The L2 norm over every leaf; under a mesh over the shards of
+    ``specs``, each leaf counted once."""
+    if mesh is None:
+        return torch.sqrt(torch.sum(torch.stack(
+            [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)])))
+    parts = []
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        sq = torch.sum(torch.square(x.float()))
+        share = shd.shard_count(spec, mesh) / mesh.size
+        parts.append(sq if share == 1 else sq * share)
+    total = torch.sum(torch.stack(parts))
+    if mesh.size > 1:
+        dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
-                 cfg: OptConfig) -> Tuple[Any, Dict[str, Any],
-                                          Dict[str, torch.Tensor]]:
+                 cfg: OptConfig, *, mesh=None, specs: Any = None
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: returns ``(params, state, {lr, grad_norm})``. The
     params and f32 moments are updated in place (see the module's
-    docstring); the step, the lr and the norm stay on the device."""
+    docstring); the step, the lr and the norm stay on the device. Under a
+    mesh the params and grads are this rank's shards of ``specs``."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh=mesh, specs=specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.float()
@@ -143,12 +191,18 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
     bc2 = 1 - torch.pow(cfg.b2, stepf)
     quant = cfg.quantized_moments
 
-    def upd(p, g, m_t, v_t):
+    def upd(p, g, m_t, v_t, spec):
+        whole = moments_whole(p, spec, mesh, quant)
+        if whole:                 # the moments' blocks need the whole leaf
+            g = shd.gather_full(g.contiguous(), spec, mesh)
+        shape = g.shape
         g = g.float() * scale
-        m = cfg.b1 * _dec(m_t, p.shape, quant) + (1 - cfg.b1) * g
-        v = cfg.b2 * _dec(v_t, p.shape, quant) + (1 - cfg.b2) * g * g
+        m = cfg.b1 * _dec(m_t, shape, quant) + (1 - cfg.b1) * g
+        v = cfg.b2 * _dec(v_t, shape, quant) + (1 - cfg.b2) * g * g
         del g
         u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if whole:
+            u = shd.local_shard(u, spec, mesh)
         if p.dim() >= 2:                              # no wd on norms
             u = u + cfg.weight_decay * p
         p.copy_(p - lr * u)
@@ -158,7 +212,8 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
         v_t.copy_(v)
         return p, m_t, v_t
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
+    out = tree_map(upd, params, grads, state["m"], state["v"],
+                   _no_specs(params, specs))
     pick = lambda i: tree_map(lambda o: o[i], out)        # noqa: E731
     return (pick(0), {"m": pick(1), "v": pick(2), "step": step},
             {"lr": lr, "grad_norm": gnorm})

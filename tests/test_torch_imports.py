@@ -152,6 +152,36 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert build_model(cfg, device="cpu").device.type == "cpu"
 
 
+def test_the_sharding_modules_are_among_the_checked_modules():
+    """``distributed/``, ``launch/mesh.py`` and the training examples are
+    the port's own (the reference's import JAX) and checked above; the
+    rank side of the distributed tests, which spawned ranks import, takes
+    nothing but ``repro_torch`` and plain libraries either."""
+    for name in ("distributed", "distributed.sharding",
+                 "distributed.collectives", "launch.mesh",
+                 "examples.quickstart", "examples.elastic_restart"):
+        assert f"repro_torch.{name}" in MODULES
+    tree = ast.parse((ROOT / "tests" / "torch_dist_ranks.py").read_text())
+    tops = {(a.name if isinstance(node, ast.Import) else node.module)
+            .split(".")[0] for node in ast.walk(tree)
+            if isinstance(node, (ast.Import, ast.ImportFrom))
+            for a in getattr(node, "names", [])}
+    assert tops <= {"os", "numpy", "torch", "repro_torch"}, tops
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    """The training CLI at any mesh and both training examples raise
+    without a card unless given ``--device cpu``."""
+    from repro_torch.examples import elastic_restart, quickstart
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (train.main, quickstart.main, elastic_restart.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--mesh", "1x2"])
+
+
 def test_the_benchmark_scripts_are_among_the_checked_modules():
     for name in ("serve_bench", "check_cli", "run"):
         assert f"repro_torch.benchmarks.{name}" in MODULES

@@ -131,12 +131,13 @@ def test_flash_wrapper_on_cpu_takes_the_plain_version():
 
 
 @pytest.mark.parametrize("d,dv", [(128, 128), (192, 128), (64, 64),
+                                  (32, 32), (16, 16),
                                   (192, 192), (128, 64), (256, 128),
-                                  (128, 192), (64, 128)])
+                                  (128, 192), (64, 128), (32, 16), (8, 8)])
 def test_flash_wrapper_shape_checks(d, dv):
     """The wrapper's checks (run before any launch): (D, Dv) in
-    ``HEAD_DIMS`` = {(128, 128), (192, 128), (64, 64)} pass and give the
-    output's
+    ``HEAD_DIMS`` = {(128, 128), (192, 128), (64, 64), (32, 32), (16, 16)}
+    pass and give the output's
     shape with Dv, every other pair raises; so do a K narrower than Q, V
     off K's sequence, a batch or GQA grouping q does not share, f32 and a
     strided last axis."""
@@ -149,7 +150,8 @@ def test_flash_wrapper_shape_checks(d, dv):
     else:
         with pytest.raises(ValueError, match="HEAD_DIMS|Dv"):
             check_inputs(q, k, v)
-    assert HEAD_DIMS == ((128, 128), (192, 128), (64, 64))
+    assert HEAD_DIMS == ((128, 128), (192, 128), (64, 64), (32, 32),
+                         (16, 16))
     good = (t(2, 8, 5, 192), t(2, 2, 7, 192), t(2, 2, 7, 128))
     for bad in ((good[0], t(2, 2, 7, 128), good[2]),
                 (good[0], good[1], t(2, 2, 6, 128)),
@@ -565,6 +567,44 @@ def test_flash_kernel_d64_on_the_card(case):
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches_by_dims[64, 64] == before + 1
+    torch.testing.assert_close(got.float(), ref.attention_ref(
+        q, k, v, **kw).float(), atol=2e-2, rtol=2e-2)
+
+
+#: flash at (32, 32) and (16, 16), the training examples' self-attention:
+#: (B, Hq, Hkv, S, D, kwargs)
+FLASH_NARROW_CASES = {
+    "quickstart": (8, 8, 4, 256, 32, {}),
+    "elastic-restart": (8, 4, 2, 64, 16, {}),
+    "d32-ragged-at-offset": (2, 8, 2, 300, 32, {"q_offset": 33}),
+    "d16-window": (2, 4, 2, 333, 16, {"window": 40}),
+    "d16-noncausal-one-row": (3, 4, 4, 1, 16, {"causal": False}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_NARROW_CASES))
+def test_flash_kernel_narrow_heads_on_the_card(case):
+    """The kernel at (D, Dv) = (32, 32) and (16, 16) (the (64, 64) tile
+    over tensors D wide) on the model's ``transpose(1, 2)`` views against
+    its plain version (bf16, atol = rtol = 2e-2), one launch counted for its
+    instance, the output D wide."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, hq, hkv, n, d, kw = FLASH_NARROW_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def view(heads, seq):
+        return torch.randn((b, seq, heads, d), generator=g,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    skv = n + kw.get("q_offset", 0)
+    q, k, v = view(hq, n), view(hkv, skv), view(hkv, skv)
+    before = flash_attention.launches_by_dims[d, d]
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_dims[d, d] == before + 1
+    assert got.shape == (b, hq, n, d)
     torch.testing.assert_close(got.float(), ref.attention_ref(
         q, k, v, **kw).float(), atol=2e-2, rtol=2e-2)
 
