@@ -53,6 +53,15 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      and at serve_bench's 8-token pages (8 pages a split): its chunked
      head-to-head's shape (8 slots over 514 pages, timed) and split edges
      under a window;
+     the pooled decode's range walk (the paged kernel given a start and
+     writing its log-sum-exp) at rows 2, 2a and 2b's shapes, each slot's
+     live positions split in 2 and in 4 (``RANGE_SPLITS``), each range
+     against its plain version (output within ATOL, lse within 1e-3),
+     the ranges merged and held against the whole walk and the plain
+     version within ATOL, range 0 of 2 at row 2 timed beside its bytes
+     bound, the merged outputs digested (``range_row2`` ...); qwen2.5-3b's
+     per-rank shapes at a 1 x 2 mesh (flash at 4 x 256 and paged decode,
+     8 query heads over 1 KV head), digested as ``qwen_1x2_*``;
      then every attention case is called REPEAT_ROUNDS more times, the
      cases interleaved, each call bit for bit equal to its first output;
      mamba_scan at falcon-mamba-7b's shapes
@@ -241,7 +250,13 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      must fail that gate (the GQA layer's K and V traded, its ``wo``
      through fp8; every mamba layer's ``out_proj`` through fp8); the
      phase's seconds;
- 16. the ``kernels`` summary line (launches on the main path, the paged
+ 16. the mesh path: qwen2.5-3b at full width served through
+     ``launch.serve.run`` with ``--mesh 1`` (NCCL world 1, a process group
+     of its own; every collective of the tensor-parallel engine spans one
+     rank): launches by phase 5's rules, host syncs == chunks, and every
+     token, the scheduler counters and the launches equal phase 5's
+     single-device paged stream; the phase's seconds;
+ 17. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream; flash at D = 192 a row of
      its own, launched by deepseek-v2's paged stream; flash at D = 64 a
      row launched by seamless-m4t-medium's one-shot; grouped_gemm a row
@@ -249,7 +264,9 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      and each Function's check and plain backward time, on the flash,
      mamba_scan and grouped_gemm rows; four rows at jamba's widths from
      phase 15, whose ``launches`` are each kernel's on jamba's own paged
-     stream), the card line, and the result line.
+     stream; the range walk's row from phase 3, its launches the paged
+     kernel's on phase 16's stream, its range walks there counted apart),
+     the card line, and the result line.
 
 After every phase from 3 on, every counter buffer of paged decode's
 in-launch merge (one per device and stream) must read all zeros: each
@@ -353,7 +370,8 @@ FLASH_DIGESTS = {"admission": "2be6a11c2e88583d", "ragged": "df2f42699612d5ac",
                  "noncausal": "63d113eb070f630c"}
 #: the windowed and (64, 64) attention cases (``new_attention_cases``: flash
 #: at (64, 64), windowed flash and paged decode; flash at jamba's admission;
-#: flash at (32, 32) and (16, 16), FLASH_NARROW_CASES),
+#: flash at (32, 32) and (16, 16), FLASH_NARROW_CASES; the range walks and
+#: the 1 x 2 rank shapes, ``paged_range_cases`` / ``qwen_rank_cases``),
 #: digested as the kernels printed them on an NVIDIA H100 80GB HBM3; a later
 #: change must not move a bit
 NEW_CASE_DIGESTS = {"d64_encoder": "aea592b592485ddb",
@@ -364,7 +382,16 @@ NEW_CASE_DIGESTS = {"d64_encoder": "aea592b592485ddb",
                     "paged_window": "90ef91573dbe1ad4",
                     "jamba_flash": "4e6d007a2931ac24",
                     "d32_quickstart": "32296beb00d49315",
-                    "d16_elastic": "097455ccf3d972e2"}
+                    "d16_elastic": "097455ccf3d972e2",
+                    # the range walks merged at 2 ranges, and qwen2.5-3b's
+                    # 1 x 2 rank shapes
+                    "range_row2": "94eabc09fcd478f7",
+                    "range_row2a": "fc4aff04a5773e71",
+                    "range_row2b": "e6d58f55eb370b8b",
+                    "qwen_1x2_flash": "a17d66b01fb24e22",
+                    "qwen_1x2_paged": "e42f5c5abcc7ed41"}
+#: the pooled decode's range splits held in phase 3
+RANGE_SPLITS = (2, 4)
 #: (B, Hq, Hkv, Sq, Skv, kwargs, transposed views) of each digest case
 FLASH_DIGEST_CASES = {
     "admission": (4, 16, 2, 256, 256, {}, False),
@@ -624,6 +651,7 @@ def reset_counts() -> None:
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
     from repro_torch.kernels.paged_attention import paged_flash_decode
     flash_attention.launches = paged_flash_decode.launches = 0
+    paged_flash_decode.range_launches = 0
     flash_attention.launches_by_dims.update(
         dict.fromkeys(flash_attention.launches_by_dims, 0))
     mamba_scan.launches = mamba_scan_plain.calls = grouped_gemm.launches = 0
@@ -632,7 +660,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Each kernel's launches; flash by instance: ``flash`` at D = Dv =
     128, ``flash_d192`` at D = 192, Dv = 128, ``flash_d64``, ``flash_d32``
-    and ``flash_d16`` at D = Dv = 64, 32 and 16."""
+    and ``flash_d16`` at D = Dv = 64, 32 and 16; ``paged_range`` the paged
+    launches that walked a position range (the pooled decode)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.grouped_gemm import grouped_gemm
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
@@ -642,6 +671,7 @@ def read_counts() -> dict:
             "flash_d64": by_dims[64, 64], "flash_d32": by_dims[32, 32],
             "flash_d16": by_dims[16, 16],
             "paged": paged_flash_decode.launches,
+            "paged_range": paged_flash_decode.range_launches,
             "scan": mamba_scan.launches, "plain_scan": mamba_scan_plain.calls,
             "grouped": grouped_gemm.launches}
 
@@ -691,7 +721,7 @@ def compare(name: str, got, want, tol: float = ATOL) -> float:
 
 def phase_environment() -> str:
     import torch
-    log(f"[1/16] environment: python {sys.version.split()[0]}, torch "
+    log(f"[1/17] environment: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -713,7 +743,7 @@ def phase_build() -> dict:
     (TMA loads). Returns {library: its SASS counts of HGMMA, UTMALDG and
     HMMA (``mma.sync``, the tensor cores without wgmma)}."""
     from repro_torch.kernels import build
-    log("[2/16] build: nvcc " + " ".join(build.NVCC_FLAGS))
+    log("[2/17] build: nvcc " + " ".join(build.NVCC_FLAGS))
     t0 = time.perf_counter()
     build.build_all()
     log(f"  built {', '.join(build.SOURCES)} in "
@@ -749,7 +779,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
     from repro_torch.benchmarks.common import median_ms
     from repro_torch.kernels.paged_attention import (paged_flash_decode,
                                                      paged_flash_decode_plain)
-    log(f"[3/16] kernels against their plain versions (attention: bf16, "
+    log(f"[3/17] kernels against their plain versions (attention: bf16, "
         f"atol = rtol = {ATOL})")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -937,6 +967,15 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
     log(f"  paged B=8 P={BENCH_P_MAX} pt={BENCH_PAGE_TOKENS} lens={lens8}: "
         f"kernel {p8_ms:.4f} ms (device {p8_dev:.4f} ms), plain "
         f"{p8_plain:.4f} ms, bound {p8_bound:.4f} ms ({p8_by})")
+    ranges = paged_range_cases(repeats, n_slots, depth)
+    rank_cases = qwen_rank_cases(repeats, depth)
+    new_digests = {**ranges["digests"], **rank_cases["digests"]}
+    differ = {case: got for case, got in new_digests.items()
+              if case in NEW_CASE_DIGESTS and NEW_CASE_DIGESTS[case] != got}
+    if differ:
+        fail(f"outputs moved from their recorded digests: {differ}")
+    log(f"  digests of the range and 1x2 rank cases: {new_digests} "
+        f"(recorded: {sorted(set(NEW_CASE_DIGESTS) & set(new_digests))})")
     repeat_calls(repeats)
     del q, kp, vp, bt, cl, batch, repeats
     return {
@@ -969,6 +1008,11 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                                  pt8_bound_by=p8_by,
                                  **{f"window_{key}": value for key, value
                                     in new_cases["paged_window"].items()})),
+        "paged_range": dict(err=ranges["err"], **ranges["timing"],
+                            digests=ranges["digests"],
+                            extra={"rank_1x2_err": rank_cases["err"],
+                                   "rank_1x2_digests":
+                                       rank_cases["digests"]}),
         "matmul3d": phase_matmul_kernel(),
         "mamba_scan": phase_scan_kernel(fcfg),
     }
@@ -982,9 +1026,14 @@ def repeat_calls(repeats) -> None:
     import torch
     t0 = time.perf_counter()
     bad = {}
+    def same(a, b):
+        if isinstance(b, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
     for _ in range(REPEAT_ROUNDS):
         for label, call, first in repeats:
-            if not torch.equal(call(), first):
+            if not same(call(), first):
                 bad[label] = bad.get(label, 0) + 1
     torch.cuda.synchronize()
     if bad:
@@ -1328,6 +1377,138 @@ def new_attention_cases(repeats) -> dict:
         f"(recorded: {sorted(NEW_CASE_DIGESTS)})")
     out["digests"] = digests
     return out
+
+
+def paged_range_cases(repeats, n_slots, depth) -> dict:
+    """The paged kernel over position ranges with its log-sum-exp, the
+    pooled decode's kernel (numpy-seeded inputs, digested): at row 2's
+    shape (the main path's slots over 16-token pages, 16 query heads over
+    2), row 2a's (8-token pages, serve_bench's chunked shape) and row 2b's
+    (gemma3's widths under its 1024 window). Each slot's live positions
+    are split into 2 and 4 ranges (``decode_range``), each range walked by
+    the kernel (``span=``: a start and a frontier, the window folded into
+    the start) and by its plain version, the ranges merged by their
+    log-sum-exps (``merge_ranges``) and held against the whole walk and
+    the plain version within ATOL; each range's lse within 1e-3 of the
+    plain one's (relative); an empty range zero and -inf. Range 0 of 2 at
+    row 2 is timed beside its bytes bound; the merged outputs at 2 ranges
+    and range 0's call join the repeat set."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        decode_range, merge_ranges, paged_decode_attention,
+        paged_flash_decode, paged_flash_decode_plain)
+    rng = np.random.RandomState(360)
+    rows = {"row2": (16, 16, 2, [int(x) for x in rng.randint(
+                256, depth - 1, n_slots)], -(-depth // 16), None),
+            "row2a": (BENCH_PAGE_TOKENS, 16, 2,
+                      [4099, 27, 20, 63, 64, 0, 1, 2050], BENCH_P_MAX, None),
+            "row2b": (16, 32, 16, PAGED_WINDOW_LENS, WINDOW_SEQ // 16,
+                      WINDOW)}
+    out, digests, err = {}, {}, 0.0
+    for i, (row, (pt, hq, hkv, lens, p_max, window)) in enumerate(
+            rows.items()):
+        make = seeded(370 + i)
+        b, d = len(lens), 128
+        kp, vp = (make(b * p_max + 1, hkv, pt, d) for _ in range(2))
+        perm = torch.from_numpy(np.random.RandomState(380 + i).permutation(
+            b * p_max) + 1).cuda()
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        mapped = (torch.arange(p_max, device="cuda")[None, :] * pt
+                  <= cl[:, None])
+        bt = torch.where(mapped, perm.reshape(b, p_max), 0).to(
+            torch.int32).contiguous()
+        q = make(b, hq, 1, d)
+        whole = paged_flash_decode(q, kp, vp, bt, cl, window=window)
+        plain = paged_flash_decode_plain(q, kp, vp, bt, cl, window=window)
+        for n in RANGE_SPLITS:
+            outs, lses = [], []
+            for r in range(n):
+                span = decode_range(cl, 1, n, r, batch=b, window=window)
+                o, lse = paged_decode_attention(q, kp, vp, bt, cl,
+                                                window=window, span=span)
+                po, plse = paged_decode_attention(q, kp, vp, bt, cl,
+                                                  window=window, span=span,
+                                                  impl="ref")
+                label = f"paged range {r}/{n} {row} B={b} pt={pt}"
+                err = max(err, compare(label, o, po))
+                live = torch.isfinite(plse)
+                if not torch.equal(live, torch.isfinite(lse)) or not bool(
+                        ((lse - plse).abs()[live] <= 1e-3 * plse.abs()[live]
+                         .clamp(min=1)).all()) or bool(
+                        (o[~live[..., 0]] != 0).any()):
+                    fail(f"{label}: lse or empty ranges differ from the "
+                         f"plain version")
+                outs.append(o)
+                lses.append(lse)
+                if n == 2 and r == 0:
+                    repeats.append((label, functools.partial(
+                        paged_decode_attention, q, kp, vp, bt, cl,
+                        window=window, span=span), (o, lse)))
+            merged = merge_ranges(outs, lses)
+            label = f"paged {n} ranges merged {row}"
+            err = max(err, compare(f"{label} vs the whole walk", merged,
+                                   whole))
+            err = max(err, compare(f"{label} vs the plain version", merged,
+                                   plain))
+            if n == 2:
+                digests[f"range_{row}"] = digest(merged)
+        if row == "row2":
+            start, end = decode_range(cl, 1, 2, 0, batch=b)
+            front = (torch.minimum(end, cl + 1) - 1).contiguous()
+            call = functools.partial(paged_flash_decode, q, kp, vp, bt, front,
+                                     start=start, return_lse=True)
+            visible = int(torch.clamp(front + 1 - start, min=0).sum())
+            out["timing"] = time_case(
+                f"paged range 0/2 {row} ({visible} of {sum(lens) + b} "
+                f"positions) with its lse", call,
+                functools.partial(paged_flash_decode_plain, q, kp, vp, bt,
+                                  front, start=start, return_lse=True),
+                None, "paged_decode_kernel",
+                2 * 2 * visible * hkv * d + 2 * 2 * q.numel()
+                + 4 * b * hq + 4 * (bt.numel() + 2 * b),
+                4.0 * d * hq * visible)
+        del q, kp, vp, bt
+    out["err"], out["digests"] = err, digests
+    return out
+
+
+def qwen_rank_cases(repeats, depth) -> dict:
+    """qwen2.5-3b's per-rank shapes at a 1x2 mesh (the head path: 8 query
+    heads over 1 KV head a rank): flash at the one-shot's 4 x 256
+    admission on the model's views and paged decode over the main path's
+    16-token pages, each held against its plain version, added to the
+    repeat set and digested (numpy-seeded inputs)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.paged_attention import (paged_flash_decode,
+                                                     paged_flash_decode_plain)
+    make, digests = seeded(390), {}
+    q, k, v = (make(4, 256, h, 128).transpose(1, 2) for h in (8, 1, 1))
+    got = flash_attention(q, k, v, causal=True)
+    err = compare("flash 1x2 rank: B=4 Hq=8 Hkv=1 S=256 causal (model views)",
+                  got, flash_attention_plain(q, k, v, causal=True))
+    repeats.append(("flash 1x2 rank", functools.partial(
+        flash_attention, q, k, v, causal=True), got))
+    digests["qwen_1x2_flash"] = digest(got)
+    pt, p_max = 16, -(-depth // 16)
+    lens = [int(x) for x in np.random.RandomState(391).randint(
+        256, depth - 1, 4)]
+    kp, vp = (make(4 * p_max + 1, 1, pt, 128) for _ in range(2))
+    bt = torch.from_numpy(np.random.RandomState(392).permutation(
+        4 * p_max) + 1).reshape(4, p_max).to(torch.int32).cuda()
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    qd = make(4, 8, 1, 128)
+    got = paged_flash_decode(qd, kp, vp, bt, cl)
+    err = max(err, compare(f"paged 1x2 rank: B=4 Hq=8 Hkv=1 lens={lens}",
+                           got, paged_flash_decode_plain(qd, kp, vp, bt,
+                                                         cl)))
+    repeats.append(("paged 1x2 rank", functools.partial(
+        paged_flash_decode, qd, kp, vp, bt, cl), got))
+    digests["qwen_1x2_paged"] = digest(got)
+    return {"err": err, "digests": digests}
 
 
 def jamba_flash_inputs():
@@ -1750,7 +1931,7 @@ def one_shot(cfg, argv, label) -> dict:
 
 
 def phase_one_shot(cfg) -> None:
-    log("[4/16] one-shot generate: " + " ".join(ONE_SHOT))
+    log("[4/17] one-shot generate: " + " ".join(ONE_SHOT))
     rec = one_shot(cfg, ONE_SHOT, "one-shot")
     teacher_forced_check(cfg, reference_params(cfg), one_shot_prompts(cfg)[0],
                          rec["tokens"].numpy()[0], "one-shot row 0")
@@ -1880,7 +2061,7 @@ def phase_stream(cfg) -> dict:
                                              repetitive_stream,
                                              shared_prefix_stream,
                                              synthetic_stream)
-    log("[5/16] qwen2.5-3b streams (every decode and verify chunk under "
+    log("[5/17] qwen2.5-3b streams (every decode and verify chunk under "
         "set_sync_debug_mode('error')); the prefix-shared stream's requests "
         "are all held to the teacher-forced rule")
     recs = {"stream": run_stream(cfg, STREAM, "stream")}
@@ -1995,7 +2176,7 @@ def phase_serve_bench(cfg) -> dict:
     counted around the phase."""
     from repro_torch.benchmarks import serve_bench as sb
     from repro_torch.benchmarks.common import ARTIFACT_ROOT
-    log(f"[6/16] serve_bench head-to-heads: qwen2.5-3b --full, "
+    log(f"[6/17] serve_bench head-to-heads: qwen2.5-3b --full, "
         f"{BENCH_REQUESTS} requests, each run once")
     t0 = time.perf_counter()
     common = dict(arch="qwen2.5-3b", n_requests=BENCH_REQUESTS, full=True,
@@ -2313,7 +2494,7 @@ def phase_falcon(fcfg) -> dict:
     from repro_torch.core.target import use_target
     from repro_torch.models.api import build_model
     from repro_torch.serve.scheduler import synthetic_stream
-    log("[7/16] falcon-mamba-7b at full width: " + " ".join(FALCON)
+    log("[7/17] falcon-mamba-7b at full width: " + " ".join(FALCON)
         + f" (the launcher's target on the card, {SERVING_TARGET}; every "
         "decode chunk under set_sync_debug_mode('error'))")
     n_ssm = layer_counts(fcfg)[1]
@@ -2668,7 +2849,7 @@ def phase_moe(arch: str, n_layers: int, phase: int) -> dict:
     cfg = dataclasses.replace(full, n_layers=n_layers)
     groups = ", ".join(f"{g.name} x {g.n_repeat}" for g in cfg.layer_groups())
     argv = ["--arch", arch, "--full"]
-    log(f"[{phase}/16] {arch} at its published widths, {n_layers} of "
+    log(f"[{phase}/17] {arch} at its published widths, {n_layers} of "
         f"{full.n_layers} layers ({groups}): " + " ".join(argv))
     moe_check = check_grouped_moe(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -2764,7 +2945,7 @@ def phase_gemma(phase: int) -> dict:
              for k in g.pattern]
     globals_ = [i for i, k in enumerate(kinds) if k.window is None]
     argv = ["--arch", arch, "--full"]
-    log(f"[{phase}/16] {arch} at its published widths, {n_layers} of "
+    log(f"[{phase}/17] {arch} at its published widths, {n_layers} of "
         f"{full.n_layers} layers (window {full.window}, global layers "
         f"{globals_}): " + " ".join(argv))
     if globals_ != [5, 11] or len(kinds) != n_layers:
@@ -2820,7 +3001,7 @@ def phase_families(phase: int) -> dict:
     from repro_torch.models.frontends import fake_frontend
     from repro_torch.serve.engine import Engine, EngineConfig
     t0 = time.perf_counter()
-    log(f"[{phase}/16] the other attention families uncut, one-shot: "
+    log(f"[{phase}/17] the other attention families uncut, one-shot: "
         + " ".join(QWEN_VL) + f"; {SEAMLESS[0]} --full through "
         f"Engine.generate ({SEAMLESS[1]} source frames, {SEAMLESS[2]}-token "
         f"prompts)")
@@ -2892,7 +3073,7 @@ def phase_paper() -> dict:
     from repro_torch.kernels.matmul3d import matmul3d
     from repro_torch.launch import mempool_matmul
     from repro_torch.launch.mempool_matmul import REL_TOL
-    log("[12/16] the paper path: python -m repro_torch.launch.mempool_matmul; "
+    log("[12/17] the paper path: python -m repro_torch.launch.mempool_matmul; "
         "python -m repro_torch.benchmarks.kernel_bench --target h100")
     matmul3d.launches = 0
     rec = mempool_matmul.run([])
@@ -3181,7 +3362,7 @@ def phase_train(phase: int) -> dict:
     from repro_torch.launch import train as train_cli
     from repro_torch.train.optimizer import tree_leaves
     t_phase = time.perf_counter()
-    log(f"[{phase}/16] training: the kernels' autograd Functions; "
+    log(f"[{phase}/17] training: the kernels' autograd Functions; "
         f"python -m repro_torch.launch.train " + " ".join(TRAIN_ARGS)
         + "; the crash drill")
     checks = train_grad_checks()
@@ -3740,7 +3921,7 @@ def phase_jamba(phase: int) -> dict:
     JAMBA_LAYERS layers served through the launcher (:func:`jamba_served`).
     Prints the phase's seconds."""
     t0 = time.perf_counter()
-    log(f"[{phase}/16] {JAMBA} at its published widths: its kernels, then "
+    log(f"[{phase}/17] {JAMBA} at its published widths: its kernels, then "
         f"the model at {JAMBA_LAYERS} layers served")
     out = {"flash": jamba_flash_case(), "paged": jamba_paged_case()}
     free_memory()
@@ -3754,6 +3935,50 @@ def phase_jamba(phase: int) -> dict:
     out["seconds"] = time.perf_counter() - t0
     log(f"  {JAMBA}: the phase took {out['seconds']:.1f} s")
     return out
+
+
+#: the counters of the world-1 mesh stream that must equal the single-device
+#: paged stream's
+MESH_COUNTERS = ("n_requests", "completed", "n_tokens", "host_syncs",
+                 "chunks", "admissions", "decode_steps_total", "n_slots",
+                 "preemptions", "spilled_pages", "restores", "n_pages",
+                 "pages_high_water", "pool_bytes", "ttft_steps_p50",
+                 "ttft_steps_p95", "e2e_steps_p50", "e2e_steps_p95")
+
+
+def phase_mesh(phase: int, cfg, single: dict) -> dict:
+    """The mesh path on one card: qwen2.5-3b at full width through
+    ``launch.serve.run(STREAM + ["--mesh", "1"])`` on NCCL world 1 (a
+    process group of its own, every collective over one rank: the
+    row-parallel sums, the vocabulary-parallel embedding and greedy merge,
+    the int8 scale max). Its launches by phase 5's rules, host syncs ==
+    chunks, and its tokens and scheduler counters bit for bit those of
+    phase 5's single-device paged stream (``single``) on the same
+    requests; the pooled decode's range walks never run at world 1.
+    Prints the phase's seconds."""
+    t0 = time.perf_counter()
+    log(f"[{phase}/17] the mesh path: qwen2.5-3b served through --mesh 1 "
+        f"(NCCL world 1)")
+    rec = run_stream(cfg, STREAM + ["--mesh", "1"], "mesh 1 stream")
+    if rec.get("mesh") != {"data": 1, "model": 1, "kv_shards": 1}:
+        fail(f"mesh 1 stream: mesh record {rec.get('mesh')}")
+    if rec["outputs"] != single["outputs"]:
+        parted = [r for r in rec["outputs"]
+                  if rec["outputs"][r] != single["outputs"].get(r)]
+        fail(f"mesh 1 stream: requests {parted} differ from the "
+             f"single-device paged stream")
+    differ = {k: (rec[k], single[k]) for k in MESH_COUNTERS
+              if rec[k] != single[k]}
+    if differ or rec["launches"] != single["launches"]:
+        fail(f"mesh 1 stream: counters {differ} or launches "
+             f"{rec['launches']} vs {single['launches']} differ from the "
+             f"single-device paged stream")
+    seconds = time.perf_counter() - t0
+    log(f"  mesh 1 stream: every token, {len(MESH_COUNTERS)} counters and "
+        f"the launches equal the single-device paged stream's  ok; "
+        f"{rec['tok_per_s']:.1f} tok/s against {single['tok_per_s']:.1f}; "
+        f"the phase took {seconds:.1f} s")
+    return {"rec": rec, "launches": rec["launches"], "seconds": seconds}
 
 
 def jamba_rows(jamba) -> list:
@@ -3844,7 +4069,7 @@ def main() -> int:
     free_memory()
     paper = phase_paper()
     check_merge_counters("phase 12")
-    log("[13/16] where the time goes: torch.profiler (CUDA activity)")
+    log("[13/17] where the time goes: torch.profiler (CUDA activity)")
     phase_profile(cfg)
     phase_profile(cfg, kv_quant="int8")
     phase_profile(fcfg)
@@ -3855,10 +4080,13 @@ def main() -> int:
     free_memory()
     jamba = phase_jamba(15)
     check_merge_counters("phase 15")
+    free_memory()
+    mesh = phase_mesh(16, cfg, rec)
+    check_merge_counters("phase 16")
     if bench["failed"]:
         fail(f"serve_bench outputs gates: {bench['failed']}")
 
-    log(f"[16/16] summary ({time.perf_counter() - t_start:.0f} s)")
+    log(f"[17/17] summary ({time.perf_counter() - t_start:.0f} s)")
     rows = [("flash_attention", "flash_attention",
              "src/repro/kernels/flash_attention.py:30",
              rec["launches"]["flash"], timing["flash"]),
@@ -3904,6 +4132,15 @@ def main() -> int:
     for row in jamba_rows(jamba):
         rows.append(row)
         launches_path[row[0]] = jamba_path
+    # the pooled decode's range walk: the paged kernel with a start and an
+    # lse; its launches are the kernel's on the world-1 mesh stream (whose
+    # range walks are 0: the pooled decode runs at a model axis above 1)
+    rows.append(("paged_flash_decode_range_lse", "paged_attention",
+                 "src/repro/kernels/paged_attention.py:154",
+                 mesh["launches"]["paged"], timing["paged_range"]))
+    launches_path["paged_flash_decode_range_lse"] = (
+        "the qwen2.5-3b --mesh 1 paged stream (NCCL world 1); range walks "
+        f"{mesh['launches']['paged_range']}")
     kernels = []
     for name, lib, replaces, launches, t in rows:
         row = {"name": name, "route": "cuda",
@@ -3962,12 +4199,14 @@ def main() -> int:
         "launches"]
     by_path.update({f"{JAMBA} x {JAMBA_LAYERS} {name}": r["launches"]
                     for name, r in jamba["served"]["recs"].items()})
+    by_path["qwen mesh 1"] = mesh["launches"]
     for row, key in zip(kernels, ("flash", "paged", None, "scan",
                                   "flash_d192", "flash_d64", "flash_d32",
                                   "flash_d16", "grouped",
-                                  "flash", "paged", "scan", "grouped")):
+                                  "flash", "paged", "scan", "grouped",
+                                  "paged_range")):
         if key:
-            row["launches_by_path"] = {path: c[key]
+            row["launches_by_path"] = {path: c.get(key)
                                        for path, c in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -33,10 +33,13 @@ head-to-head (baseline, one-shot and chunked admission of one
 p99), ``--disaggregate`` the prefill/decode role split (decode-role tok/s
 at the inter-token p99, both runs phase-timed) and ``--kv-quant`` the
 tier-codec head-to-head (concurrent residents per layer-0 byte; with
-``--park-idle N`` the layer-2 host tier inside both runs). ``--mesh N``
-with N > 1 raises ``NotImplementedError``: the mesh-sharded head-to-head
-(``run_mesh``) needs sharded serving, which is not ported yet (ROADMAP
-A13b).
+``--park-idle N`` the layer-2 host tier inside both runs) and ``--mesh N``
+(N > 1, or ``--require-scaling``) the mesh-sharded head-to-head
+(``run_mesh``): the same paged stream served on one device and on the
+mesh's ranks (spawned: gloo on the CPU, NCCL one rank a GPU on the card),
+each held to its own engine's one-shot rollouts, gated on modeled decode
+scaling. A data axis above 1, and configs other than dense GQA decoders
+at a model axis above 1, raise ``NotImplementedError`` (ROADMAP A13c).
 
 Latency on the host's wall clock, beside the reference's step clocks:
 
@@ -86,7 +89,9 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -97,7 +102,10 @@ from repro_torch.benchmarks.common import (ARTIFACT_ROOT, add_target_arg,
                                            fmt_table, save_artifact)
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.target import get_target, use_target
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import mesh_size, serving_target
+from repro_torch.models.bridge import params_from_numpy, params_to_numpy
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.serve.checks import LOGIT_TOL, teacher_forced_gap
 from repro_torch.serve.engine import Engine, EngineConfig
@@ -105,7 +113,8 @@ from repro_torch.serve.scheduler import (DECODING, PREFILLING, Scheduler,
                                          derive_n_slots, derive_page_geometry,
                                          derive_prefill_chunk,
                                          derive_speculate_tokens,
-                                         kv_bytes_per_token, percentile,
+                                         kv_bytes_per_token, kv_shards,
+                                         percentile,
                                          repetitive_stream,
                                          shared_prefix_stream,
                                          synthetic_stream)
@@ -131,12 +140,12 @@ def _emit_bench_json(meta: Dict, metrics: Dict) -> str:
 
 
 @contextlib.contextmanager
-def _bench(target_name, arch: str, device, full: bool, params):
+def _bench(target_name, arch: str, device, full: bool, params, mesh=None):
     """The card unless ``device`` says otherwise; ``target_name``, else the
     launcher's serving target; the REDUCED config unless ``full``; the
     serving copy of the weights (``Model.init_serving``) from a seeded
-    generator unless ``params`` are given. Yields (device,
-    target, config, model, params)."""
+    generator unless ``params`` are given; under ``mesh`` this rank's
+    shards of them. Yields (device, target, config, model, params)."""
     dev = resolve_device(device)
     name = target_name or serving_target(dev)
     with use_target(name) if name else contextlib.nullcontext():
@@ -144,7 +153,10 @@ def _bench(target_name, arch: str, device, full: bool, params):
         model = build_model(cfg, device=dev)
         if params is None:
             params = model.init_serving(
-                torch.Generator(device=dev).manual_seed(0))
+                torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+        elif mesh is not None:
+            from repro_torch.train.loop import place
+            params = place(params, mesh)[0]
         yield dev, get_target(), cfg, model, params
 
 
@@ -1232,6 +1244,232 @@ def run_quant(target_name=None, arch: str = "qwen2.5-3b",
     return "\n".join([table] + lines)
 
 
+def _mesh_side(opts: Dict, mesh, params: Any) -> Dict:
+    """One side of :func:`run_mesh`: the paged stream served on one device
+    (``mesh`` None) or as this rank of ``mesh``, held to the same engine's
+    one-shot rollouts; returns the side's record."""
+    dev = mesh.device if mesh is not None else opts["device"]
+    with _bench(opts["target"], opts["arch"], dev, opts["full"], params,
+                mesh) as (dev, target, cfg, model, params):
+        stream = synthetic_stream(opts["n_requests"], opts["prompt_len"],
+                                  opts["gen_len"], cfg.vocab_size,
+                                  opts["seed"])
+        max_len = opts["prompt_len"] + opts["gen_len"]
+        base_slots = derive_n_slots(cfg, max_len, max_slots=8)
+        l0 = (opts["layer0_bytes"] if opts["layer0_bytes"] is not None
+              else base_slots * kv_bytes_per_token(cfg) * max_len)
+        ms = opts["model_shards"] if mesh is not None else 1
+        ds = opts["data_shards"] if mesh is not None else 1
+        ks = kv_shards(cfg, ms) * max(1, ds)
+        geom = derive_page_geometry(
+            cfg, max_len, page_tokens=opts["page_tokens"],
+            max_slots=opts["max_slots"], layer0_bytes=l0,
+            layer1_bytes=opts["layer1_bytes"], model_shards=ms)
+        slots = derive_n_slots(cfg, max_len, pages=geom,
+                               max_slots=opts["max_slots"], model_shards=ms,
+                               data_shards=ds)
+        engine = Engine(model, params, EngineConfig(
+            max_len=max_len, sync_interval=opts["sync_interval"] or 4,
+            mesh=mesh))
+        del params
+        # this engine's own ground truth: one-shot greedy rollouts
+        refs = []
+        for spec in stream:
+            toks, _ = engine.generate(
+                {"tokens": torch.as_tensor(np.asarray(spec["prompt"]),
+                                           device=dev)[None]},
+                n_steps=spec["max_new_tokens"])
+            refs.append([int(t) for t in toks[0].tolist()])
+
+        def serve_once():
+            sch = Scheduler(n_slots=slots, pages=geom)
+            rids = [sch.submit(s["prompt"], s["max_new_tokens"]).rid
+                    for s in stream]
+            rep, dt = _serve(engine, sch)
+            return rids, rep, dt
+
+        if opts["warmup"]:
+            serve_once()
+        rids, rep, dt = serve_once()
+        side = f"mesh={ms * ds}" if mesh is not None else "mesh=1"
+        for rid, ref in zip(rids, refs):
+            got = rep.outputs[rid]
+            if not got or got != ref[:len(got)]:
+                raise SystemExit(
+                    f"serve_bench --mesh: {side} continuous outputs are not "
+                    f"a prefix of the same engine's one-shot rollout — "
+                    f"sharded serving must be bit-exact against its own "
+                    f"reference")
+        st = rep.stats
+        n_tokens = sum(len(r.tokens) for r in rep.requests)
+        page_bytes = st["pool_bytes"] // max(st["n_pages"], 1)
+        return {
+            "mode": side,
+            "wall_s": dt,
+            "n_tokens": n_tokens,
+            "tok_per_s": n_tokens / dt if dt else 0.0,
+            "decode_steps": st["decode_steps"],
+            "host_syncs": st["host_syncs"],
+            "boundaries": len(st["boundary_wall_s"]),
+            "completed": st["drained"],
+            "n_slots": slots,
+            "kv_shards": ks,
+            "pool_bytes": st["pool_bytes"],
+            "per_shard_pool_bytes": st["pool_bytes"] // ks,
+            "n_pages": st["n_pages"],
+            "pages_high_water": st["pages_high_water"],
+            "per_shard_pages_high_water": -(-st["pages_high_water"] // ks),
+            # per-shard resident-KV bytes one decode forward sweeps: the
+            # forward's modeled cost on the memory-bound target
+            "per_shard_sweep_bytes": st["pages_high_water"] * page_bytes // ks,
+            "tok_per_forward": (n_tokens / st["decode_steps"]
+                                if st["decode_steps"] else 0.0),
+            "ttft_emit_p50": percentile(st["ttft_emit_steps"], 50),
+            "ttft_emit_p95": percentile(st["ttft_emit_steps"], 95),
+            "target": target.name, "arch": cfg.name, "device": str(dev),
+            "layer0_bytes": l0,
+        }
+
+
+def _mesh_rank(opts: Dict, params_np: Any, out: str) -> None:
+    """One spawned rank of :func:`run_mesh`'s mesh side; rank 0 saves the
+    side's record to ``out``."""
+    sizes, names = mesh_lib.parse_mesh(opts["mesh_spec"], opts["mesh_axes"])
+    mesh = mesh_lib.make_mesh(sizes, names, resolve_device(opts["device"]),
+                              what=f"--mesh {opts['mesh_spec']}")
+    params = (None if params_np is None
+              else params_from_numpy(params_np, mesh.device))
+    rec = _mesh_side(opts, mesh, params)
+    if all(mesh.coordinate(n) == 0 for n in mesh.axis_names):
+        torch.save(rec, out)
+
+
+def run_mesh(target_name=None, arch: str = "qwen2.5-3b",
+             n_requests: int = 32, prompt_len: int = 16,
+             gen_len: int = 12, seed: int = 0, page_tokens: int = 8,
+             layer0_bytes: Optional[int] = None,
+             layer1_bytes: Optional[int] = None, max_slots: int = 32,
+             mesh_spec: str = "2", mesh_axes: str = "data,model",
+             sync_interval: Optional[int] = None,
+             require_scaling: bool = False,
+             emit_bench: bool = False, *, device=None, full: bool = False,
+             params: Any = None, warmup: bool = True) -> str:
+    """Mesh-sharded serving head-to-head: the same paged stream served on
+    one device (in this process) and on the ``--mesh`` mesh (its ranks
+    spawned; one rank in a group of its own at a mesh of 1), same
+    per-shard layer-0 byte budget (the mesh exposes ``kv_shards`` x the
+    aggregate pool).
+
+    The gated metric is **modeled decode scaling**, the reference's: tokens
+    per decode forward over the per-shard resident-KV bytes that forward
+    sweeps. Head-axis page placement keeps per-shard sweep bytes flat
+    while the scaled budget admits ``kv_shards`` x the slots, so tokens per
+    sweep scale with the mesh. Host wall tok/s is reported, not gated.
+    Sync discipline is asserted: one host sync per drain boundary on both
+    sides (on every rank). Each side's continuous outputs are held to its
+    own engine's one-shot rollouts bit for bit: row-parallel products add
+    f32 partials in another order than one device, so a near-tie may
+    flip across mesh sizes, never within one."""
+    dev = resolve_device(device)
+    sizes, names = mesh_lib.parse_mesh(mesh_spec, mesh_axes)
+    shape = dict(zip(names, sizes))
+    model_shards = shape.get("model", 1)
+    data_shards = shape.get("data", 1)
+    tp.check_serving(get_config(arch) if full else get_reduced(arch), shape)
+    opts = dict(target=target_name, arch=arch, device=str(dev), full=full,
+                n_requests=n_requests, prompt_len=prompt_len,
+                gen_len=gen_len, seed=seed, page_tokens=page_tokens,
+                layer0_bytes=layer0_bytes, layer1_bytes=layer1_bytes,
+                max_slots=max_slots, sync_interval=sync_interval,
+                warmup=warmup, mesh_spec=mesh_spec, mesh_axes=mesh_axes,
+                model_shards=model_shards, data_shards=data_shards)
+    base = _mesh_side(opts, None, params)
+    world = mesh_lib.mesh_ranks(sizes)
+    if world == 1:
+        with mesh_lib.ranks(1, dev):
+            on_mesh = _mesh_side(opts, mesh_lib.make_mesh(sizes, names, dev),
+                                 params)
+    else:
+        tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_bench_")
+        try:
+            out = os.path.join(tmp, "rank0.pt")
+            mesh_lib.spawn(_mesh_rank, world, dev, args=(
+                opts, None if params is None else params_to_numpy(params),
+                out))
+            on_mesh = torch.load(out, weights_only=False)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    target, cfg_name = base.pop("target"), base.pop("arch")
+    l0 = base.pop("layer0_bytes")
+    for key in ("target", "arch", "layer0_bytes"):
+        on_mesh.pop(key)
+
+    for rec in (base, on_mesh):
+        if rec["host_syncs"] != rec["boundaries"]:
+            raise SystemExit(
+                f"serve_bench --mesh: {rec['mode']} made "
+                f"{rec['host_syncs']} host syncs over {rec['boundaries']} "
+                "drain boundaries — sharding must not add sync points")
+
+    def modeled(rec):
+        return rec["tok_per_forward"] / max(rec["per_shard_sweep_bytes"], 1)
+
+    scaling = modeled(on_mesh) / modeled(base) if modeled(base) else 0.0
+    wall_scaling = (on_mesh["tok_per_s"] / base["tok_per_s"]
+                    if base["tok_per_s"] else 0.0)
+    artifact = {
+        "arch": cfg_name, "target": target, "device": str(dev),
+        "n_requests": n_requests, "prompt_len": prompt_len,
+        "gen_len": gen_len, "mesh": mesh_spec, "mesh_axes": mesh_axes,
+        "model_shards": model_shards, "data_shards": data_shards,
+        "layer0_bytes": l0,
+        "scaling_modeled": scaling, "scaling_wall": wall_scaling,
+        "outputs_prefix_of_one_shot": True,
+        "base": base, "mesh_run": on_mesh,
+    }
+    save_artifact("serve_mesh_bench.json", artifact)
+    lines = [
+        f"mesh scaling ({data_shards}x{model_shards} data x model, "
+        f"{on_mesh['kv_shards']}x kv pool, per-shard "
+        f"{on_mesh['per_shard_pool_bytes']} layer-0 bytes): modeled decode "
+        f"x{scaling:.2f} ({on_mesh['tok_per_forward']:.2f} vs "
+        f"{base['tok_per_forward']:.2f} tok/fwd at flat per-shard sweep), "
+        f"wall x{wall_scaling:.2f} (not gated), syncs/boundary "
+        f"{on_mesh['host_syncs']}/{on_mesh['boundaries']} vs "
+        f"{base['host_syncs']}/{base['boundaries']}, outputs one-shot-exact"]
+    if emit_bench:
+        metrics = {"scaling_modeled": scaling,
+                   "scaling_wall": wall_scaling}
+        for key, rec in (("base", base), ("mesh", on_mesh)):
+            metrics.update({f"{key}.{k}": v for k, v in rec.items()})
+        path = _emit_bench_json(
+            {"mode": "mesh", "arch": cfg_name, "target": target,
+             "device": str(dev), "n_requests": n_requests,
+             "mesh": mesh_spec, "mesh_axes": mesh_axes}, metrics)
+        lines.append(f"bench metrics -> {path}")
+    if require_scaling and scaling < 1.7:
+        raise SystemExit(
+            "serve_bench --require-scaling: expected >=1.7x modeled decode "
+            f"scaling at mesh {mesh_spec}; got x{scaling:.2f} — the pool "
+            "budget did not scale (check kv_shards: MLA-latent and SSM "
+            "caches replicate) or slots were capped by --max-slots")
+    rows = [[r["mode"], f"{r['tok_per_forward']:.2f}",
+             f"{r['tok_per_s']:.1f}", r["n_tokens"], r["n_slots"],
+             r["kv_shards"], r["per_shard_pool_bytes"],
+             r["pages_high_water"], r["per_shard_pages_high_water"],
+             f"{r['host_syncs']}/{r['boundaries']}",
+             f"{r['ttft_emit_p50']:.0f}/{r['ttft_emit_p95']:.0f}",
+             f"{r['wall_s']*1e3:.0f} ms"] for r in (base, on_mesh)]
+    table = fmt_table(
+        ["mode", "tok/fwd", "tok/s", "tokens", "slots", "kv shards",
+         "shard bytes", "pages hw", "shard hw", "syncs/bnd",
+         "ttft emit 50/95", "wall"],
+        rows, title=f"Mesh-sharded serve bench — {cfg_name}, "
+                    f"{n_requests} requests, mesh {mesh_spec} "
+                    f"({target}, {dev})")
+    return "\n".join([table] + lines)
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -1311,14 +1549,17 @@ def parser() -> argparse.ArgumentParser:
                          "tokens-per-forward with gated outputs")
     ap.add_argument("--mesh", default="1",
                     help="device mesh sizes, 'DxM' or one int; any size "
-                         "> 1 raises NotImplementedError: the mesh-sharded "
-                         "head-to-head is not ported yet (ROADMAP A13b); 1 "
-                         "is the single-device path")
+                         "> 1 runs the mesh-sharded head-to-head on ranks "
+                         "it spawns (a data axis above 1, or a config "
+                         "other than a dense GQA decoder, raises "
+                         "NotImplementedError: ROADMAP A13c); 1 is the "
+                         "single-device path")
     ap.add_argument("--mesh-axes", default="data,model",
                     help="comma-separated axis names for --mesh")
     ap.add_argument("--require-scaling", action="store_true",
-                    help="the mesh head-to-head's scaling gate (not "
-                         "ported yet: raises, ROADMAP A13b)")
+                    help="fail unless the mesh head-to-head shows >=1.7x "
+                         "modeled decode scaling (tokens per forward over "
+                         "per-shard sweep bytes)")
     ap.add_argument("--disaggregate", action="store_true",
                     help="run the prefill/decode role-split head-to-head "
                          "instead of the mode comparison: mixed long-"
@@ -1364,13 +1605,18 @@ def main(argv=None) -> int:
     except ValueError:
         ap.error(f"--mesh {args.mesh!r}: expected one int or sizes matching "
                  f"--mesh-axes {args.mesh_axes!r}")
-    if mesh_n != 1 or args.require_scaling:
-        raise NotImplementedError(
-            f"serve_bench --mesh {args.mesh}: the mesh-sharded head-to-head "
-            f"(run_mesh) needs sharded serving (tensor-parallel layers, "
-            f"expert-parallel MoE, head-sharded page pools), which is not "
-            f"ported yet (ROADMAP A13b); --mesh 1 is the single-device path")
     common = dict(device=args.device, full=args.full)
+    if mesh_n != 1 or args.require_scaling:
+        print(run_mesh(
+            args.target, args.arch, args.requests, args.prompt_len,
+            args.gen_len, args.seed, page_tokens=args.page_tokens,
+            layer0_bytes=args.layer0_bytes,
+            layer1_bytes=args.layer1_bytes, max_slots=args.max_slots,
+            mesh_spec=args.mesh, mesh_axes=args.mesh_axes,
+            sync_interval=args.sync_interval,
+            require_scaling=args.require_scaling,
+            emit_bench=args.emit_bench, **common))
+        return 0
     if args.disaggregate or args.require_disagg_win:
         print(run_disagg(
             args.target, args.arch, args.requests, args.prompt_len,

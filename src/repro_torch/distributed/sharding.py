@@ -18,9 +18,11 @@ What the reference gets from ``NamedSharding`` is two operations here:
     coordinates and the batch axes given, and divided by their count, so
     the shard receives the mean over the batch slices of the gradient.
 
-A rank computes the whole model on its slice of the batch: tensor-parallel
-compute along ``model`` (ROADMAP A13b) is not ported, so the ``model``
-axis holds replicas of the computation over shards of the weights.
+A training rank computes the whole model on its slice of the batch, so
+there the ``model`` axis holds replicas of the computation over shards of
+the weights (training on the tensor-parallel layers is ROADMAP A13c).
+Serving computes on the shards themselves: ``tensor_parallel`` holds the
+serving mesh's collectives, ``models.layers`` its products.
 
 :func:`use_batch_axes` names the mesh axes the batch is split over while a
 loss is computed; :func:`batch_mean` (the MoE's load-balancing loss)

@@ -40,7 +40,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "paged_attention": {
-        "paged_decode_bf16": (_I, [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I]
+        "paged_decode_bf16": (_I, [_P] * 10 + [_I] * 5 + [_L] * 3 + [_I]
                               + [_F] + [_I] * 2 + [_P]),
         "paged_attention_head_dim": (_I, []),
         "paged_attention_max_group": (_I, []),

@@ -8,6 +8,14 @@
 // cache_len - window when a window is set), never touch pages wholly past
 // the frontier or behind the window, softmax in f32 and write (B, Hq, 1, D).
 //
+// A range call (the pooled decode of sharded serving): an optional per-slot
+// start position hides every position before it as the window hides the
+// positions behind it (the visible range is [max(start, window bound),
+// frontier]; splits wholly before it exit at once), and an optional f32
+// lse (B, Hq) receives each query row's natural log-sum-exp over the range,
+// -inf where the range is empty (o is then 0). A call with neither runs the
+// same arithmetic as before they existed.
+//
 // Bound on an H100: decode reads every visible K/V byte once and does only
 // ~4*group FLOPs per K/V element pair, far below the ~295 FLOP/byte ridge,
 // so the bound is the visible pages' bytes at 3.35 TB/s. At the serving
@@ -45,7 +53,8 @@
 // D; k_pages/v_pages contiguous (n_pages,Hkv,page_tokens,D); block_tables
 // contiguous (B,P) int32 (page 0 = null page); cache_len (B,) int32; o
 // contiguous (B,Hq,1,D). ws: f32 partials of the splits and the nodes,
-// (B, Hkv, n_splits + n_nodes, group, D + 2) from the caller; counters:
+// (B, Hkv, n_splits + n_nodes, group, D + 2) from the caller; start (B,)
+// int32 or null; lse (B, Hq) f32 or null; counters:
 // B * Hkv * (n_nodes + 1) int32, zero before the first launch (each launch
 // leaves them zero), used by one stream at a time.
 
@@ -70,6 +79,7 @@ constexpr int MERGE_CHUNK = 64;     // partials per merge pass (m, l in smem)
 constexpr int NODE = 16;            // splits a first-level merge takes
 constexpr int MAX_GRID_YZ = 65535;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -77,7 +87,9 @@ struct Params {
   const __nv_bfloat16* v_pages;
   const int* block_tables;
   const int* cache_len;
+  const int* start;  // per-slot first visible position, or null
   __nv_bfloat16* o;
+  float* lse;        // (B, Hq) natural log-sum-exp, or null
   float* ws;
   int* counters;
   int hq, hkv, pt, p_max, pps, n_splits;
@@ -145,7 +157,7 @@ __device__ __forceinline__ void merge_run(const float* acc, const float* ml,
                                           int count, int group, float* mw,
                                           float* lw, float* ms, float* ls,
                                           float* dst_acc, float* dst_ml,
-                                          __nv_bfloat16* o) {
+                                          __nv_bfloat16* o, float* lse) {
   constexpr int LOADS = 16 / PIECES;  // partials whose pieces load at once
   const int tid = threadIdx.x, n4 = group * D / 4;
   const bool one_pass = count <= MERGE_CHUNK;  // m, l stay in mw, lw
@@ -229,20 +241,26 @@ __device__ __forceinline__ void merge_run(const float* acc, const float* ml,
     dst_ml[2 * tid] = ms[tid];
     dst_ml[2 * tid + 1] = ls[tid];
   }
+  if (lse != nullptr && tid < group)
+    lse[tid] = (ms[tid] + log2f(ls[tid])) * LN2;
 }
 
-// merge_run with as many pieces a thread as the group needs.
+// merge_run with as many pieces a thread as the group needs; a final merge
+// (o given) also writes each row's log-sum-exp where lse is given.
 __device__ __forceinline__ void merge(const float* acc, const float* ml,
                                       int first, int count, int group,
                                       float* mw, float* lw, float* ms,
                                       float* ls, float* dst_acc,
-                                      float* dst_ml, __nv_bfloat16* o) {
+                                      float* dst_ml, __nv_bfloat16* o,
+                                      float* lse) {
   acc += size_t(first) * group * D;
   ml += size_t(first) * group * 2;
   if (group * D / 4 <= 2 * NT)
-    merge_run<2>(acc, ml, count, group, mw, lw, ms, ls, dst_acc, dst_ml, o);
+    merge_run<2>(acc, ml, count, group, mw, lw, ms, ls, dst_acc, dst_ml, o,
+                 lse);
   else
-    merge_run<4>(acc, ml, count, group, mw, lw, ms, ls, dst_acc, dst_ml, o);
+    merge_run<4>(acc, ml, count, group, mw, lw, ms, ls, dst_acc, dst_ml, o,
+                 lse);
 }
 
 __global__ void __launch_bounds__(NT, 4) paged_decode_kernel(Params p) {
@@ -261,14 +279,19 @@ __global__ void __launch_bounds__(NT, 4) paged_decode_kernel(Params p) {
   const int frontier = p.cache_len[b];
   // the slot's visible positions [lo, hi) and its live splits
   const int hi = min(frontier + 1, p.p_max * pt);
-  const int lo = p.has_window ? max(0, frontier - p.window + 1) : 0;
+  int lo = p.has_window ? max(0, frontier - p.window + 1) : 0;
+  if (p.start != nullptr) lo = max(lo, p.start[b]);
   const int n_live = hi > lo ? (hi - 1) / T - lo / T + 1 : 0;
   const int s_first = lo / T;
   __nv_bfloat16* o = p.o + (size_t(b) * p.hq + size_t(h) * group) * D;
+  float* lse =
+      p.lse != nullptr ? p.lse + size_t(b) * p.hq + size_t(h) * group : nullptr;
 
   if (n_live == 0) {  // nothing visible: zeros, as the serial walk gave
-    if (split == 0)
+    if (split == 0) {
       for (int g = 0; g < group; ++g) o[g * D + tid] = __float2bfloat16(0.f);
+      if (lse != nullptr && tid < group) lse[tid] = -INFINITY;
+    }
     return;
   }
   if (split < s_first || split >= s_first + n_live) return;
@@ -407,6 +430,8 @@ __global__ void __launch_bounds__(NT, 4) paged_decode_kernel(Params p) {
           if (nt < n_tiles && g < group)
             o[g * D + d] = __float2bfloat16(oacc[mt][nt][e] / ls[g]);
         }
+    if (lse != nullptr && tid < group)
+      lse[tid] = (ms[tid] + log2f(ls[tid])) * LN2;
     return;
   }
 
@@ -445,7 +470,7 @@ __global__ void __launch_bounds__(NT, 4) paged_decode_kernel(Params p) {
   if (nd_first == nd_last) {
     if (!arrive(counters + n_nodes, n_live, is_last)) return;
     merge(s_acc, s_ml, s_first, n_live, group, mw, lw, ms, ls, nullptr,
-          nullptr, o);
+          nullptr, o, lse);
     return;
   }
   const int nd = split / NODE;
@@ -454,10 +479,10 @@ __global__ void __launch_bounds__(NT, 4) paged_decode_kernel(Params p) {
   if (!arrive(counters + nd, count, is_last)) return;
   merge(s_acc, s_ml, first, count, group, mw, lw, ms, ls,
         n_acc + size_t(nd) * group * D, n_ml + size_t(nd) * group * 2,
-        nullptr);
+        nullptr, nullptr);
   if (!arrive(counters + n_nodes, nd_last - nd_first + 1, is_last)) return;
   merge(n_acc, n_ml, nd_first, nd_last - nd_first + 1, group, mw, lw, ms, ls,
-        nullptr, nullptr, o);
+        nullptr, nullptr, o, lse);
 }
 
 }  // namespace
@@ -473,12 +498,13 @@ const char* paged_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches on `stream`; returns cudaGetLastError() after the launch, or
+// Launches on `stream` (start and lse may be null); returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue (launching nothing) when the shapes are out of the
 // kernel's limits or ws / counters are smaller than the grid needs.
 int paged_decode_bf16(const void* q, const void* k_pages, const void* v_pages,
-                      const void* block_tables, const void* cache_len, void* o,
-                      void* ws, void* counters, int batch, int hq, int hkv,
+                      const void* block_tables, const void* cache_len,
+                      const void* start, void* o, void* lse, void* ws,
+                      void* counters, int batch, int hq, int hkv,
                       int page_tokens, int p_max, long long q_sb,
                       long long q_sh, long long ws_floats, int n_counters,
                       float scale, int has_window, int window, void* stream) {
@@ -499,7 +525,9 @@ int paged_decode_bf16(const void* q, const void* k_pages, const void* v_pages,
            static_cast<const __nv_bfloat16*>(v_pages),
            static_cast<const int*>(block_tables),
            static_cast<const int*>(cache_len),
+           static_cast<const int*>(start),
            static_cast<__nv_bfloat16*>(o),
+           static_cast<float*>(lse),
            static_cast<float*>(ws),
            static_cast<int*>(counters),
            hq, hkv, page_tokens, p_max, pps, n_splits, q_sb, q_sh,

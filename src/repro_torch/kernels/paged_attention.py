@@ -20,7 +20,14 @@ block table (page 0 is the null page). This module owns the decode math:
     unquantized pages on a CUDA tensor takes the kernel, a multi-token
     (verify) query one launch per query column; ``causal=False``,
     quantized pools and CPU tensors take gather + oracle, the reference's
-    dispatch (which gathers multi-token queries too).
+    dispatch (which gathers multi-token queries too). With ``span`` it
+    attends over one range of positions per slot and returns the range's
+    log-sum-exp beside the output: the pooled decode of sharded serving
+    (:func:`decode_range` cuts the ranges, :func:`merge_ranges` merges
+    them), the reference's flash-decoding across chips.
+  * :func:`decode_attention_lse` — the masked oracle over a position range
+    with its log-sum-exp (the dense slab's range decode and the plain
+    version's range calls).
   * :func:`quantize_page_int8` / :func:`dequantize_page_int8` — the int8
     tier codec: symmetric, one f32 scale (``amax / INT8_QMAX``) per page
     per leaf. The fp8-e4m3 codec is a plain cast; fp8 pages move as their
@@ -78,17 +85,21 @@ def _axes(axes) -> Tuple[int, ...]:
     return tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
 
 
-def quantize_page_int8(x: torch.Tensor, axes) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
+def quantize_page_int8(x: torch.Tensor, axes, scale_max=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 with one scale per un-reduced index.
 
     ``axes`` are the reduced (per-page) axes: the scale is ``amax(|x|,
     axes) / 127`` and the codes ``round(x / scale)`` (half to even, as
     ``jnp.round``) clipped to [-127, 127]. An all-zero page gets scale 0 and
-    zero codes. Returns ``(codes int8, scales f32)``."""
+    zero codes. Returns ``(codes int8, scales f32)``. ``scale_max`` (a
+    rank holding its share of a page's heads) takes each scale to its max
+    over the ranks before the codes are taken."""
     axes = _axes(axes)
     xf = x.float()
     scales = xf.abs().amax(dim=axes) / INT8_QMAX
+    if scale_max is not None:
+        scales = scale_max(scales)
     safe = torch.where(scales > 0, scales, torch.ones_like(scales))
     codes = torch.clamp(torch.round(xf / _expand(safe, axes)),
                         -INT8_QMAX, INT8_QMAX)
@@ -137,6 +148,89 @@ def decode_attention_masked(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, hq, s, v.shape[-1]).to(q.dtype)
 
 
+def decode_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cache_len, *, window: Optional[int] = None,
+                         causal: bool = True,
+                         start: Optional[torch.Tensor] = None,
+                         end: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention_masked` over the positions ``[start, end)``
+    of each row (``(B,)`` tensors, either may be None) as well as its
+    masks, returning ``(out, lse)``: ``lse`` ``(B, Hq, S)`` f32 is each
+    query row's natural log-sum-exp over the positions it sees. A row that
+    sees none gets a zero output and ``lse = -inf``, so
+    :func:`merge_ranges` weighs it as nothing."""
+    b, hq, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, hkv, group, s, d)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qg.float(),
+                          k.float()) * d ** -0.5
+    if torch.is_tensor(cache_len) and cache_len.ndim == 1:
+        cache_len = cache_len.reshape(b, 1, 1, 1, 1)
+    qpos = cache_len + torch.arange(s, device=q.device)[:, None]
+    tpos = torch.arange(skv, device=q.device)[None, :]
+    mask = tpos < cache_len + s
+    if causal:
+        mask = mask & (tpos <= qpos)
+    if window is not None:
+        mask = mask & (tpos > qpos - window)
+    if start is not None:
+        mask = mask & (tpos >= start.reshape(b, 1, 1, 1, 1))
+    if end is not None:
+        mask = mask & (tpos < end.reshape(b, 1, 1, 1, 1))
+    logits = torch.where(mask, logits, -torch.inf)
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m)
+    l_sum = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float()) / torch.where(
+        l_sum > 0, l_sum, torch.ones_like(l_sum))
+    lse = (m + torch.log(l_sum)).reshape(b, hq, s)
+    return out.reshape(b, hq, s, v.shape[-1]).to(q.dtype), lse
+
+
+def decode_range(cache_len, s: int, n: int, r: int, *, batch: int,
+                 window: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Range ``r`` of ``n`` of each slot's live positions for a decode of
+    ``s`` query columns at ``cache_len`` (0-d or ``(B,)``): the positions
+    ``[lo, cache_len + s)``, ``lo`` the first column's window bound (0
+    without a window), cut into ``n`` contiguous ranges of near-equal
+    length, in order. Returns ``(start, end)``, ``(B,)`` int32 each; a
+    range may be empty."""
+    cl = torch.as_tensor(cache_len).to(torch.int64)
+    if cl.ndim == 0:
+        cl = cl.expand(batch)
+    lo = torch.zeros_like(cl) if window is None else torch.clamp(
+        cl - window + 1, min=0)
+    total = cl + s - lo
+    start = lo + torch.div(total * r, n, rounding_mode="floor")
+    end = lo + torch.div(total * (r + 1), n, rounding_mode="floor")
+    return start.to(torch.int32), end.to(torch.int32)
+
+
+def merge_ranges(outs, lses) -> torch.Tensor:
+    """Merge per-range attention outputs by their log-sum-exps, range by
+    range in order: ``outs`` a sequence of ``(B, H, S, D)``, ``lses`` of
+    ``(B, H, S)`` f32. With ``M`` the largest lse, range ``r`` weighs
+    ``exp(lse_r - M)``; empty ranges (``-inf``) weigh 0. f32 sums, cast to
+    the outputs' dtype. Every rank that merges the same gathered pairs
+    gets the same bits."""
+    m = lses[0]
+    for lse in lses[1:]:
+        m = torch.maximum(m, lse)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = den = None
+    for out, lse in zip(outs, lses):
+        w = torch.exp(lse - m)
+        part = out.float() * w[..., None]
+        num = part if num is None else num + part
+        den = w if den is None else den + w
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return (num / den[..., None]).to(outs[0].dtype)
+
+
 # ------------------------------------------------------------------ gather
 
 
@@ -161,12 +255,20 @@ def gather_kv_pages(pages: torch.Tensor, block_tables: torch.Tensor, *,
 
 
 def paged_flash_decode_plain(q, k_pages, v_pages, block_tables, cache_len, *,
-                             window: Optional[int] = None) -> torch.Tensor:
+                             window: Optional[int] = None,
+                             start: Optional[torch.Tensor] = None,
+                             return_lse: bool = False):
     """The plain PyTorch version of :func:`paged_flash_decode`: gather the
-    slot's pages, then the masked oracle."""
+    slot's pages, then the masked oracle (with ``start`` or
+    ``return_lse``, :func:`decode_attention_lse`, and ``(out, lse)``
+    back when ``return_lse``)."""
     k = gather_kv_pages(k_pages, block_tables, seq_axis=1)
     v = gather_kv_pages(v_pages, block_tables, seq_axis=1)
-    return decode_attention_masked(q, k, v, cache_len, window=window)
+    if start is None and not return_lse:
+        return decode_attention_masked(q, k, v, cache_len, window=window)
+    out, lse = decode_attention_lse(q, k, v, cache_len, window=window,
+                                    start=start)
+    return (out, lse[:, :, 0]) if return_lse else out
 
 
 class SplitGeometry(NamedTuple):
@@ -215,11 +317,18 @@ def counter_buffers() -> Dict[Tuple[torch.device, int], torch.Tensor]:
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, block_tables: torch.Tensor,
                        cache_len: torch.Tensor, *,
-                       window: Optional[int] = None) -> torch.Tensor:
+                       window: Optional[int] = None,
+                       start: Optional[torch.Tensor] = None,
+                       return_lse: bool = False):
     """Split page-walk decode attention on the card.
 
     q: (B, Hq, 1, D) bf16; k_pages/v_pages: (n_pages, Hkv, page_tokens, D)
     bf16, contiguous; block_tables: (B, P) int32; cache_len: (B,) int32.
+    ``start`` (B,) int32 hides each slot's positions before it, as the
+    window hides those behind it (the two combine as the larger bound);
+    ``return_lse`` also returns each query row's natural log-sum-exp over
+    its visible positions, ``(B, Hq)`` f32 (-inf, with a zero output,
+    where none is visible): ``(out, lse)``.
     On a CUDA tensor this launches ``csrc/paged_attention.cu`` once or
     raises; a CPU tensor takes :func:`paged_flash_decode_plain`. Block-table
     entries must lie in ``[0, n_pages)``: the scheduler's page allocator
@@ -229,7 +338,8 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     """
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, block_tables,
-                                        cache_len, window=window)
+                                        cache_len, window=window, start=start,
+                                        return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     b, hq, s, d = q.shape
@@ -243,7 +353,10 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                             f"got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, t in (("block_tables", block_tables), ("cache_len", cache_len)):
+    named = [("block_tables", block_tables), ("cache_len", cache_len)]
+    if start is not None:
+        named.append(("start", start))
+    for name, t in named:
         if t.dtype != torch.int32 or not t.is_contiguous() \
                 or t.device != q.device:
             raise TypeError(f"{name} must be a contiguous int32 tensor on "
@@ -260,9 +373,12 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if pt > lib.paged_attention_max_page_tokens():
         raise ValueError(f"page_tokens {pt} > "
                          f"{lib.paged_attention_max_page_tokens()}")
-    if cache_len.shape != (b,) or block_tables.shape[0] != b:
+    if cache_len.shape != (b,) or block_tables.shape[0] != b or (
+            start is not None and start.shape != (b,)):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
-                         f"cache_len {tuple(cache_len.shape)} vs batch {b}")
+                         f"cache_len {tuple(cache_len.shape)} / start "
+                         f"{None if start is None else tuple(start.shape)} "
+                         f"vs batch {b}")
     if q.stride(-1) != 1 or not k_pages.is_contiguous() \
             or not v_pages.is_contiguous():
         raise ValueError("paged_flash_decode needs unit stride on D for q "
@@ -285,18 +401,27 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counters(q.device, stream, geom.counters)
     out = torch.empty((b, hq, 1, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = lib.paged_decode_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), cache_len.data_ptr(),
+        None if start is None else start.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         ws.data_ptr(), counters.data_ptr(), b, hq, hkv, pt, p_max,
         q.stride(0), q.stride(1), ws.numel(), counters.numel(), d ** -0.5,
         int(window is not None), window or 0, stream)
     build.check(_LIB, rc)
     paged_flash_decode.launches += 1
-    return out
+    if start is not None or return_lse:
+        paged_flash_decode.range_launches += 1
+    return (out, lse) if return_lse else out
 
 
 paged_flash_decode.launches = 0
+#: the launches among ``launches`` that walked a range (``start`` or
+#: ``return_lse``: the pooled decode)
+paged_flash_decode.range_launches = 0
 
 
 # ------------------------------------------------------------------ entry
@@ -309,8 +434,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            causal: bool = True,
                            impl: str = "auto",
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           v_scale: Optional[torch.Tensor] = None,
+                           span: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None):
     """Decode attention over the paged pool; the dense math is the oracle.
 
     ``impl="auto"`` walks pages with the Hopper kernel for a causal query
@@ -329,6 +455,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     fp8-e4m3 pages (detected by dtype) upcast to f32. The page-walk kernel
     reads bf16 pages only, so a quantized pool never launches it and
     ``impl="kernel"`` raises there.
+
+    ``span = (start, end)`` (``(B,)`` int32, :func:`decode_range`) limits
+    every query column to the positions ``[start, end)`` besides its own
+    masks and returns ``(out, lse)``, ``lse`` ``(B, Hq, S)`` f32: on the
+    kernel, column ``j`` walks ``[max(start, its window bound),
+    min(end, cache_len + j + 1))`` as a start and a frontier.
     """
     quantized = (k_scale is not None
                  or k_pages.dtype not in (torch.bfloat16, torch.float16,
@@ -339,6 +471,21 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             "dequantize on gather (impl='auto')")
     use_kernel = impl == "kernel" or (impl == "auto" and q.is_cuda
                                       and not quantized)
+    if span is not None and use_kernel and causal:
+        start, end = span
+        outs, lses = [], []
+        for j in range(q.shape[2]):
+            cl_j = cache_len + j
+            lo = start if window is None else torch.maximum(
+                start, cl_j - window + 1)
+            front = torch.minimum(end, cl_j + 1) - 1
+            o, lse = paged_flash_decode(
+                q[:, :, j:j + 1], k_pages, v_pages, block_tables,
+                front.to(torch.int32).contiguous(),
+                start=lo.to(torch.int32).contiguous(), return_lse=True)
+            outs.append(o)
+            lses.append(lse)
+        return torch.cat(outs, dim=2), torch.stack(lses, dim=2)
     if use_kernel and causal:
         if q.shape[2] == 1:
             return paged_flash_decode(q, k_pages, v_pages, block_tables,
@@ -363,5 +510,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         v = v.float() * columns(v_scale)
     elif quantized:
         k, v = k.float(), v.float()
+    if span is not None:
+        return decode_attention_lse(q, k, v, cache_len, window=window,
+                                    causal=causal, start=span[0],
+                                    end=span[1])
     return decode_attention_masked(q, k, v, cache_len, window=window,
                                    causal=causal)

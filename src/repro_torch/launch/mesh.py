@@ -166,7 +166,9 @@ def _rank_main(rank: int, world: int, store: str, device_str: str,
                fn: Callable, args: tuple) -> None:
     device = torch.device(device_str)
     if device.type == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # the ranks share the host's cores: more than one thread a rank
+        # oversubscribes them (8x slower serving at world 2 on 8 cores)
+        torch.set_num_threads(1)
     init_ranks(rank, world, store, device)
     try:
         fn(*args)

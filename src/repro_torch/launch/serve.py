@@ -48,6 +48,18 @@ The counterpart of ``src/repro/launch/serve.py``, on the card by default
     parked sessions and serve to the end; the counters of both phases are
     summed, and the park counters join the report.
 
+``--mesh M`` (or ``1xM``) serves through the mesh path, on ranks the
+launcher starts (``launch.mesh.spawn``: gloo on the CPU, NCCL with one
+rank a GPU on the card; ``--mesh 1`` in a one-rank group of its own): each
+rank builds its shards of the weights, serves the same requests through a
+tensor-parallel engine (``EngineConfig(mesh=...)``) whose pools hold its
+KV heads, and rank 0 prints the report with the line
+``mesh: 1xM (data x model), kv pool sharded Kx; per-shard pool N B``. The
+budgets price the mesh's aggregate pool (``model_shards``). A data axis
+above 1, and at a model axis above 1 the MoE, MLA, mamba, hybrid,
+frontend and encoder configs, raise ``NotImplementedError`` (ROADMAP
+A13c). Without ``--mesh`` the launcher serves on one device.
+
 Weights are random, made on the device from a fixed seed. The hardware
 target (``--target``, else ``REPRO_TARGET`` or the registry default) sizes
 the slot and page budgets from its CapacityPartition, as in the reference,
@@ -62,7 +74,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
+import shutil
 import sys
+import tempfile
 import time
 from typing import Any, Dict, Optional
 
@@ -72,6 +87,9 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.target import (available_targets, get_target,
                                      use_target)
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import mesh_ranks, parse_mesh
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.models.config import ModelConfig
@@ -81,7 +99,8 @@ from repro_torch.serve.scheduler import (DECODING, DRAINED, PREFILLING,
                                          Scheduler, derive_n_slots,
                                          derive_page_geometry,
                                          derive_prefill_chunk,
-                                         derive_speculate_tokens, percentile,
+                                         derive_speculate_tokens, kv_shards,
+                                         percentile,
                                          repetitive_stream,
                                          shared_prefix_stream,
                                          synthetic_stream)
@@ -215,6 +234,14 @@ def _print_stream(cfg, args, rec: dict, dev: torch.device) -> None:
     print(f"arch={cfg.name} stream={args.stream} mode={mode} "
           f"slots={rec['n_slots']} (max reuse {rec['max_slot_reuse']})"
           f" device={dev}")
+    if "mesh" in rec:
+        m = rec["mesh"]
+        line = (f"mesh: {m['data']}x{m['model']} (data x model), kv pool "
+                f"sharded {m['kv_shards']}x")
+        if rec["paged"]:
+            line += (f"; per-shard pool {rec['pool_bytes'] // m['kv_shards']}"
+                     f" B")
+        print(line)
     print(f"completed {rec['completed']}/{rec['n_requests']} "
           f"({rec['n_tokens']} tokens) in {rec['wall_s']*1e3:.0f} ms "
           f"-> {rec['tok_per_s']:.1f} tok/s")
@@ -339,11 +366,15 @@ def parser() -> argparse.ArgumentParser:
                          "page bytes + scheduler residue), then resume "
                          "and serve to completion — bit-identical outputs "
                          "at fp16 (paged mode)")
-    ap.add_argument("--mesh", default="1",
-                    help="device mesh: one int or DxM sizes matching "
-                         "--mesh-axes; 1 (the default) is the single-device "
-                         "path, any size > 1 raises NotImplementedError "
-                         "(sharded serving is not ported yet: ROADMAP A13b)")
+    ap.add_argument("--mesh", default=None,
+                    help="device mesh: one int (model-parallel shorthand: "
+                         "2 = 1x2) or DxM sizes matching --mesh-axes; "
+                         "given (1 included), serve through the mesh path "
+                         "on ranks the launcher starts, one a GPU on the "
+                         "card; a data axis above 1, and MoE / MLA / mamba "
+                         "/ hybrid / frontend / encoder configs at a model "
+                         "axis above 1, raise NotImplementedError (ROADMAP "
+                         "A13c); default: the single-device path")
     ap.add_argument("--mesh-axes", default="data,model",
                     help="comma-separated axis names the --mesh sizes bind "
                          "to (default data,model)")
@@ -375,16 +406,13 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     if args.park_idle is not None and not args.paged:
         ap.error("--park-idle requires --paged (the layer-2 host tier "
                  "serializes pages, which the dense pool does not have)")
-    try:
-        mesh_n = mesh_size(args.mesh, args.mesh_axes)
-    except ValueError:
-        ap.error(f"--mesh {args.mesh!r}: expected one int or sizes matching "
-                 f"--mesh-axes {args.mesh_axes!r}")
-    if mesh_n != 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded serving (tensor-parallel layers, "
-            f"expert-parallel MoE, head-sharded page pools) is not ported "
-            f"yet (ROADMAP A13b); --mesh 1 is the single-device path")
+    sizes = names = None
+    if args.mesh is not None:
+        try:
+            sizes, names = parse_mesh(args.mesh, args.mesh_axes)
+        except ValueError:
+            ap.error(f"--mesh {args.mesh!r}: expected one int or sizes "
+                     f"matching --mesh-axes {args.mesh_axes!r}")
     system_len = args.system_len or max(1, args.prompt_len // 2)
     if args.prefix_share and system_len >= args.prompt_len:
         ap.error("--system-len must leave room for a unique tail "
@@ -395,12 +423,50 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
         ap.error(f"--stream serves decoder-only token-prompt models; "
                  f"{cfg.name} ({cfg.family}) goes through one-shot mode")
     dev = resolve_device(args.device)
+    if sizes is None:
+        return _serve(args, cfg, dev)
+    tp.check_serving(cfg, dict(zip(names, sizes)))
+    world = mesh_ranks(sizes)
+    if world == 1:
+        with mesh_lib.ranks(1, dev):
+            return _serve(args, cfg, dev, mesh_lib.make_mesh(
+                sizes, names, dev, what=f"--mesh {args.mesh}"))
+    tmp = tempfile.mkdtemp(prefix="repro_torch_serve_")
+    try:
+        out = os.path.join(tmp, "rank0.pt")
+        argv = list(sys.argv[1:] if argv is None else argv)
+        mesh_lib.spawn(_mesh_rank, world, dev, args=(argv, cfg, out))
+        return torch.load(out, weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mesh_rank(argv, cfg: ModelConfig, out: str) -> None:
+    """One spawned rank of ``--mesh``: serve on its shards; rank 0 prints
+    the report and saves its record to ``out``."""
+    args = parser().parse_args(argv)
+    sizes, names = parse_mesh(args.mesh, args.mesh_axes)
+    mesh = mesh_lib.make_mesh(sizes, names, resolve_device(args.device),
+                              what=f"--mesh {args.mesh}")
+    if all(mesh.coordinate(n) == 0 for n in mesh.axis_names):
+        torch.save(_serve(args, cfg, mesh.device, mesh), out)
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        _serve(args, cfg, mesh.device, mesh)
+
+
+def _serve(args, cfg: ModelConfig, dev: torch.device,
+           mesh=None) -> Dict[str, Any]:
+    """Serve what ``args`` ask on ``dev``, on one device or, with
+    ``mesh``, as this rank of it; print the report, return its record."""
+    model_shards = shd.axis_size(mesh, shd.MODEL_AXIS) if mesh else 1
+    data_shards = shd.axis_size(mesh, shd.DATA_AXIS) if mesh else 1
     target = args.target or serving_target(dev)
     tgt_ctx = use_target(target) if target else contextlib.nullcontext()
     with tgt_ctx:
         model = build_model(cfg, device=dev)
         params = model.init_serving(
-            torch.Generator(device=dev).manual_seed(0))
+            torch.Generator(device=dev).manual_seed(0), mesh=mesh)
         max_len = args.prompt_len + args.gen_len + cfg.frontend_len
         spec_k = args.speculate_tokens
         if spec_k == 0:
@@ -411,7 +477,8 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
                         EngineConfig(max_len=max_len,
                                      sync_interval=args.sync_interval,
                                      speculate_tokens=spec_k or 0,
-                                     disaggregate=args.disaggregate))
+                                     disaggregate=args.disaggregate,
+                                     mesh=mesh))
         del params
         if args.stream:
             pages = None
@@ -421,9 +488,11 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
                     max_slots=max(2, args.batch),
                     layer0_bytes=args.layer0_bytes,
                     layer1_bytes=args.layer1_bytes,
+                    model_shards=model_shards,
                     kv_quant=args.kv_quant)
             n_slots = args.slots or derive_n_slots(
-                cfg, max_len, max_slots=max(2, args.batch), pages=pages)
+                cfg, max_len, max_slots=max(2, args.batch), pages=pages,
+                model_shards=model_shards, data_shards=data_shards)
             chunk = args.chunk_prefill_tokens
             if chunk == 0:
                 chunk = derive_prefill_chunk(cfg)
@@ -434,6 +503,7 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
                               chunk_prefill_tokens=chunk,
                               disaggregate=args.disaggregate)
             if args.prefix_share:
+                system_len = args.system_len or max(1, args.prompt_len // 2)
                 stream = shared_prefix_stream(
                     args.stream, system_len, args.prompt_len - system_len,
                     args.gen_len, cfg.vocab_size)
@@ -447,6 +517,9 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
                                           args.gen_len, cfg.vocab_size)
             rec = run_stream(engine, sched, stream,
                              park_idle=args.park_idle or 0)
+            if mesh is not None:
+                rec["mesh"] = {"data": data_shards, "model": model_shards,
+                               "kv_shards": kv_shards(cfg, model_shards)}
             _print_stream(cfg, args, rec, dev)
             return rec
 

@@ -11,6 +11,13 @@ speculative verify refuse them.
 A :class:`Model` lives on one device: CUDA unless the caller passes
 ``device="cpu"``. With no card and no explicit CPU it raises — the port
 never drops to the CPU silently.
+
+Under a serving mesh (``distributed.tensor_parallel.use_mesh``, which the
+engine enters) the params are a rank's shards (:meth:`Model.init_serving`
+with ``mesh=``, or ``bridge.sharded_from_numpy``), and the logits that
+``prefill`` / ``decode_step`` / ``verify_step`` return are gathered whole
+unless the caller asks for the rank's columns (``full_logits=False``, the
+engine's greedy pick).
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import torch
 
 from repro_torch.core.planner import KernelPlans, Mem3DPlanner
 from repro_torch.core.target import HardwareTarget
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.paged_attention import (as_bits,
                                                  dequantize_page_int8,
                                                  quantize_page_int8)
@@ -114,13 +123,29 @@ class Model:
         device (``gen`` must live there)."""
         return self._draw(gen, layers.keep)
 
-    def init_serving(self, gen: torch.Generator) -> Any:
+    def init_serving(self, gen: torch.Generator, mesh=None) -> Any:
         """The serving copy ``prepare(init(gen))``, bit for bit, built
         leaf by leaf: each leaf is drawn (the same draws in the same order
         as :meth:`init`), scaled in place and cast by :meth:`prepare`'s
         rule before the next is drawn, so the f32 tree never exists. The
-        peak is the serving copy plus its largest f32 leaf."""
-        return self._draw(gen, self._leaf())
+        peak is the serving copy plus its largest f32 leaf.
+
+        Under ``mesh`` each leaf is then cut to this rank's shard
+        (``sharding.spec_for_param``, ``local_shard``) and the rest freed
+        before the next draw: every rank draws the same full leaves from
+        the same generator, so rank r holds ``local_shard(prepare(init(
+        gen)))`` bit for bit, at a peak of its shards plus one whole
+        leaf."""
+        leaf = self._leaf()
+        if mesh is None:
+            return self._draw(gen, leaf)
+
+        def shard(name: str, x: torch.Tensor) -> torch.Tensor:
+            x = leaf(name, x)
+            return shd.local_shard(
+                x, shd.spec_for_param(name.lower(), tuple(x.shape), mesh),
+                mesh)
+        return self._draw(gen, shard)
 
     def _draw(self, gen: torch.Generator, leaf: layers.Leaf) -> Any:
         if gen.device.type != self.device.type:
@@ -176,7 +201,8 @@ class Model:
                 *, plans: Optional[KernelPlans] = None,
                 last_pos: Optional[torch.Tensor] = None,
                 prefix_len: int = 0,
-                prefix_state: Optional[Dict[str, Any]] = None):
+                prefix_state: Optional[Dict[str, Any]] = None,
+                full_logits: bool = True):
         """Run the prompt, building ``max_len``-deep KV caches.
 
         Returns ``(logits f32 (B, 1, padded_vocab), state)``. Logits come
@@ -194,7 +220,8 @@ class Model:
         d), which take the first Sf cache positions; an enc-dec model's
         holds ``src_embeds`` (B, Ss, d): the encoder runs once, its output
         rides in the state as ``enc_out``, and ``tokens`` is the decoder's
-        prompt.
+        prompt. ``full_logits`` (under a serving mesh): see the module
+        docstring.
         """
         cfg = self.cfg
         if (prefix_len or prefix_state is not None) and (
@@ -232,13 +259,14 @@ class Model:
             cfg, params, tokens, max_len,
             frontend_embeds=batch.get("frontend_embeds"), plans=plans,
             caches=(prefix_state or {}).get("caches"), prefix_len=prefix_len)
-        return (layers.unembed_logits(params["tok"], last(x)),
-                {"caches": caches})
+        return (self._logits(layers.unembed_logits(params["tok"], last(x)),
+                             full_logits), {"caches": caches})
 
     def decode_step(self, params, tokens: torch.Tensor,
                     state: Dict[str, Any], cache_len: torch.Tensor, *,
                     plans: Optional[KernelPlans] = None,
-                    block_tables: Optional[torch.Tensor] = None):
+                    block_tables: Optional[torch.Tensor] = None,
+                    full_logits: bool = True):
         """One decode step for every row; ``cache_len`` is 0-d (one-shot)
         or ``(B,)`` (slots). With ``block_tables`` the state holds the
         paged pool. All masking stays on the device. An enc-dec model's
@@ -254,12 +282,13 @@ class Model:
         logits, caches = transformer.decode_step(
             self.cfg, params, tokens, state["caches"], cache_len,
             plans=plans, block_tables=block_tables)
-        return logits, {**state, "caches": caches}
+        return self._logits(logits, full_logits), {**state, "caches": caches}
 
     def verify_step(self, params, tokens: torch.Tensor,
                     state: Dict[str, Any], cache_len: torch.Tensor, *,
                     plans: Optional[KernelPlans] = None,
-                    block_tables: Optional[torch.Tensor] = None):
+                    block_tables: Optional[torch.Tensor] = None,
+                    full_logits: bool = True):
         """Score k draft tokens per slot in ONE batched forward, the verify
         half of speculative decoding. ``tokens`` is ``(B, k+1)``: each
         slot's last emitted token, then its drafts; ``cache_len`` is the
@@ -282,7 +311,13 @@ class Model:
         logits, caches = transformer.verify_step(
             cfg, params, tokens, state["caches"], cache_len, plans=plans,
             block_tables=block_tables)
-        return logits, {**state, "caches": caches}
+        return self._logits(logits, full_logits), {**state, "caches": caches}
+
+    def _logits(self, logits: torch.Tensor, full: bool) -> torch.Tensor:
+        """The whole row (gathered over a serving mesh's ``model`` axis),
+        or with ``full`` False the rank's columns as computed."""
+        return tp.gather_logits(logits, self.cfg.padded_vocab) if full \
+            else logits
 
     def slot_update(self, pool_state: Dict[str, Any],
                     row_state: Dict[str, Any], slot: int) -> Dict[str, Any]:
@@ -404,7 +439,8 @@ class Model:
                 scale = pool_leaf.get(name + "_scale")
                 if scale is not None:
                     codes, scales = quantize_page_int8(
-                        cut, tuple(range(2, cut.ndim)))
+                        cut, tuple(range(2, cut.ndim)),
+                        scale_max=tp.kv_scale_reduce(self.cfg.n_kv_heads))
                     pool[:, rows] = codes
                     scale[:, rows] = scales
                 else:

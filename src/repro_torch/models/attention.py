@@ -24,6 +24,18 @@ MLA caches only the compressed latent (``ckv``) and the one shared RoPE
 key head (``krope``): ``(B, max_len, width)`` on the slab, ``(n_pages,
 page_tokens, width)`` in the pool. GQA also takes M-RoPE position streams
 (``qwen2-vl``) and precomputed cross-attention K/V (the enc-dec decoder).
+
+Under a serving mesh (``distributed.tensor_parallel``) GQA is
+tensor-parallel over ``model``, as the reference places it: where the KV
+heads divide the axis a rank projects, caches and attends over its own
+query and KV heads (column shards of ``wq`` / ``wk`` / ``wv``) and ``wo`` is
+a row-parallel product; where they do not, the rank's q / k / v columns
+are gathered whole, the caches are whole on every rank, prefill runs
+replicated, and decode is pooled: each rank attends over its range of
+every slot's positions (``paged_attention.decode_range``) and the ranks'
+(output, log-sum-exp) pairs merge in rank order
+(``paged_attention.merge_ranges``), the reference's flash-decoding across
+chips.
 """
 
 from __future__ import annotations
@@ -34,10 +46,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (FP8, INT8_QMAX, as_bits,
+                                                 decode_attention_lse,
                                                  decode_attention_masked,
+                                                 decode_range,
                                                  gather_kv_pages,
+                                                 merge_ranges,
                                                  paged_decode_attention)
 from repro_torch.models import layers
 from repro_torch.models.config import LayerKind, ModelConfig
@@ -126,7 +142,8 @@ def _resolve(cache_len: torch.Tensor, j: int, block_tables: torch.Tensor,
 
 def _paged_cache_write_q(pages: torch.Tensor, scales: torch.Tensor,
                          new: torch.Tensor, cache_len: torch.Tensor,
-                         block_tables: torch.Tensor, axis: int
+                         block_tables: torch.Tensor, axis: int,
+                         scale_max=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Int8 block-table token append with a monotone per-page scale, in
     place.
@@ -141,6 +158,9 @@ def _paged_cache_write_q(pages: torch.Tensor, scales: torch.Tensor,
     tenant's amax must not coarsen this sequence. Junk rows resolve to
     null page 0 and write ``scales[0]`` too; with several such rows the
     scatter's winner there is unspecified, and nothing reads page 0.
+    ``scale_max`` (a rank holding its share of the heads:
+    ``tensor_parallel.kv_scale_reduce``) takes the token's absmax over
+    every rank's heads before it meets the page's scale.
     """
     pt = pages.shape[1 + axis]
     s = new.shape[1 + axis]
@@ -152,6 +172,8 @@ def _paged_cache_write_q(pages: torch.Tensor, scales: torch.Tensor,
         phys, off = _resolve(cache_len, j, block_tables, pt)
         tok = newf[:, j] if axis == 0 else newf[:, :, j]
         fresh = tok.abs().amax(dim=tuple(range(1, tok.ndim))) / INT8_QMAX
+        if scale_max is not None:
+            fresh = scale_max(fresh)
         old = scales[phys]
         scl = torch.where(off == 0, fresh, torch.maximum(old, fresh))
         safe = torch.where(scl > 0, scl, torch.ones_like(scl))
@@ -192,7 +214,9 @@ def init_gqa(cfg: ModelConfig, gen: torch.Generator, n: int = 1,
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                    dtype=torch.bfloat16) -> Dict:
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    """The dense slab, over the KV heads a rank holds under a serving mesh
+    (``tensor_parallel.kv_heads_local``)."""
+    shape = (batch, tp.kv_heads_local(cfg.n_kv_heads), max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -221,8 +245,10 @@ def init_gqa_pages(cfg: ModelConfig, n_pages: int, page_tokens: int, device,
                    dtype=torch.bfloat16, quant_scales: bool = False) -> Dict:
     """Flat page pool replacing the per-slot slab (page 0 = null page), at
     the tier codec's ``dtype``: ``k`` / ``v`` of ``(n_pages, Hkv,
-    page_tokens, D)``, plus ``k_scale`` / ``v_scale`` for int8."""
-    shape = (n_pages, cfg.n_kv_heads, page_tokens, cfg.head_dim)
+    page_tokens, D)``, plus ``k_scale`` / ``v_scale`` for int8; Hkv the
+    KV heads a rank holds under a serving mesh."""
+    shape = (n_pages, tp.kv_heads_local(cfg.n_kv_heads), page_tokens,
+             cfg.head_dim)
     return _page_leaves({"k": shape, "v": shape}, device, dtype,
                         quant_scales)
 
@@ -254,17 +280,26 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     ``positions3`` (3, B, S) and ``cfg.mrope``, Q and K take M-RoPE.
     """
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    # under a serving mesh: the rank's heads, or (pooled) every head
+    pooled = tp.pooled(cfg.n_kv_heads)
 
-    q = linear(x, p["wq"], p.get("bq")).reshape(b, s, hq, hd).transpose(1, 2)
+    def project(w, bias, heads):
+        out = layers.linear_column(x, p[w], p.get(bias), full=heads * hd,
+                                   gather=pooled)
+        return out.reshape(b, s, -1, hd).transpose(1, 2)
+
+    q = project("wq", "bq", cfg.n_heads)
+    hq = q.shape[1]
     if cross_kv is not None:
         k, v = cross_kv
         out = ops.attention(q, k, v, causal=False, window=kind.window,
                             plan=plan)
         out = out.transpose(1, 2).reshape(b, s, hq * hd)
         return linear(out, p["wo"]), None
-    k = linear(x, p["wk"], p.get("bk")).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = linear(x, p["wv"], p.get("bv")).reshape(b, s, hkv, hd).transpose(1, 2)
+    k = project("wk", "bk", cfg.n_kv_heads)
+    v = project("wv", "bv", cfg.n_kv_heads)
+    wo_rows = cfg.n_heads * hd
     if positions3 is not None and cfg.mrope:
         q = layers.apply_mrope(q, positions3, cfg.rope_theta,
                                cfg.mrope_sections)
@@ -284,14 +319,19 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                 _paged_cache_write(cache[name], new, cache_len, block_tables,
                                    axis=1)
             else:
-                _paged_cache_write_q(cache[name], scale, new, cache_len,
-                                     block_tables, axis=1)
-        out = paged_decode_attention(q, cache["k"], cache["v"], block_tables,
-                                     cache_len, window=kind.window,
-                                     causal=causal, k_scale=scales[0],
-                                     v_scale=scales[1])
+                _paged_cache_write_q(
+                    cache[name], scale, new, cache_len, block_tables, axis=1,
+                    scale_max=tp.kv_scale_reduce(cfg.n_kv_heads))
+        kw = dict(window=kind.window, causal=causal, k_scale=scales[0],
+                  v_scale=scales[1], block_tables=block_tables)
+        if pooled:
+            out = _pooled_decode(q, cache["k"], cache["v"], cache_len, **kw)
+        else:
+            out = paged_decode_attention(q, cache["k"], cache["v"],
+                                         kw.pop("block_tables"), cache_len,
+                                         **kw)
         out = out.transpose(1, 2).reshape(b, s, hq * hd)
-        return linear(out, p["wo"]), cache
+        return layers.linear_row(out, p["wo"], full=wo_rows), cache
 
     q_offset = 0
     if cache is not None:
@@ -299,7 +339,10 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
         v = _cache_write(cache["v"], v, cache_len, axis=2)
         q_offset = cache_len
 
-    if torch.is_tensor(q_offset):
+    if torch.is_tensor(q_offset) and pooled:
+        out = _pooled_decode(q, k, v, q_offset, window=kind.window,
+                             causal=causal)
+    elif torch.is_tensor(q_offset):
         # decode with a device-side offset: direct masked attention over
         # the cache
         out = decode_attention_masked(q, k, v, q_offset, window=kind.window,
@@ -308,7 +351,29 @@ def gqa_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
         out = ops.attention(q, k, v, causal=causal, window=kind.window,
                             q_offset=q_offset, plan=plan)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return linear(out, p["wo"]), cache
+    return layers.linear_row(out, p["wo"], full=wo_rows), cache
+
+
+def _pooled_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cache_len, *, window: Optional[int], causal: bool,
+                   block_tables: Optional[torch.Tensor] = None,
+                   k_scale=None, v_scale=None) -> torch.Tensor:
+    """The pooled decode of a rank whose caches hold every KV head: attend
+    over this rank's range of each slot's positions (the slab through the
+    masked oracle, the pool through the page walk), gather every rank's
+    (output, log-sum-exp) and merge them in rank order, so every rank
+    holds the same bits."""
+    start, end = decode_range(cache_len, q.shape[2], tp.model_size(),
+                              tp.model_rank(), batch=q.shape[0],
+                              window=window)
+    if block_tables is not None:
+        out, lse = paged_decode_attention(
+            q, k, v, block_tables, cache_len, window=window, causal=causal,
+            k_scale=k_scale, v_scale=v_scale, span=(start, end))
+    else:
+        out, lse = decode_attention_lse(q, k, v, cache_len, window=window,
+                                        causal=causal, start=start, end=end)
+    return merge_ranges(*tp.gather_pairs(out, lse))
 
 
 # ---------------------------------------------------------------------- MLA

@@ -5,6 +5,12 @@ The counterpart of ``src/repro/models/layers.py``, with the same numerics:
 weights are stored f32 and used as bf16, products accumulate in f32, a
 bias is added in f32 before the cast back, and logits stay f32 (a bf16
 rounding of 150k logits would tie and move the argmax).
+
+Under a serving mesh (``distributed.tensor_parallel.use_mesh``) a rank
+holds its shards of the weights: :func:`linear_column`, :func:`linear_row`,
+:func:`mlp` and :func:`embed` compute on them and talk to the other ranks
+of the ``model`` axis where a dim is cut; the logits are the rank's
+columns. Without a mesh they are the single-device computation.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import tensor_parallel as tp
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -109,6 +117,36 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     return out.to(x.dtype)
 
 
+def linear_column(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None, *, full: int,
+                  gather: bool = False) -> torch.Tensor:
+    """:func:`linear` over the columns of ``w`` (``full`` in all) a rank
+    holds; with ``gather`` every rank's columns, whole."""
+    out = linear(x, w, b)
+    if gather and tp.model_size() > 1 and tp.split(w.shape[-1], full):
+        out = tp.all_gather(out, -1)
+    return out
+
+
+def linear_row(x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None, *,
+               full: int) -> torch.Tensor:
+    """:func:`linear` where ``w`` holds a rank's rows (``full`` in all):
+    the f32 product of the rank's slice of ``x`` (``x`` itself where it
+    already is that slice), summed over ``model``, then the bias and the
+    cast. A ``w`` held whole is :func:`linear`."""
+    n = w.shape[-2]
+    if not tp.split(n, full):
+        return linear(x, w, b)
+    if x.shape[-1] != n:
+        r = tp.model_rank()
+        x = x[..., r * n:(r + 1) * n]
+    out = tp.all_sum(dot_f32(x, w))
+    if b is not None:
+        out = out + b
+    return out.to(x.dtype)
+
+
 # ----------------------------------------------------------------- SwiGLU
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
@@ -123,9 +161,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Dict, x: torch.Tensor, d_ff: Optional[int] = None
+        ) -> torch.Tensor:
+    """SwiGLU; given its width ``d_ff``, tensor-parallel under a serving
+    mesh (``w_gate`` / ``w_up`` column shards, ``w_down`` a row shard)."""
     h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
-    return linear(h, p["w_down"])
+    if d_ff is None:
+        return linear(h, p["w_down"])
+    return linear_row(h, p["w_down"], full=d_ff)
 
 
 # ------------------------------------------------------------- embeddings
@@ -138,12 +181,25 @@ def init_embed(gen: torch.Generator, vocab: int, d_model: int, *,
     return p
 
 
-def embed(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return cast(p["embed"])[tokens.long()]
+def embed(p: Dict, tokens: torch.Tensor,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """The lookup; given the table's ``vocab`` rows, under a serving mesh
+    from a rank's rows of it: the rows it holds, zeros for the others,
+    summed over ``model`` (exact: one rank adds a non-zero row)."""
+    table = cast(p["embed"])
+    n = table.shape[0]
+    if vocab is None or not tp.split(n, vocab):
+        return table[tokens.long()]
+    idx = tokens.long() - tp.model_rank() * n
+    inside = (idx >= 0) & (idx < n)
+    rows = table[idx.clamp(0, n - 1)].float()
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return tp.all_sum(rows).to(table.dtype)
 
 
 def unembed_logits(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits ``(..., padded_vocab)``."""
+    """f32 logits ``(..., padded_vocab)``; under a serving mesh the
+    columns of the rank's vocabulary rows."""
     table = p.get("unembed", p["embed"])
     return dot_f32(x, cast(table).t())
 

@@ -120,7 +120,8 @@ def _apply_layer(cfg: ModelConfig, kind: LayerKind, p: Params,
     x = x + y
     if kind.mlp == "mlp":
         x = x + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x,
-                                                     cfg.norm_eps))
+                                                     cfg.norm_eps),
+                           d_ff=cfg.d_ff)
     elif kind.mlp == "moe":
         y, aux = moe_mod.moe_block(
             p["moe"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg=cfg)
@@ -183,7 +184,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     updated in place. An M-RoPE model's three position streams are the
     positions broadcast three times, as in the reference. ``remat``: see
     :func:`_run_groups`."""
-    x = layers.embed(params["tok"], tokens)
+    x = layers.embed(params["tok"], tokens, vocab=cfg.padded_vocab)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -352,7 +353,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 block_tables: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B, 1); cache_len: 0-d or per-slot (B,).
     With ``block_tables`` (B, P) the caches are the paged pool. Returns
-    (logits f32 (B, 1, Vpad), caches)."""
+    (logits f32 (B, 1, Vpad), caches); under a serving mesh the logits are
+    the rank's vocabulary columns."""
     x, _, caches = forward(cfg, params, tokens, caches=caches,
                            cache_len=cache_len, plans=plans,
                            block_tables=block_tables)

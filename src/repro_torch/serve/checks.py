@@ -8,8 +8,9 @@ between two streams that are both right. Such streams are held by the
 teacher-forced rule instead of token equality: each greedy token must be
 within ``LOGIT_TOL`` of the best logit of ONE full-sequence forward of the
 same model (no caches) over the prompt and the tokens before it.
-``chip_smoke.py`` and ``repro_torch.benchmarks.serve_bench`` share this
-copy.
+``chip_smoke.py``, ``repro_torch.benchmarks.serve_bench`` and
+``repro_torch.benchmarks.mesh_probe`` share this copy (under a serving
+mesh the forward runs on the rank's shards, its logits gathered whole).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import encdec, layers, transformer
 from repro_torch.models.config import ModelConfig
 
@@ -45,7 +47,9 @@ def teacher_forced_gap(cfg: ModelConfig, params: Any,
         x, _, _ = transformer.forward(cfg, params, seq,
                                       frontend_embeds=frontend_embeds)
         start += x.shape[1] - seq.shape[1]      # past the frontend
-    logits = layers.unembed_logits(params["tok"], x[0, start:])[:, :vocab]
+    logits = tp.gather_logits(layers.unembed_logits(params["tok"],
+                                                    x[0, start:]),
+                              cfg.padded_vocab)[:, :vocab]
     picked = logits.gather(1, torch.as_tensor(
         [int(t) for t in tokens], device=device)[:, None].long())[:, 0]
     return (logits.max(dim=1).values - picked).max().item()

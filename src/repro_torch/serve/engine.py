@@ -49,6 +49,19 @@ frees its slot and pages; :meth:`Engine.resume_parked` queues it again, and
 the boundary that re-admits it scatters the blob back into its private
 pages: a resume, never a re-prefill.
 
+With ``EngineConfig(mesh=...)`` (a ``sharding.Mesh`` of this rank, from
+``launch.mesh``) the engine serves one rank's part of a sharded model:
+the params are the rank's shards, every model call runs under
+``distributed.tensor_parallel.use_mesh`` (tensor-parallel attention, MLP
+and vocabulary; head-sharded pools where the KV heads divide the ``model``
+axis, whole pools and the pooled decode where they do not), and the
+greedy pick merges the ranks' vocabulary columns. Every rank runs the
+same host scheduler on the same requests, so every rank plans, copies,
+uploads and drains the same boundaries: each rank's pools hold its own
+heads of the same page ids, and ``_fetch`` stays the one device->host read
+a boundary on each rank. What sharded serving does not run yet raises at
+construction (``tensor_parallel.check_serving``, ROADMAP A13c).
+
 The drain-boundary discipline is the reference's: :meth:`EngineCore._fetch`
 is the only device->host read, counted in ``last_stats["host_syncs"]`` (and
 by role when disaggregated: the decode role reads once a boundary, the
@@ -69,6 +82,8 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.api import Model, has_recurrent_state
 from repro_torch.kernels.paged_attention import as_bits
 from repro_torch.models import transformer
@@ -100,6 +115,10 @@ class EngineConfig:
     shared paged pool (see the module docstring); it requires the paged
     pool.
 
+    ``mesh`` serves this rank's part of a sharded model (see the module
+    docstring); the params handed to the engine are then the rank's
+    shards. ``None`` is the single-device path.
+
     ``phase_timing`` charges each phase's wall time (prefill / insert /
     generate / drain / handover), blocked on the device, to
     ``last_stats["phase_s"]`` and, by role, ``["role_s"]``: benchmark
@@ -113,6 +132,7 @@ class EngineConfig:
     speculate_tokens: int = 0
     phase_timing: bool = False
     disaggregate: bool = False
+    mesh: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -142,6 +162,22 @@ def device_only(device: torch.device):
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def _check_shards(cfg, params: Any, mesh) -> None:
+    """Raise unless ``params`` look like this rank's shards on ``mesh``:
+    the embedding table holds the rows ``spec_for_param`` gives a rank."""
+    table = params["tok"]["embed"]
+    want = shd.local_shard(torch.empty((cfg.padded_vocab, 0)),
+                           shd.spec_for_param("tok/embed",
+                                              (cfg.padded_vocab, 0), mesh),
+                           mesh).shape[0]
+    if table.shape[0] != want:
+        raise ValueError(
+            f"EngineConfig(mesh=...) serves this rank's shards of the "
+            f"params (Model.init_serving(gen, mesh=mesh), "
+            f"bridge.sharded_from_numpy); the embedding holds "
+            f"{table.shape[0]} rows, a rank's shard {want}")
+
+
 def _to_host(tree):
     if torch.is_tensor(tree):
         return tree.cpu().numpy()
@@ -155,10 +191,32 @@ class EngineCore:
     def __init__(self, model: Model, params: Any, ecfg: EngineConfig):
         self.model = model
         self.device = model.device
+        self.mesh = ecfg.mesh
+        if self.mesh is not None:
+            tp.check_serving(model.cfg, self.mesh.shape)
+            _check_shards(model.cfg, params, self.mesh)
         self.params = model.prepare(params)
         self.ecfg = ecfg
         self.plans = model.kernel_plans(ecfg.max_len, ecfg.max_len)
         self.last_stats: Dict[str, Any] = {}
+        if self.mesh is not None:
+            # the model group's first collective sets its communicator up
+            # here, never inside a decode chunk
+            with self.scope():
+                tp.all_sum(torch.zeros(1, device=self.device))
+
+    def scope(self):
+        """The context every model call of this engine runs in: the
+        serving mesh's (:func:`repro_torch.distributed.tensor_parallel.
+        use_mesh`), or nothing on the single-device path."""
+        return tp.use_mesh(self.mesh)
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token over the last dim of logits the model returned
+        with ``full_logits=False`` (int64; under a mesh every rank gets
+        the same ids)."""
+        cfg = self.model.cfg
+        return tp.greedy(logits, cfg.vocab_size, cfg.padded_vocab)
 
     def _fetch(self, tree, role: Optional[str] = None):
         """The ONLY device->host read path, issued at drain boundaries and
@@ -223,15 +281,16 @@ class PrefillRole:
         core = self.core
         return core.model.prefill(
             core.params, {"tokens": core.tensor(tokens[None])}, depth,
-            plans=core.plans, prefix_len=prefix_len, prefix_state=prefix)
+            plans=core.plans, prefix_len=prefix_len, prefix_state=prefix,
+            full_logits=False)
 
     def _arm(self, pool: PoolState, slot: int, logits: torch.Tensor,
              kv_len: int, budget: int) -> Tuple[PoolState, torch.Tensor]:
         """Arm ``slot`` with the first token read from ``logits`` and a
         ``kv_len``-deep KV prefix; the token stays on the device until the
         next drain."""
-        cfg, ecfg = self.core.model.cfg, self.core.ecfg
-        first = torch.argmax(logits[0, -1, :cfg.vocab_size]).to(torch.int32)
+        ecfg = self.core.ecfg
+        first = self.core.greedy(logits[0, -1]).to(torch.int32)
         pool.tok[slot] = first
         pool.cache_len[slot] = kv_len
         pool.done[slot] = ((first == ecfg.eos_token) | (budget <= 1)
@@ -395,15 +454,16 @@ class DecodeRole:
         """``n`` one-shot decode steps with on-device EOS masking — the
         :meth:`Engine.generate` substrate."""
         core = self.core
-        cfg, ecfg, plans = core.model.cfg, core.ecfg, core.plans
+        ecfg, plans = core.ecfg, core.plans
 
         def run(params, tok, state, cache_len, done):
             toks = []
             with device_only(core.device):
                 for _ in range(n):
                     logits, state = core.model.decode_step(
-                        params, tok[:, None], state, cache_len, plans=plans)
-                    nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+                        params, tok[:, None], state, cache_len, plans=plans,
+                        full_logits=False)
+                    nxt = core.greedy(logits[:, -1])
                     tok = torch.where(done, ecfg.eos_token,
                                       nxt.to(torch.int32))
                     done = done | (tok == ecfg.eos_token)
@@ -419,7 +479,7 @@ class DecodeRole:
         was_active) pairs, each ``(n, S)``; the host sees them only after
         the chunk."""
         core = self.core
-        cfg, ecfg, plans = core.model.cfg, core.ecfg, core.plans
+        ecfg, plans = core.ecfg, core.plans
 
         def run(params, pool: PoolState):
             toks, valid = [], []
@@ -427,8 +487,9 @@ class DecodeRole:
                 for _ in range(n):
                     logits, state = core.model.decode_step(
                         params, pool.tok[:, None], pool.state, pool.cache_len,
-                        plans=plans, block_tables=pool.block_tables)
-                    nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+                        plans=plans, block_tables=pool.block_tables,
+                        full_logits=False)
+                    nxt = core.greedy(logits[:, -1])
                     was_done = pool.done
                     tok = torch.where(was_done, ecfg.eos_token,
                                       nxt.to(torch.int32))
@@ -463,7 +524,7 @@ class DecodeRole:
         kernel walks the pool once per query column (the reference gathers
         + runs the oracle), the masked oracle covers the slab."""
         core = self.core
-        cfg, ecfg, plans = core.model.cfg, core.ecfg, core.plans
+        ecfg, plans = core.ecfg, core.plans
 
         def run(params, pool: PoolState, drafts: torch.Tensor,
                 dlen: torch.Tensor):
@@ -471,9 +532,8 @@ class DecodeRole:
                 tokens = torch.cat([pool.tok[:, None], drafts], dim=1)
                 logits, state = core.model.verify_step(
                     params, tokens, pool.state, pool.cache_len, plans=plans,
-                    block_tables=pool.block_tables)
-                targets = torch.argmax(logits[:, :, :cfg.vocab_size],
-                                       dim=-1).to(torch.int32)  # (S, k+1)
+                    block_tables=pool.block_tables, full_logits=False)
+                targets = core.greedy(logits).to(torch.int32)  # (S, k+1)
                 fold = spec_mod.fold_acceptance(
                     targets, drafts, dlen, done=pool.done, n_gen=pool.n_gen,
                     budget=pool.budget, cache_len=pool.cache_len,
@@ -556,8 +616,9 @@ class Engine:
 
     # ---------------------------------------------------------- one-shot
     def prefill(self, batch: Dict[str, torch.Tensor]):
-        return self.model.prefill(self.params, batch, self.ecfg.max_len,
-                                  plans=self.plans)
+        with self.core.scope():
+            return self.model.prefill(self.params, batch, self.ecfg.max_len,
+                                      plans=self.plans)
 
     def generate(self, batch: Dict[str, torch.Tensor], n_steps: int
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -567,10 +628,16 @@ class Engine:
         reads the done mask once per ``sync_interval`` chunk and stops
         early at that granularity — never per token.
         """
+        with self.core.scope():
+            return self._generate(batch, n_steps)
+
+    def _generate(self, batch, n_steps):
         self.last_stats = {"host_syncs": 0, "decode_steps": 0}
         cfg, eos = self.model.cfg, self.ecfg.eos_token
-        vocab = cfg.vocab_size
-        logits, state = self.prefill(batch)
+        logits, state = self.model.prefill(self.params, batch,
+                                           self.ecfg.max_len,
+                                           plans=self.plans,
+                                           full_logits=False)
         # a frontend's embeddings fill the first cache positions; an
         # enc-dec model's source frames live in the encoder, not the cache
         prompt_len = batch["tokens"].shape[1]
@@ -578,7 +645,7 @@ class Engine:
             prompt_len += cfg.frontend_len
         cache_len = torch.tensor(prompt_len, dtype=torch.int32,
                                  device=self.core.device)
-        tok = torch.argmax(logits[:, -1, :vocab], dim=-1).to(torch.int32)
+        tok = self.core.greedy(logits[:, -1]).to(torch.int32)
         done = tok == eos
         out = [tok[:, None]]
         left = n_steps - 1
@@ -1030,6 +1097,7 @@ class Engine:
             self.model.cfg, self.ecfg.max_len)
         for req in requests:
             sch.submit_request(req)
-        if sch.pages is not None:
-            return self._serve_paged(sch, max_steps)
-        return self._serve_dense(sch, max_steps)
+        with self.core.scope():
+            if sch.pages is not None:
+                return self._serve_paged(sch, max_steps)
+            return self._serve_dense(sch, max_steps)

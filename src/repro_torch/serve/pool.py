@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.paged_attention import (as_bits,
                                                  dequantize_page_int8,
                                                  quantize_page_int8)
@@ -235,7 +236,9 @@ class PoolManager:
                             tuple(range(2, sel.ndim)))
                     if dst_c.scaled:
                         codes, scales = quantize_page_int8(
-                            sel, tuple(range(2, sel.ndim)))
+                            sel, tuple(range(2, sel.ndim)),
+                            scale_max=tp.kv_scale_reduce(
+                                self.model.cfg.n_kv_heads))
                         dst[:, pages_dst] = codes
                         dst_g[name + "_scale"][:, pages_dst] = scales
                     else:

@@ -20,8 +20,9 @@ reduce-scatters the gradient onto the shard as the mean over the batch
 slices. Each rank's loss is weighted by its share of the labelled tokens,
 so the step's loss and gradients are those of the whole batch, as the
 single-device step computes them. A rank computes the whole model: the
-``model`` axis shards the weights but not the compute (tensor-parallel
-layers are ROADMAP A13b). :func:`make_compressed_train_step` syncs each
+``model`` axis shards the weights but not the compute (training on the
+tensor-parallel layers that serving runs is ROADMAP A13c).
+:func:`make_compressed_train_step` syncs each
 pod's gradients over the ``pod`` axis as int8 with error feedback.
 """
 

@@ -8,8 +8,8 @@ the reference's check asks of ``repro.launch.serve``. The runner
 ``repro_torch.benchmarks.run`` runs its sections (the kernel and serving
 benches stubbed here: they have tests of their own), says that the two
 roofline sections wait for ROADMAP A14 without counting them as failures,
-and exits 1 when a section fails. The stream launcher refuses a mesh of
-more than one device, citing ROADMAP A13.
+and exits 1 when a section fails. The stream launcher refuses a mesh
+with a data axis above 1, citing ROADMAP A13 (A13c).
 """
 
 import pytest
@@ -57,4 +57,4 @@ def test_run_exits_1_when_a_section_fails(monkeypatch, capsys):
 
 def test_the_stream_launcher_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="A13"):
-        cli.main(["--device", "cpu", "--stream", "2", "--mesh", "2"])
+        cli.main(["--device", "cpu", "--stream", "2", "--mesh", "2x1"])

@@ -169,6 +169,19 @@ def test_the_sharding_modules_are_among_the_checked_modules():
     assert tops <= {"os", "numpy", "torch", "repro_torch"}, tops
 
 
+def test_the_tensor_parallel_modules_are_among_the_checked_modules():
+    """Sharded serving's ``distributed/tensor_parallel.py`` is checked
+    above, and the rank side of its tests, which spawned ranks import,
+    takes nothing but ``repro_torch`` and plain libraries."""
+    assert "repro_torch.distributed.tensor_parallel" in MODULES
+    tree = ast.parse((ROOT / "tests" / "torch_tp_ranks.py").read_text())
+    tops = {(a.name if isinstance(node, ast.Import) else node.module)
+            .split(".")[0] for node in ast.walk(tree)
+            if isinstance(node, (ast.Import, ast.ImportFrom))
+            for a in getattr(node, "names", [])}
+    assert tops <= {"os", "numpy", "torch", "repro_torch"}, tops
+
+
 def test_training_entry_points_raise_without_a_card(monkeypatch):
     """The training CLI at any mesh and both training examples raise
     without a card unless given ``--device cpu``."""

@@ -10,7 +10,7 @@ ends with its params and moments bit for bit (f32 and int8 moments).
 loss tolerance against the reference; measured 1.6e-5 at step 1: each
 rank's bf16 gradient of half the batch, averaged in f32, against one
 bf16 gradient of the whole, moves Adam's first update), while sharded
-serving still refuses a mesh, naming ROADMAP A13b; without a card and
+serving still refuses a data axis, naming ROADMAP A13c; without a card and
 without ``--device cpu`` the CLI raises.
 """
 
@@ -91,8 +91,8 @@ MESH_LOSS_RTOL = 2e-4
 def test_mesh_above_one_device_names_a13():
     """Sharded training is ported: ``--mesh 2x1`` spawns its two ranks
     and returns rank 0's losses, those of ``--mesh 1x1``. Sharded serving
-    is not: the serving CLI's ``--mesh 2`` still names its ROADMAP item
-    (A13b)."""
+    runs the model axis alone: the serving CLI's ``--mesh 2x1`` (a data
+    axis) still names its ROADMAP item (A13c)."""
     argv = BASE[:2] + ["--steps", "3", "--global-batch", "4",
                        "--seq-len", "32"]
     one = cli.run(argv)
@@ -102,8 +102,8 @@ def test_mesh_above_one_device_names_a13():
         assert abs(two["losses"][s] - one["losses"][s]) <= (
             MESH_LOSS_RTOL * abs(one["losses"][s]))
     from repro_torch.launch import serve as serve_cli
-    with pytest.raises(NotImplementedError, match="A13b"):
-        serve_cli.run(["--device", "cpu", "--mesh", "2"])
+    with pytest.raises(NotImplementedError, match="A13c"):
+        serve_cli.run(["--device", "cpu", "--mesh", "2x1"])
 
 
 def test_the_card_is_the_default(monkeypatch):

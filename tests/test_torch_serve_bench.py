@@ -31,7 +31,9 @@ run the same head-to-heads at ``REDUCED`` qwen2.5-3b with 4 to 6 requests
   * the four outputs gates hold exactly on the CPU (the port's own runs,
     first against second, in every head-to-head).
 
-Besides: ``--mesh 2`` raises ``NotImplementedError`` citing ROADMAP A13;
+Besides: a data axis (``--mesh 2x1``, ``--mesh 2x2``) raises
+``NotImplementedError`` citing ROADMAP A13 (A13c; ``--mesh 2`` runs the
+mesh head-to-head, ``tests/test_torch_tp_serving.py``);
 ``--emit-bench`` writes ``torch_BENCH_10.json`` under the port's
 artifacts, which ``tools/diff_bench.py`` reads, and never touches the
 repo root's ``BENCH_*.json``; the reference's documented ``--kv-quant
@@ -236,9 +238,9 @@ def test_run_chunked_records_equal_the_reference(monkeypatch, tmp_path,
 
 def test_mesh_beyond_one_device_raises():
     with pytest.raises(NotImplementedError, match="A13"):
-        bench.main(["--device", "cpu", "--mesh", "2"])
+        bench.main(["--device", "cpu", "--mesh", "2x1"])
     with pytest.raises(NotImplementedError, match="A13"):
-        bench.main(["--device", "cpu", "--mesh", "1x2"])
+        bench.main(["--device", "cpu", "--mesh", "2x2"])
     with pytest.raises(SystemExit):
         bench.main(["--device", "cpu", "--mesh", "two"])
 
