@@ -62,6 +62,13 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      bound, the merged outputs digested (``range_row2`` ...); qwen2.5-3b's
      per-rank shapes at a 1 x 2 mesh (flash at 4 x 256 and paged decode,
      8 query heads over 1 KV head), digested as ``qwen_1x2_*``;
+     grouped_gemm at qwen3-moe-30b-a3b's expert-parallel rank shapes (rank
+     0 of 1 x 2, 64 experts, and of 1 x 4, 32; T 1024 and 4, gate and
+     down projections): ``cap`` rows of which only the rank's own hits
+     lie inside the offsets, the computed rows within GEMM_REL_TOL of the
+     plain version, timed beside ``F.grouped_mm`` and the bound of the
+     computed rows, in the repeat set and digested as
+     ``qwen3moe_1x{2,4}_*`` (f32 outputs);
      then every attention case is called REPEAT_ROUNDS more times, the
      cases interleaved, each call bit for bit equal to its first output;
      mamba_scan at falcon-mamba-7b's shapes
@@ -149,7 +156,15 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      forward on the step-by-step pass's routes held to that pass within
      FORCED_ROUTE_TOL, and two control faults in the decode steps alone
      (K and V projections traded; ``wo`` rounded through fp8) that must
-     fail that gate; the phase's seconds;
+     fail that gate; the expert-parallel MoE (``moe_block(impl="ep")``)
+     on NCCL world 1 held bit for bit to the grouped one at one layer, T =
+     4 and 1024 (partial-K by the reference's byte rule) and 8192
+     (weight-gather), each call's body logged; each rank's share of the
+     layer on 1 x 2 and 1 x 4 meshes in one process (T 1024 and 4): kept
+     hits the reference's cut, NaN in the rows past the offsets never
+     reaching a share, the shares' sum within EP_RANK_TOL of the grouped
+     layer (at 1 x 4 on the tokens that lost no hit; drops logged); the
+     phase's seconds;
   9. deepseek-v2-236b the same way at 3 of 60 layers (the dense first
      layer, then 2 MLA + MoE layers): flash at D = 192, Dv = 128 3 a
      admission, the paged kernel never (MLA decodes in latent space, as
@@ -320,6 +335,9 @@ PROFILE_STEPS = 32         # decode steps (4 chunks) traced in phase 13
 PROFILE_TRIES = 6          # traces taken before the profiler is given up
 PROFILE_PAD_S = 0.5        # host idle at either end of a phase 13 trace
 KERNEL_PAD_S = 0.05        # ... of a kernel's trace of N_TIMED calls
+SENTINEL = "spin_kernel"   # torch.cuda._sleep's kernel, opening each trace
+SENTINEL_LAUNCHES = 64     # at either end of a trace
+SENTINEL_CYCLES = 1000
 
 N_TIMED_PLAIN_SCAN = 3    # the plain scan is one Python step per position
 SCAN_TOL = 2e-4            # f32 y and final state (test_mamba_scan_sweep)
@@ -389,9 +407,21 @@ NEW_CASE_DIGESTS = {"d64_encoder": "aea592b592485ddb",
                     "range_row2a": "fc4aff04a5773e71",
                     "range_row2b": "e6d58f55eb370b8b",
                     "qwen_1x2_flash": "a17d66b01fb24e22",
-                    "qwen_1x2_paged": "e42f5c5abcc7ed41"}
+                    "qwen_1x2_paged": "e42f5c5abcc7ed41",
+                    # grouped_gemm at qwen3-moe's expert-parallel rank
+                    # shapes (f32 outputs, the rows inside the offsets)
+                    "qwen3moe_1x2_prefill_gate": "ac3f528747cf50d8",
+                    "qwen3moe_1x2_prefill_down": "299082f9f706ef5d",
+                    "qwen3moe_1x2_decode_gate": "7203743bc1352ae6",
+                    "qwen3moe_1x2_decode_down": "76dadf1b21c6555c",
+                    "qwen3moe_1x4_prefill_gate": "6f25f1ea97627a92",
+                    "qwen3moe_1x4_prefill_down": "89e535b49678efb6",
+                    "qwen3moe_1x4_decode_gate": "1a87df59ff57a153",
+                    "qwen3moe_1x4_decode_down": "c337f87e47bec2c9"}
 #: the pooled decode's range splits held in phase 3
 RANGE_SPLITS = (2, 4)
+#: the model axes whose rank shapes phase 3 runs grouped_gemm at
+EP_RANK_MESHES = (2, 4)
 #: (B, Hq, Hkv, Sq, Skv, kwargs, transposed views) of each digest case
 FLASH_DIGEST_CASES = {
     "admission": (4, 16, 2, 256, 256, {}, False),
@@ -416,6 +446,17 @@ MOE_TOL = 2e-2
 #: one full-width MoE layer's token counts: a one-shot admission's prefill
 #: (4 x 256) and a decode step over the 4 slots
 MOE_TOKENS = {"prefill": 1024, "decode": 4}
+#: the expert-parallel layer's token counts at world 1, each with the body
+#: the reference's byte rule picks there (partial-K below ~5560 tokens at
+#: qwen3-moe's widths and one rank)
+EP_LAYER_TOKENS = {4: "partial_k", 1024: "partial_k", 8192: "weight_gather"}
+#: the sum of the ranks' f32 shares of one full-width expert-parallel layer
+#: against the grouped layer's f32 output, relative to its largest value:
+#: the same hits through the same weights, the k hits of a token summed in
+#: another f32 order. Read on an NVIDIA H100 80GB HBM3: 1.1e-7 to 1.7e-7
+#: at T 1024 and 4; a hit lost or counted twice moves its token by about
+#: its gate (1 / top_k) of its output
+EP_RANK_TOL = 1e-5
 #: a MoE model's step-by-step pass against a full-sequence forward on the
 #: same routes (forced_routes), max |d logit| over the generated
 #: positions, by arch: about 2.3x the sound runs' readings (up to 0.041
@@ -574,15 +615,51 @@ def cuda_trace(pad_s: float):
     on the H100 that mapping parts from the window by up to ~20 ms over a
     trace of seconds (the profiler's own "Out-of-range" count: up to 659
     records a trace, the last launches first), so unpadded traces lost
-    the kernels at their ends."""
+    the kernels at their ends. Past a few thousand traced kernels in the
+    process a trace may also drop its first kernel record whatever the
+    padding (an NVIDIA H100 80GB HBM3, torch 2.11: one of 25 in every
+    retake), and a long trace its first few records (falcon-mamba's
+    stream: both of two opening spin kernels and the first admission's
+    first scan kernel, in every retake on one machine), so each trace
+    opens and closes with SENTINEL_LAUNCHES spin kernels
+    (``torch.cuda._sleep``), which :func:`traced_kernels` leaves out and
+    :func:`sentinels_traced` counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def sentinels():
+        for _ in range(SENTINEL_LAUNCHES):
+            torch.cuda._sleep(SENTINEL_CYCLES)
+        torch.cuda.synchronize()
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(pad_s)
+        sentinels()
         yield prof
         torch.cuda.synchronize()
+        sentinels()
         time.sleep(pad_s)
+
+
+def traced_kernels(prof) -> list:
+    """The CUDA kernels of a :func:`cuda_trace`, its sentinels left out."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and SENTINEL not in e.key]
+
+
+def sentinels_traced(prof) -> str:
+    """How many of a :func:`cuda_trace`'s spin kernels it kept, of how
+    many launched: which end of a trace that lost records lost them."""
+    from torch.autograd import DeviceType
+    kept = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and SENTINEL in e.key)
+    first = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA),
+                   key=lambda e: e.time_range.start)[:3]
+    return (f"{kept} of {2 * SENTINEL_LAUNCHES} sentinels, first kept "
+            f"{[e.name[:40] for e in first]}")
 
 
 def device_profile(fn, kernel: str = "", n: int = N_TIMED) -> tuple:
@@ -598,19 +675,19 @@ def device_profile(fn, kernel: str = "", n: int = N_TIMED) -> tuple:
     PROFILE_TRIES traces. Fails if none was whole or none held such a
     kernel."""
     import torch
-    from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
         with cuda_trace(KERNEL_PAD_S) as prof:
             for _ in range(n):
                 fn()
-        cuda = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        cuda = traced_kernels(prof)
         if cuda and all(e.count % n == 0 for e in cuda):
             break
         log(f"  (the profiler lost kernel records: {n} calls, "
-            f"{sum(e.count for e in cuda)} kernels traced; tracing again)")
+            f"{sum(e.count for e in cuda)} kernels traced "
+            f"({', '.join(f'{e.key[:40]} {e.count}' for e in cuda)}), "
+            f"{sentinels_traced(prof)}; tracing again)")
     else:
         fail(f"the profiler returned no whole trace of {n} calls in "
              f"{PROFILE_TRIES} tries")
@@ -969,12 +1046,15 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
         f"{p8_plain:.4f} ms, bound {p8_bound:.4f} ms ({p8_by})")
     ranges = paged_range_cases(repeats, n_slots, depth)
     rank_cases = qwen_rank_cases(repeats, depth)
-    new_digests = {**ranges["digests"], **rank_cases["digests"]}
+    ep_gemm = ep_rank_gemm_cases(repeats)
+    new_digests = {**ranges["digests"], **rank_cases["digests"],
+                   **ep_gemm["digests"]}
     differ = {case: got for case, got in new_digests.items()
               if case in NEW_CASE_DIGESTS and NEW_CASE_DIGESTS[case] != got}
     if differ:
         fail(f"outputs moved from their recorded digests: {differ}")
-    log(f"  digests of the range and 1x2 rank cases: {new_digests} "
+    log(f"  digests of the range, 1x2 rank and expert-parallel rank "
+        f"cases: {new_digests} "
         f"(recorded: {sorted(set(NEW_CASE_DIGESTS) & set(new_digests))})")
     repeat_calls(repeats)
     del q, kp, vp, bt, cl, batch, repeats
@@ -1013,6 +1093,7 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
                             extra={"rank_1x2_err": rank_cases["err"],
                                    "rank_1x2_digests":
                                        rank_cases["digests"]}),
+        "grouped_rank": ep_gemm,
         "matmul3d": phase_matmul_kernel(),
         "mamba_scan": phase_scan_kernel(fcfg),
     }
@@ -1192,11 +1273,13 @@ def flash_mla_cases(rnd, repeats) -> dict:
 
 
 def digest(t) -> str:
-    """The first 16 hex digits of the sha256 of a bf16 tensor's bits."""
+    """The first 16 hex digits of the sha256 of a bf16 or f32 tensor's
+    bits."""
     import hashlib
     import torch
-    return hashlib.sha256(t.view(torch.int16).cpu().numpy()
-                          .tobytes()).hexdigest()[:16]
+    bits = t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+    return hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def seeded(seed: int):
@@ -1509,6 +1592,98 @@ def qwen_rank_cases(repeats, depth) -> dict:
         paged_flash_decode, qd, kp, vp, bt, cl), got))
     digests["qwen_1x2_paged"] = digest(got)
     return {"err": err, "digests": digests}
+
+
+def ep_rank_routes(t: int, e: int, k: int, m: int, cf: float, seed: int):
+    """Rank 0 of a ``1xm`` expert-parallel MoE over ``t`` tokens of ``e``
+    experts, top-``k``: numpy-seeded routes (``k`` distinct experts a
+    token), cut as the reference cuts them (its local experts first by a
+    stable sort, then ``cap`` rows). Returns (cap, the offsets of its ``e /
+    m`` experts, the rows they hold): the rows past the last offset are
+    other ranks' hits, which the kernel must leave alone."""
+    import math
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    idx = np.argsort(rng.rand(t, e), axis=1)[:, :k].reshape(-1)
+    e_loc = e // m
+    loc_e = np.where(idx < e_loc, idx, e_loc)
+    cap = min(t * k, int(math.ceil(cf * t * k / m)))
+    sel_e = loc_e[np.argsort(loc_e, kind="stable")][:cap]
+    offs = np.searchsorted(sel_e, np.arange(e_loc), side="right")
+    return cap, offs.astype(np.int32), int(offs[-1])
+
+
+def ep_rank_gemm_cases(repeats) -> dict:
+    """``grouped_gemm`` at qwen3-moe-30b-a3b's rank shapes on a 1 x 2 (64
+    experts a rank) and a 1 x 4 mesh (32), a one-shot admission (T 1024)
+    and a decode step (T 4) through the gate (K 2048, N 768) and down (K
+    768, N 2048) projections: ``cap`` rows of which only the rank's own
+    hits lie inside the offsets (``ep_rank_routes``). The computed rows are
+    held to the plain version within GEMM_REL_TOL, added to the repeat set
+    and digested (numpy-seeded inputs: ``qwen3moe_1x{2,4}_*``); timed by
+    events a call, back to back and by CUDA-graph replay (the device's
+    time alone) beside ``F.grouped_mm`` (bf16 out) and the bound of the
+    hit experts' weights, the computed rows and their f32 output (the
+    kernel reads and writes none of the rows past the last offset)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.common import graph_ms
+    from repro_torch.benchmarks.grouped_gemm_ab import case_work
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped_gemm import (grouped_gemm,
+                                                  grouped_gemm_plain,
+                                                  launch_config)
+    cfg = get_config(QWEN_MOE[0])
+    rng = np.random.default_rng(393)
+
+    def make(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(torch.bfloat16).cuda()
+
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    # rank 0's experts: 0..e/2-1 on 1 x 2, the first half of those on 1 x 4
+    weights = {"gate": make(e // 2, d, f) * d ** -0.5,
+               "down": make(e // 2, f, d) * f ** -0.5}
+    out, digests, err = {}, {}, 0.0
+    for m in EP_RANK_MESHES:
+        for label, t in MOE_TOKENS.items():
+            cap, offs_np, rows = ep_rank_routes(t, e, cfg.top_k, m,
+                                                cfg.capacity_factor,
+                                                394 + m + t)
+            offs = torch.from_numpy(offs_np).cuda()
+            for proj, w in weights.items():
+                w = w[:e // m]
+                xs = make(cap, w.shape[1])
+                got = grouped_gemm(xs, w, offs)[:rows]
+                want = grouped_gemm_plain(xs, w, offs)[:rows]
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                conf = launch_config(cap, w.shape[1], w.shape[2], w.shape[0])
+                name = (f"grouped_gemm 1x{m} rank 0 {label} {proj} ({rows} "
+                        f"of {cap} rows its own, {w.shape[0]} experts, "
+                        f"K={w.shape[1]}, N={w.shape[2]}; {conf.bm} x "
+                        f"{conf.bn} tiles)")
+                if not (bool(torch.isfinite(got).all())
+                        and rel <= GEMM_REL_TOL):
+                    fail(f"{name}: {rel:.2e} of the largest value "
+                         f"(tolerance {GEMM_REL_TOL})")
+                log(f"  {name}: {rel:.2e} of the largest  ok")
+                err = max(err, rel)
+                key = f"qwen3moe_1x{m}_{label}_{proj}"
+                kernel = functools.partial(grouped_gemm, xs, w, offs)
+                repeats.append((key, lambda kernel=kernel, rows=rows:
+                                kernel()[:rows], got))
+                digests[key] = digest(got)
+                timing = time_case(
+                    name, kernel,
+                    functools.partial(grouped_gemm_plain, xs, w, offs),
+                    functools.partial(F.grouped_mm, xs, w, offs=offs),
+                    "grouped_gemm_kernel", *case_work(xs[:rows], w, offs),
+                    back_to_back=True)
+                timing.update(graph_ms=graph_ms(kernel, N_TIMED), rows=rows,
+                              cap=cap, rel_err=rel)
+                out[key] = timing
+    return {"err": err, "cases": out, "digests": digests}
 
 
 def jamba_flash_inputs():
@@ -2564,10 +2739,15 @@ def check_grouped_moe(cfg) -> dict:
     random weights: T = 1024 (a one-shot admission's prefill) and T = 4 (a
     decode step over the 4 slots). The grouped call runs under
     ``set_sync_debug_mode("error")`` (it reads nothing to the host) and
-    must agree within MOE_TOL, with the same aux loss. Returns {label:
-    (max |d|, grouped ms, plain ms)}."""
+    must agree within MOE_TOL, with the same aux loss. For an
+    expert-parallel decoder (qwen3-moe) the expert-parallel layer at world
+    1 then (``check_ep_layer``), and each rank's share of it on 1 x 2 and
+    1 x 4 meshes (``check_ep_ranks``). Returns {label: (max |d|, grouped
+    ms, plain ms)}, the grouped_gemm cases, ``ep_world1`` and
+    ``ep_ranks``."""
     import torch
     from repro_torch.benchmarks.common import median_ms
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import moe
     gen = torch.Generator(device="cuda").manual_seed(1)
     p = {k: (v[0] if torch.is_tensor(v) else {n: t[0] for n, t in v.items()})
@@ -2602,8 +2782,145 @@ def check_grouped_moe(cfg) -> dict:
         log(f"  grouped MoE {label} T={t}: {out[label][1]:.3f} ms, plain "
             f"{out[label][2]:.3f} ms (host clock, events)")
         out.update(grouped_gemm_cases(cfg, served, x, label))
+    if tp.ep_moe_decoder(cfg):
+        out["ep_world1"] = check_ep_layer(cfg, served, gen)
+        out["ep_ranks"] = check_ep_ranks(cfg, served, gen)
     del p, served
     free_memory()
+    return out
+
+
+def check_ep_layer(cfg, served, gen) -> dict:
+    """The expert-parallel MoE (``moe_block(impl="ep")``) on NCCL world 1
+    (a ``1x1`` serving mesh in a one-rank process group of its own: every
+    hit local, ``cap = t k``, the sum over ``model`` one rank's) held bit
+    for bit to the grouped one at one full-width layer, output and aux, at
+    EP_LAYER_TOKENS: the reference's byte rule picks partial-K at T 4 and
+    1024 and weight-gather at 8192 (each call's body logged and checked),
+    under ``set_sync_debug_mode("error")``. Returns {T: body}."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    out = {}
+    with mesh_lib.ranks(1, dev):
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), dev)
+        for t, want_body in EP_LAYER_TOKENS.items():
+            x = torch.randn((1, t, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            with tp.use_mesh(mesh), moe.count_ep(drops=False) as count:
+                torch.cuda.synchronize()
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got, aux = moe.moe_block(served, x, cfg=cfg, impl="ep")
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+            want, aux_want = moe.moe_block(served, x, cfg=cfg,
+                                           impl="grouped")
+            body = dict(count.bodies)
+            if body != {want_body: 1}:
+                fail(f"expert-parallel MoE T={t}: took {body}, the "
+                     f"reference's rule picks {want_body}")
+            if not (torch.equal(got, want) and torch.equal(aux, aux_want)):
+                fail(f"expert-parallel MoE T={t} on NCCL world 1: max |d| "
+                     f"{(got.float() - want.float()).abs().max().item():.3e} "
+                     f"from the grouped MoE (must be bit for bit)")
+            log(f"  expert-parallel MoE T={t} on NCCL world 1 ({want_body} "
+                f"body): output and aux bit for bit the grouped MoE's  ok")
+            out[t] = want_body
+    return out
+
+
+def check_ep_ranks(cfg, served, gen) -> dict:
+    """Every rank's share of the expert-parallel MoE (``moe._ep_partial``,
+    f32, before the sum over ``model``) on 1 x 2 and 1 x 4 meshes, on one
+    card in one process, at one full-width layer and T in MOE_TOKENS: its
+    experts a slice of ``served``, every token routed, its own hits first,
+    cut at ``cap``, the rows past the last offset (other ranks' hits)
+    dropped by ``torch.where``. Each rank's kept hits equal a numpy copy
+    of the reference's stable sort and cut. The shares, recomputed with
+    those rows filled with NaN, are finite and the same bits. Their sum
+    over the ranks is held to the grouped layer's f32 output within
+    EP_RANK_TOL of its largest value: at 1 x 2 on every token (nothing is
+    dropped), at 1 x 4 on the tokens that lost no hit (the dropped hits and
+    their tokens logged). Returns {"1xM T": record}."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    e, k = cfg.n_experts, cfg.top_k
+    grouped = moe._grouped
+
+    def poisoned(xs, w, offs):
+        out = grouped(xs, w, offs)
+        tail = torch.arange(out.shape[0], device=out.device)[:, None]
+        return out.masked_fill(tail >= offs[-1], float("nan"))
+
+    out = {}
+    for t in MOE_TOKENS.values():
+        xt = torch.randn((t, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        want, _ = moe._ep_partial(served, xt, cfg, 0, 1)
+        scale = want.abs().max().item()
+        for m in EP_RANK_MESHES:
+            e_loc = e // m
+            total = torch.zeros_like(want)
+            lost = np.zeros(t, bool)
+            dropped = garbage = 0
+            for r in range(m):
+                p = {n: (v[r * e_loc:(r + 1) * e_loc] if n.startswith("we_")
+                         else v) for n, v in served.items()}
+                y, _ = moe._ep_partial(p, xt, cfg, r, m)
+                moe._grouped = poisoned
+                try:
+                    y_nan, _ = moe._ep_partial(p, xt, cfg, r, m)
+                finally:
+                    moe._grouped = grouped
+                if not (bool(torch.isfinite(y_nan).all())
+                        and torch.equal(y_nan, y)):
+                    fail(f"expert-parallel MoE 1x{m} rank {r} T={t}: NaN in "
+                         f"the rows past the last offset reached the share")
+                route = moe.ep_route(p["router"], xt, cfg, r, m)
+                sel = route.sel.cpu().numpy()
+                sel_e = route.sel_e.cpu().numpy()
+                flat = route.idx.reshape(-1).cpu().numpy()
+                local = (flat >= r * e_loc) & (flat < (r + 1) * e_loc)
+                loc_e = np.where(local, flat - r * e_loc, e_loc)
+                cap = min(t * k, int(np.ceil(cfg.capacity_factor * t * k
+                                             / m)))
+                want_sel = np.argsort(loc_e, kind="stable")[:cap]
+                kept = sel[sel_e < e_loc]
+                if not np.array_equal(kept, want_sel[loc_e[want_sel]
+                                                     < e_loc]):
+                    fail(f"expert-parallel MoE 1x{m} rank {r} T={t}: the "
+                         f"kept hits differ from the reference's cut")
+                drop = local.copy()
+                drop[kept] = False
+                lost |= drop.reshape(t, k).any(1)
+                dropped += int(drop.sum())
+                garbage += int((sel_e >= e_loc).sum())
+                total += y
+            keep = torch.from_numpy(~lost).cuda()
+            err = ((total - want).abs().amax(1)[keep].max().item()
+                   if bool(keep.any()) else 0.0) / scale
+            label = f"1x{m} T={t}"
+            if m == 2 and dropped:
+                fail(f"expert-parallel MoE {label}: {dropped} hits dropped "
+                     f"at a capacity factor of {cfg.capacity_factor}")
+            if not err <= EP_RANK_TOL:
+                fail(f"expert-parallel MoE {label}: the ranks' shares sum "
+                     f"{err:.3e} of the largest from the grouped layer "
+                     f"(tolerance {EP_RANK_TOL})")
+            log(f"  expert-parallel MoE {label}: {m} ranks' shares (kept "
+                f"hits the reference's; {garbage} rows past the offsets, "
+                f"NaN-filled, never reach a share) sum to the grouped layer "
+                f"within {err:.2e} of its largest on {int(keep.sum())} of "
+                f"{t} tokens; {dropped} hits dropped on {int(lost.sum())} "
+                f"tokens  ok")
+            out[label] = dict(rel_err=err, dropped=dropped,
+                              tokens_with_drops=int(lost.sum()),
+                              rows_past_offsets=garbage)
     return out
 
 
@@ -3104,7 +3421,6 @@ def phase_profile(cfg, kv_quant=None) -> None:
     here are outside the counted main-path runs), under the launcher's
     target on the card."""
     import torch
-    from torch.autograd import DeviceType
     from repro_torch.core.target import use_target
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import Engine, EngineConfig
@@ -3133,17 +3449,19 @@ def phase_profile(cfg, kv_quant=None) -> None:
                 engine.serve(scheduler=sch, max_steps=PROFILE_STEPS)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            launched = sum(read_counts()[k] - before[k]
-                           for k in ("flash", "flash_d192", "paged", "scan"))
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA]
-            traced = sum(e.count for e in kernels
-                         if any(n in e.key for n in PORT_KERNELS))
+            after = read_counts()
+            by_wrapper = {k: after[k] - before[k]
+                          for k in ("flash", "flash_d192", "paged", "scan")}
+            launched = sum(by_wrapper.values())
+            kernels = traced_kernels(prof)
+            ours = {e.key[:48]: e.count for e in kernels
+                    if any(n in e.key for n in PORT_KERNELS)}
+            traced = sum(ours.values())
             if kernels and traced == launched:
                 break
             log(f"  (the profiler lost kernel records: the port's kernels "
-                f"launched {launched} times, traced {traced}; tracing "
-                f"again)")
+                f"launched {launched} times ({by_wrapper}), traced {traced} "
+                f"({ours}), {sentinels_traced(prof)}; tracing again)")
         else:
             fail(f"the profiler returned no whole trace in {PROFILE_TRIES} "
                  f"tries")
@@ -4004,15 +4322,24 @@ def jamba_rows(jamba) -> list:
              "src/repro/models/moe.py:145", counts["grouped"], gemm_row)]
 
 
-def grouped_gemm_row(moe_runs) -> dict:
+def grouped_gemm_row(moe_runs, rank) -> dict:
     """The kernels line's grouped_gemm timing: qwen3-moe's 1024-token
-    admission through the gate projection, every other case beside it."""
+    admission through the gate projection, every other case beside it,
+    phase 3's expert-parallel rank shapes (``rank``) with their digests,
+    the bodies the expert-parallel layer took at world 1, each bit for bit
+    the grouped layer, and its ranks' shares on 1 x 2 and 1 x 4."""
     cases = {f"{arch} {key[5:]}": case for arch, run in moe_runs.items()
              for key, case in run["moe"].items() if key.startswith("gemm_")}
+    cases.update(rank["cases"])
     main = cases[f"{QWEN_MOE[0]} prefill_gate"]
-    return dict(main, extra={f"{label}_{key}": value
-                             for label, case in cases.items()
-                             for key, value in case.items()})
+    extra = {f"{label}_{key}": value for label, case in cases.items()
+             for key, value in case.items()}
+    extra.update(rank_max_rel_err=rank["err"], rank_digests=rank["digests"],
+                 ep_world1_bit_equal_grouped={
+                     str(t): body for t, body in
+                     moe_runs[QWEN_MOE[0]]["moe"]["ep_world1"].items()},
+                 ep_rank_shares=moe_runs[QWEN_MOE[0]]["moe"]["ep_ranks"])
+    return dict(main, extra=extra)
 
 
 def main() -> int:
@@ -4121,7 +4448,7 @@ def main() -> int:
             # paged stream; timed at its 1024-token admission's gate GEMM
             ("grouped_gemm", "grouped_gemm", "src/repro/models/moe.py:145",
              moe_runs[QWEN_MOE[0]]["recs"]["stream"]["launches"]["grouped"],
-             grouped_gemm_row(moe_runs))]
+             grouped_gemm_row(moe_runs, timing["grouped_rank"]))]
     # jamba's widths: each kernel's launches on jamba's own paged stream
     jamba_path = f"the {JAMBA} x {JAMBA_LAYERS} paged stream"
     launches_path = {

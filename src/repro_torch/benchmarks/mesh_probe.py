@@ -1,43 +1,58 @@
 """Sharded serving across cards (``python -m
 repro_torch.benchmarks.mesh_probe``).
 
-Serves qwen2.5-3b at its published widths (``--device cpu``: the REDUCED
-smoke config) on a ``1xM`` mesh for each M of ``--meshes`` (default 2 and
+Serves ``--arch`` (default qwen2.5-3b) at its published widths
+(``--device cpu``: the REDUCED smoke config), cut to ``--layers`` deep
+where given, on a ``1xM`` mesh for each M of ``--meshes`` (default 2 and
 4), one rank a GPU over NCCL (gloo on the CPU), the ranks spawned by
-``launch.mesh.spawn``. At M = 2 the 2 KV heads divide the model axis (the
-head path: each rank holds one KV head's pages); at M = 4 they do not (the
-pooled path: whole pools on every rank, each decode step over a quarter of
-each slot's positions, merged by log-sum-exp).
+``launch.mesh.spawn``. qwen2.5-3b: at M = 2 the 2 KV heads divide the
+model axis (the head path: each rank holds one KV head's pages); at M = 4
+they do not (the pooled path: whole pools on every rank, each decode step
+over a quarter of each slot's positions, merged by log-sum-exp).
+qwen3-moe-30b-a3b (4 KV heads: the head path at 2 and 4) serves its MoE
+layers expert-parallel, ``128 / M`` experts a rank: the whole 48-layer
+model (61 GB served) fits no single card and needs M >= 2.
 
 Each rank builds its shards of the weights (``Model.init_serving(gen,
-mesh=)``), rolls every request out one-shot (``Engine.generate``) and then
-serves the same requests as one paged stream (budgets priced for the
-mesh: ``model_shards``) under ``--target``, else the launcher's serving
-target (``h100`` on the card). Rank 0 reports, for each M: how many
-requests' stream tokens are a prefix of their one-shot rollout and where
-the others part (on the card cuBLAS picks a GEMM's algorithm by its row
-count, and the one-shot runs one row where the stream runs its slots, so
-a near-tie may part them), the worst teacher-forced gap of the stream's
-tokens (``serve.checks``: below the best logit of one full-sequence
-forward on the same shards), whether every rank emits the same tokens,
-tok/s of the stream on the host's clock (the device drained), host syncs
-against chunks, each rank's peak allocated and reserved device memory,
-and the logits of one full-sequence forward over the first prompt (its
-last ``LOGIT_ROWS`` positions) against the first mesh's, with the card's
-name and power limit. It fails unless every rank emits the same tokens
-with one host sync a chunk (and, on the CPU, every stream equals its
-one-shot). The JSON record goes to ``--out`` (default
-``mesh_probe.json`` under the port's benchmark artifacts).
+mesh=)``, its peak recorded), rolls every request out one-shot
+(``Engine.generate``) and then serves the same requests as one paged
+stream (budgets priced for the mesh: ``model_shards``) under ``--target``,
+else the launcher's serving target (``h100`` on the card). Rank 0
+reports, for each M: how many requests' stream tokens are a prefix of
+their one-shot rollout and where the others part (on the card cuBLAS
+picks a GEMM's algorithm by its row count, and the one-shot runs one row
+where the stream runs its slots, so a near-tie may part them; above two
+ranks an expert-parallel MoE row also depends on its call's other rows:
+the capacity cut drops by them, and the collective's order of summing
+more than two partials follows the buffer's size), the worst teacher-forced
+gap of the stream's tokens (``serve.checks``: below the best logit of one
+full-sequence forward on the same shards) and the MoE hits the cap
+dropped in those forwards (``moe.count_ep``, outside the stream),
+the body each expert-parallel MoE call of the stream took
+(``moe.count_ep``: weight-gather or partial-K), whether every rank
+emits the same tokens, tok/s of the stream on the host's clock (the
+device drained), host syncs against chunks, each rank's peak allocated
+and reserved device memory (after building its weights, and over the
+run), and the logits of one full-sequence forward over the first prompt
+(its last ``LOGIT_ROWS`` positions) against the first mesh's, with the
+card's name and power limit. It fails unless every rank emits the same
+tokens with one host sync a chunk (and, on the CPU, every stream equals
+its one-shot but an expert-parallel MoE's above two ranks). The JSON
+record goes to
+``--out`` (default ``mesh_probe.json`` under the port's benchmark
+artifacts).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.mesh_probe
-        [--meshes 2,4] [--device cpu] [--requests N] [--prompt-len N]
-        [--gen-len N] [--out PATH] [--target NAME]
+        [--arch NAME] [--layers N] [--meshes 2,4] [--device cpu]
+        [--requests N] [--prompt-len N] [--gen-len N] [--out PATH]
+        [--target NAME]
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -58,7 +73,7 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import build
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import serving_target
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, moe, transformer
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.serve.checks import LOGIT_TOL, teacher_forced_gap
 from repro_torch.serve.engine import Engine, EngineConfig
@@ -96,6 +111,8 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
     dev = mesh.device
     cfg = get_reduced(opts["arch"]) if dev.type == "cpu" else get_config(
         opts["arch"])
+    if opts["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=opts["layers"])
     target = opts["target"] or serving_target(dev)
     with use_target(target) if target else contextlib.nullcontext():
         if dev.type == "cuda":
@@ -104,7 +121,10 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
         t0 = time.perf_counter()
         params = model.init_serving(
             torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+        _wait(dev)
         init_s = time.perf_counter() - t0
+        init_peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                     if dev.type == "cuda" else None)
         max_len = opts["prompt_len"] + opts["gen_len"]
         engine = Engine(model, params, EngineConfig(max_len=max_len,
                                                     sync_interval=8,
@@ -129,14 +149,18 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
         rids = [sch.submit(s["prompt"], s["max_new_tokens"]).rid
                 for s in stream]
         _wait(dev)
-        t0 = time.perf_counter()
-        rep = engine.serve(scheduler=sch)
-        _wait(dev)
-        wall = time.perf_counter() - t0
+        with moe.count_ep(drops=False) as count:
+            t0 = time.perf_counter()
+            rep = engine.serve(scheduler=sch)
+            _wait(dev)
+            wall = time.perf_counter() - t0
+        bodies = dict(count.bodies)
         outs = [rep.outputs[r] for r in rids]
         with engine.core.scope():
-            gaps = [teacher_forced_gap(cfg, engine.params, s["prompt"], o)
-                    for s, o in zip(stream, outs)]
+            with moe.count_ep() as count:
+                gaps = [teacher_forced_gap(cfg, engine.params, s["prompt"],
+                                           o) for s, o in zip(stream, outs)]
+            dropped = int(sum(d.item() for d in count.drops))
             # the same inputs on every mesh: one full-sequence forward over
             # the first prompt, its last LOGIT_ROWS positions' logits whole
             seq = torch.as_tensor(np.asarray(stream[0]["prompt"]),
@@ -148,6 +172,7 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
     n_tokens = sum(len(o) for o in outs)
     prefixes = [bool(o) and o == r[:len(o)] for o, r in zip(outs, refs)]
     mine = {"rank": dist.get_rank(), "device": str(dev),
+            "init_peak_allocated_gb": init_peak,
             "peak_allocated_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                                   if dev.type == "cuda" else None),
             "peak_reserved_gb": (torch.cuda.max_memory_reserved(dev) / 1e9
@@ -156,6 +181,7 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
             "first_parting": [next((i for i, (a, b) in enumerate(zip(o, r))
                                     if a != b), None)
                               for o, r in zip(outs, refs)],
+            "teacher_forced_dropped": dropped,
             "outputs": outs}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
@@ -163,8 +189,18 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
         return
     torch.save(logits, out + ".logits.pt")
     st = rep.stats
-    rec = {"mesh": f"1x{m}", "arch": cfg.name, "target": target,
+    rec = {"mesh": f"1x{m}", "arch": cfg.name, "layers": cfg.n_layers,
+           "target": target,
            "path": ("pooled" if cfg.n_kv_heads % m else "head"),
+           "moe_bodies": bodies,
+           # above 2 ranks an expert-parallel MoE row's output depends on
+           # its call's other rows: the cut may drop its hits (M above the
+           # capacity factor) and the collective's order of summing more
+           # than two partials follows the buffer's size; a router near-tie
+           # turns either into another expert
+           "rows_matter": bool(cfg.n_experts) and m > 2,
+           "teacher_forced_dropped": sum(r["teacher_forced_dropped"]
+                                         for r in ranks),
            "kv_shards": kv_shards(cfg, m), "n_slots": slots,
            "n_pages": geom.n_pages, "pool_bytes": st["pool_bytes"],
            "requests": len(stream), "n_tokens": n_tokens,
@@ -186,6 +222,9 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the config cut to this many layers "
+                         "(default: its own depth)")
     ap.add_argument("--meshes", default="2,4",
                     help="comma-separated model-axis sizes, one run each")
     ap.add_argument("--device", default=None,
@@ -205,8 +244,8 @@ def main(argv=None) -> int:
         build.build_all()       # once, before the ranks load the libraries
     runs = []
     for m in (int(x) for x in args.meshes.split(",")):
-        opts = dict(arch=args.arch, mesh=m, device=str(dev),
-                    target=args.target,
+        opts = dict(arch=args.arch, layers=args.layers, mesh=m,
+                    device=str(dev), target=args.target,
                     requests=args.requests, prompt_len=args.prompt_len,
                     gen_len=args.gen_len)
         with tempfile.TemporaryDirectory(prefix="repro_torch_probe_") as tmp:
@@ -224,10 +263,14 @@ def main(argv=None) -> int:
                                   .float().mean())}
         rec["spawn_s"] = time.perf_counter() - t0
         runs.append(rec)
-        peaks = ", ".join(f"rank {r['rank']} {r['peak_allocated_gb']}"
+        peaks = ", ".join(f"rank {r['rank']} {r['peak_allocated_gb']} "
+                          f"(weights built: {r['init_peak_allocated_gb']})"
                           for r in rec["ranks"])
-        print(f"mesh {rec['mesh']} ({rec['path']} path, kv pool sharded "
-              f"{rec['kv_shards']}x): {rec['n_tokens']} tokens of "
+        print(f"mesh {rec['mesh']} ({rec['arch']} x {rec['layers']}, "
+              f"{rec['path']} path, kv pool sharded "
+              f"{rec['kv_shards']}x; MoE bodies {rec['moe_bodies']}, "
+              f"{rec['teacher_forced_dropped']} hits dropped in the "
+              f"teacher-forced forwards): {rec['n_tokens']} tokens of "
               f"{rec['requests']} requests in {rec['wall_s']:.3f} s -> "
               f"{rec['tok_per_s']:.1f} tok/s; host syncs "
               f"{rec['host_syncs']} over {rec['chunks']} chunks; "
@@ -245,18 +288,21 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump({"card": card, "runs": runs}, f, indent=1)
     # every rank the same tokens and one host sync a chunk; on the CPU's
-    # GEMMs every stream its one-shot. The teacher-forced gaps and the
+    # GEMMs every stream its one-shot, but for an expert-parallel MoE above
+    # two ranks ("rows_matter"). The teacher-forced gaps and the
     # cross-mesh logits are recorded, not gated: on the card a near-tie
     # parts within the rule's noise (0.0447 at one device, 29-5)
     exact = dev.type == "cpu"
     ok = all(r["ranks_agree"] and r["host_syncs"] == r["chunks"]
-             and (r["prefix_of_one_shot"] == r["requests"] or not exact)
+             and (r["prefix_of_one_shot"] == r["requests"] or not exact
+                  or r["rows_matter"])
              for r in runs)
     print(json.dumps({"ok": ok, "card": card,
                       "runs": [{k: r[k] for k in (
-                          "mesh", "path", "tok_per_s", "prefix_of_one_shot",
-                          "teacher_forced_worst_gap", "ranks_agree",
-                          "logits_vs_first_mesh")}
+                          "mesh", "arch", "layers", "path", "tok_per_s",
+                          "prefix_of_one_shot", "teacher_forced_worst_gap",
+                          "teacher_forced_dropped", "moe_bodies",
+                          "ranks_agree", "logits_vs_first_mesh")}
                                for r in runs]}))
     return 0 if ok else 1
 

@@ -39,7 +39,9 @@ tier-codec head-to-head (concurrent residents per layer-0 byte; with
 mesh's ranks (spawned: gloo on the CPU, NCCL one rank a GPU on the card),
 each held to its own engine's one-shot rollouts, gated on modeled decode
 scaling. A data axis above 1, and configs other than dense GQA decoders
-at a model axis above 1, raise ``NotImplementedError`` (ROADMAP A13c).
+and expert-parallel GQA MoE decoders whose experts the model axis divides
+(qwen3-moe-30b-a3b), at a model axis above 1, raise
+``NotImplementedError`` (ROADMAP A13c).
 
 Latency on the host's wall clock, beside the reference's step clocks:
 
@@ -1551,9 +1553,10 @@ def parser() -> argparse.ArgumentParser:
                     help="device mesh sizes, 'DxM' or one int; any size "
                          "> 1 runs the mesh-sharded head-to-head on ranks "
                          "it spawns (a data axis above 1, or a config "
-                         "other than a dense GQA decoder, raises "
-                         "NotImplementedError: ROADMAP A13c); 1 is the "
-                         "single-device path")
+                         "other than a dense GQA decoder or a GQA MoE "
+                         "decoder whose experts the model axis divides, "
+                         "raises NotImplementedError: ROADMAP A13c); 1 is "
+                         "the single-device path")
     ap.add_argument("--mesh-axes", default="data,model",
                     help="comma-separated axis names for --mesh")
     ap.add_argument("--require-scaling", action="store_true",

@@ -302,6 +302,11 @@ def local_shard(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     major axis first."""
     if not moves(spec, mesh):
         return x
+    return local_view(x, spec, mesh).clone()
+
+
+def local_view(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """:func:`local_shard` as a view of ``x``, not a copy."""
     for dim, entry in enumerate(spec):
         for name in _names(entry):
             n = axis_size(mesh, name)
@@ -311,7 +316,7 @@ def local_shard(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
                 raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
                                  f"split over {name} ({n})")
             x = x.chunk(n, dim)[mesh.coordinate(name)]
-    return x.clone()
+    return x
 
 
 def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:

@@ -38,9 +38,16 @@ rank runs the same host scheduler on the same requests). Without a mesh
 every function here is the single-device computation itself; at a model
 axis of 1 every collective spans one rank.
 
+  * the MoE layers of an expert-parallel decoder (:func:`ep_moe_decoder`)
+    hold ``n_experts / M`` experts a rank and sum each rank's combined
+    output over ``model`` (``models.moe``'s ``ep``), in f32 or in the
+    activation dtype as the reference's byte rule picks (:func:`all_sum`
+    takes both).
+
 :func:`check_serving` names what sharded serving does not run yet
 (ROADMAP A13c): the ``data`` (or any other) axis above 1, and at a model
-axis above 1 any config but a dense GQA decoder.
+axis above 1 any config but a dense GQA decoder or an expert-parallel MoE
+decoder whose experts the axis divides.
 """
 
 from __future__ import annotations
@@ -124,8 +131,8 @@ def kv_scale_reduce(n_kv_heads: int) -> Optional[Callable]:
 
 
 def all_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum over ``model`` of an f32 tensor (in place on a contiguous
-    ``x``, which it returns)."""
+    """The sum over ``model`` of an f32 or bf16 tensor, in its dtype (in
+    place on a contiguous ``x``, which it returns)."""
     x = x.contiguous()
     dist.all_reduce(x, group=_group())
     return x
@@ -212,11 +219,25 @@ def gqa_decoder(cfg) -> bool:
                for group in cfg.layer_groups() for kind in group.pattern)
 
 
+def ep_moe_decoder(cfg) -> bool:
+    """A ``moe``-family decoder of GQA attention layers whose MLP layers
+    are MoE or SwiGLU, with token prompts and no shared experts: the
+    configs expert-parallel serving runs at a model axis above 1 that
+    divides their experts (qwen3-moe-30b-a3b)."""
+    if (cfg.family != "moe" or cfg.frontend_len or cfg.n_shared_experts
+            or not cfg.n_experts):
+        return False
+    return all(kind.attn == "gqa" and kind.mlp in ("mlp", "moe")
+               for group in cfg.layer_groups() for kind in group.pattern)
+
+
 def check_serving(cfg, shape: Dict[str, int]) -> None:
     """Raise ``NotImplementedError`` (ROADMAP A13c) for a mesh of axis
     sizes ``shape`` that sharded serving does not run yet: any axis but
-    ``model`` above 1, or at a model axis above 1 a config with MoE, MLA,
-    mamba or hybrid layers, a frontend or an encoder."""
+    ``model`` above 1, or at a model axis above 1 a config that is neither
+    a dense GQA decoder nor an expert-parallel MoE decoder whose experts
+    the axis divides (MLA, mamba and hybrid layers, shared experts,
+    frontends and encoders)."""
     others = {name: n for name, n in shape.items()
               if name != shd.MODEL_AXIS and n > 1}
     if others:
@@ -224,9 +245,18 @@ def check_serving(cfg, shape: Dict[str, int]) -> None:
             f"sharded serving runs on the model axis alone; "
             f"{', '.join(f'{k}={v}' for k, v in others.items())} is not "
             f"ported yet (ROADMAP A13c)")
-    if shape.get(shd.MODEL_AXIS, 1) > 1 and not gqa_decoder(cfg):
+    m = shape.get(shd.MODEL_AXIS, 1)
+    if m == 1 or gqa_decoder(cfg):
+        return
+    if ep_moe_decoder(cfg):
+        if cfg.n_experts % m == 0:
+            return
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): sharded serving at a model axis "
-            f"above 1 runs dense GQA decoders; expert-parallel MoE, MLA, "
-            f"mamba and hybrid layers, frontends and encoders are not "
-            f"ported yet (ROADMAP A13c)")
+            f"{cfg.name}: expert-parallel serving puts n_experts / M experts "
+            f"on each rank; {cfg.n_experts} experts do not split over a "
+            f"model axis of {m} (ROADMAP A13c)")
+    raise NotImplementedError(
+        f"{cfg.name} ({cfg.family}): sharded serving at a model axis above 1 "
+        f"runs dense GQA decoders and expert-parallel GQA MoE decoders; "
+        f"MLA, mamba and hybrid layers, shared experts, frontends and "
+        f"encoders are not ported yet (ROADMAP A13c)")

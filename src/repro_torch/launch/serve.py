@@ -55,10 +55,13 @@ rank builds its shards of the weights, serves the same requests through a
 tensor-parallel engine (``EngineConfig(mesh=...)``) whose pools hold its
 KV heads, and rank 0 prints the report with the line
 ``mesh: 1xM (data x model), kv pool sharded Kx; per-shard pool N B``. The
-budgets price the mesh's aggregate pool (``model_shards``). A data axis
-above 1, and at a model axis above 1 the MoE, MLA, mamba, hybrid,
-frontend and encoder configs, raise ``NotImplementedError`` (ROADMAP
-A13c). Without ``--mesh`` the launcher serves on one device.
+budgets price the mesh's aggregate pool (``model_shards``). An
+expert-parallel MoE decoder (qwen3-moe-30b-a3b) holds ``n_experts / M``
+experts a rank at a model axis that divides them. A data axis above 1,
+and at a model axis above 1 a model axis that does not divide the
+experts, MLA, mamba, hybrid, shared-expert, frontend and encoder configs,
+raise ``NotImplementedError`` (ROADMAP A13c). Without ``--mesh`` the
+launcher serves on one device.
 
 Weights are random, made on the device from a fixed seed. The hardware
 target (``--target``, else ``REPRO_TARGET`` or the registry default) sizes
@@ -371,10 +374,12 @@ def parser() -> argparse.ArgumentParser:
                          "2 = 1x2) or DxM sizes matching --mesh-axes; "
                          "given (1 included), serve through the mesh path "
                          "on ranks the launcher starts, one a GPU on the "
-                         "card; a data axis above 1, and MoE / MLA / mamba "
-                         "/ hybrid / frontend / encoder configs at a model "
-                         "axis above 1, raise NotImplementedError (ROADMAP "
-                         "A13c); default: the single-device path")
+                         "card; MoE experts split over the model axis; a "
+                         "data axis above 1, a model axis that does not "
+                         "divide the experts, and MLA / mamba / hybrid / "
+                         "shared-expert / frontend / encoder configs at a "
+                         "model axis above 1 raise NotImplementedError "
+                         "(ROADMAP A13c); default: the single-device path")
     ap.add_argument("--mesh-axes", default="data,model",
                     help="comma-separated axis names the --mesh sizes bind "
                          "to (default data,model)")

@@ -130,21 +130,25 @@ class Model:
         rule before the next is drawn, so the f32 tree never exists. The
         peak is the serving copy plus its largest f32 leaf.
 
-        Under ``mesh`` each leaf is then cut to this rank's shard
-        (``sharding.spec_for_param``, ``local_shard``) and the rest freed
-        before the next draw: every rank draws the same full leaves from
-        the same generator, so rank r holds ``local_shard(prepare(init(
-        gen)))`` bit for bit, at a peak of its shards plus one whole
-        leaf."""
+        Under ``mesh`` each whole f32 leaf is cut to this rank's shard
+        (``sharding.spec_for_param``; the routed experts on ``model``)
+        before the cast, and freed before the next draw: every rank draws
+        the same full leaves from the same generator, and the cast is
+        elementwise, so rank r holds ``local_shard(prepare(init(gen)))``
+        bit for bit, at a peak of its shards plus one whole f32 leaf plus
+        that leaf's cast shard."""
         leaf = self._leaf()
         if mesh is None:
             return self._draw(gen, leaf)
 
         def shard(name: str, x: torch.Tensor) -> torch.Tensor:
-            x = leaf(name, x)
-            return shd.local_shard(
-                x, shd.spec_for_param(name.lower(), tuple(x.shape), mesh),
-                mesh)
+            spec = shd.spec_for_param(name.lower(), tuple(x.shape), mesh)
+            if not shd.moves(spec, mesh):
+                return leaf(name, x)
+            view = shd.local_view(x, spec, mesh)
+            out = leaf(name, view)
+            # a leaf kept as it is must not pin the whole one behind it
+            return out.clone() if out is view else out.contiguous()
         return self._draw(gen, shard)
 
     def _draw(self, gen: torch.Generator, leaf: layers.Leaf) -> Any:

@@ -54,9 +54,11 @@ With ``EngineConfig(mesh=...)`` (a ``sharding.Mesh`` of this rank, from
 the params are the rank's shards, every model call runs under
 ``distributed.tensor_parallel.use_mesh`` (tensor-parallel attention, MLP
 and vocabulary; head-sharded pools where the KV heads divide the ``model``
-axis, whole pools and the pooled decode where they do not), and the
-greedy pick merges the ranks' vocabulary columns. Every rank runs the
-same host scheduler on the same requests, so every rank plans, copies,
+axis, whole pools and the pooled decode where they do not; expert-parallel
+MoE layers, ``n_experts / M`` experts a rank), and the greedy pick merges
+the ranks' vocabulary columns. Every rank runs the same host scheduler on
+the same requests, so every MoE call sees the same rows on every rank,
+idle slots included, and every rank plans, copies,
 uploads and drains the same boundaries: each rank's pools hold its own
 heads of the same page ids, and ``_fetch`` stays the one device->host read
 a boundary on each rank. What sharded serving does not run yet raises at
@@ -162,20 +164,35 @@ def device_only(device: torch.device):
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def _expert_leaves(tree: Any):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _expert_leaves(v)
+        elif k in ("we_gate", "we_up", "we_down"):
+            yield v
+
+
 def _check_shards(cfg, params: Any, mesh) -> None:
     """Raise unless ``params`` look like this rank's shards on ``mesh``:
-    the embedding table holds the rows ``spec_for_param`` gives a rank."""
+    the embedding table holds the rows ``spec_for_param`` gives a rank,
+    and each routed expert leaf ``n_experts / M`` experts."""
     table = params["tok"]["embed"]
     want = shd.local_shard(torch.empty((cfg.padded_vocab, 0)),
                            shd.spec_for_param("tok/embed",
                                               (cfg.padded_vocab, 0), mesh),
                            mesh).shape[0]
-    if table.shape[0] != want:
+    held = [f"the embedding holds {table.shape[0]} rows, a rank's shard "
+            f"{want}"] if table.shape[0] != want else []
+    if cfg.n_experts:
+        e_loc = cfg.n_experts // shd.model_axis_size(mesh)
+        held += [f"an expert leaf holds {w.shape[-3]} experts, a rank's "
+                 f"shard {e_loc}" for w in _expert_leaves(params)
+                 if w.shape[-3] != e_loc][:1]
+    if held:
         raise ValueError(
             f"EngineConfig(mesh=...) serves this rank's shards of the "
             f"params (Model.init_serving(gen, mesh=mesh), "
-            f"bridge.sharded_from_numpy); the embedding holds "
-            f"{table.shape[0]} rows, a rank's shard {want}")
+            f"bridge.sharded_from_numpy); {held[0]}")
 
 
 def _to_host(tree):

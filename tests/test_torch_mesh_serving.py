@@ -43,7 +43,7 @@ from repro.core.target import TieredPartition as JTieredPartition
 from repro.models.config import ModelConfig as JModelConfig
 from repro.serve import scheduler as jsm
 from repro_torch.benchmarks import serve_bench
-from repro_torch.configs import ARCH_IDS, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.target import CapacityPartition, TieredPartition
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel as tp
@@ -74,7 +74,14 @@ CONFIGS.update({arch: (get_reduced(arch), j_get_reduced(arch))
                 for arch in ARCH_IDS})
 #: the configs sharded serving runs above a model axis of 1
 GQA_DECODERS = ("qwen2.5-3b", "yi-6b", "mistral-nemo-12b", "gemma3-27b")
-REFUSED = sorted(set(ARCH_IDS) - set(GQA_DECODERS))
+#: expert-parallel MoE decoders, at the model axes that divide their
+#: experts (the smoke config's 8)
+EP_DECODERS = {"qwen3-moe-30b-a3b": (1, 2, 4)}
+#: (arch, model axis) refused: every other config at 2, the expert-parallel
+#: ones at an axis that does not divide their experts
+REFUSED = sorted([(arch, 2) for arch in ARCH_IDS
+                  if arch not in GQA_DECODERS and arch not in EP_DECODERS]
+                 + [("qwen3-moe-30b-a3b", 3)])
 
 
 def _fields(x):
@@ -236,14 +243,15 @@ def test_plain_start_combines_with_the_window(window):
     assert lse.shape == (4, 4)
 
 
-@pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_refuse_a_model_axis(arch):
+@pytest.mark.parametrize("arch,model", REFUSED,
+                         ids=[arch for arch, _ in REFUSED])
+def test_other_families_refuse_a_model_axis(arch, model):
     cfg = get_reduced(arch)
     with pytest.raises(NotImplementedError, match="A13c"):
-        tp.check_serving(cfg, {"data": 1, "model": 2})
+        tp.check_serving(cfg, {"data": 1, "model": model})
     tp.check_serving(cfg, {"data": 1, "model": 1})
     with pytest.raises(NotImplementedError, match="A13c"):
-        cli.run(["--device", "cpu", "--arch", arch, "--mesh", "2"])
+        cli.run(["--device", "cpu", "--arch", arch, "--mesh", str(model)])
 
 
 @pytest.mark.parametrize("arch", GQA_DECODERS)
@@ -252,6 +260,16 @@ def test_gqa_decoders_run_any_model_axis(arch):
     assert tp.gqa_decoder(cfg)
     for m in SHARDS:
         tp.check_serving(cfg, {"data": 1, "model": m})
+
+
+@pytest.mark.parametrize("arch", sorted(EP_DECODERS))
+def test_ep_decoders_run_a_dividing_model_axis(arch):
+    cfg, full = get_reduced(arch), get_config(arch)
+    assert tp.ep_moe_decoder(cfg) and tp.ep_moe_decoder(full)
+    assert not tp.gqa_decoder(cfg)
+    for m in EP_DECODERS[arch]:
+        tp.check_serving(cfg, {"data": 1, "model": m})
+        tp.check_serving(full, {"data": 1, "model": m})
 
 
 @pytest.mark.parametrize("shape", [{"data": 2, "model": 1},
@@ -271,7 +289,7 @@ class FakeMesh:
 
 
 @pytest.mark.parametrize("arch,sizes", [
-    ("qwen3-moe-30b-a3b", dict(data=1, model=2)),
+    ("deepseek-v2-236b", dict(data=1, model=2)),
     ("falcon-mamba-7b", dict(data=1, model=4)),
     ("qwen2.5-3b", dict(data=2, model=1))])
 def test_engine_construction_refuses(arch, sizes):
@@ -308,6 +326,27 @@ def test_engine_wants_a_ranks_shards():
                                            mesh=Split(data=1, model=2)))
     assert shd.spec_for_param("tok/embed", (cfg.padded_vocab, 64),
                               Split(data=1, model=2))[0] == "model"
+
+
+def test_engine_wants_a_ranks_experts():
+    """A mesh engine handed whole expert leaves (the embedding cut to the
+    rank's rows, the experts not) raises before serving: a rank holds
+    n_experts / M experts."""
+    cfg = get_reduced("qwen3-moe-30b-a3b")
+    model = build_model(cfg, device="cpu")
+    params = model.init_serving(torch.Generator().manual_seed(0))
+
+    class Split(FakeMesh):
+        def coordinate(self, name):
+            return 0
+
+    mesh = Split(data=1, model=2)
+    table = params["tok"]["embed"]
+    params["tok"]["embed"] = shd.local_shard(
+        table, shd.spec_for_param("tok/embed", tuple(table.shape), mesh),
+        mesh)
+    with pytest.raises(ValueError, match="holds 8 experts, a rank.s shard 4"):
+        Engine(model, params, EngineConfig(max_len=MAX_LEN, mesh=mesh))
 
 
 # ----------------------------------------------------------------- the card

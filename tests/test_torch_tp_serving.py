@@ -159,17 +159,7 @@ def children():
         proc.communicate()
 
 
-def _requests():
-    # tests/mesh_matrix_check.py's requests
-    rng = np.random.RandomState(11)
-    system = np.tile(rng.randint(2, 128, size=4).astype(np.int32), 4)
-    tails = [rng.randint(2, 128, size=n).astype(np.int32) for n in (7, 11)]
-    motif = np.tile(rng.randint(2, 128, size=5).astype(np.int32), 5)[:22]
-    rand = rng.randint(2, 128, size=13).astype(np.int32)
-    return [(np.concatenate([system, tails[0]]), 14),
-            (np.concatenate([system, tails[1]]), 12),
-            (motif, 16),
-            (rand, 10)]
+_requests = ranks_mod.requests
 
 
 @pytest.fixture(scope="module")

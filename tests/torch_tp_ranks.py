@@ -44,6 +44,19 @@ SQUEEZED_PAGES = 9
 WORLD4_CELLS = ("paged", "speculate", "dense")
 
 
+def requests():
+    """tests/mesh_matrix_check.py's requests: (prompt, max new tokens)."""
+    rng = np.random.RandomState(11)
+    system = np.tile(rng.randint(2, 128, size=4).astype(np.int32), 4)
+    tails = [rng.randint(2, 128, size=n).astype(np.int32) for n in (7, 11)]
+    motif = np.tile(rng.randint(2, 128, size=5).astype(np.int32), 5)[:22]
+    rand = rng.randint(2, 128, size=13).astype(np.int32)
+    return [(np.concatenate([system, tails[0]]), 14),
+            (np.concatenate([system, tails[1]]), 12),
+            (motif, 16),
+            (rand, 10)]
+
+
 def geometry(cfg, codec: str = "fp16", n_pages: int = 41,
              spill_codec=None):
     pb = sm.kv_bytes_per_token(cfg, 2 if codec == "fp16" else 1) * PT
