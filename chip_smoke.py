@@ -68,7 +68,12 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      lie inside the offsets, the computed rows within GEMM_REL_TOL of the
      plain version, timed beside ``F.grouped_mm`` and the bound of the
      computed rows, in the repeat set and digested as
-     ``qwen3moe_1x{2,4}_*`` (f32 outputs);
+     ``qwen3moe_1x{2,4}_*`` (f32 outputs), and the same at deepseek-v2's
+     rank shapes (80 and 40 experts, K 5120 / N 1536; ``deepseek_1x{2,4}_*``);
+     flash at (192, 128) over deepseek-v2's heads a rank of 1 x 2 and 1 x
+     4 (64 and 32; its 4 x 256 admission on the model's views), each
+     timed beside SDPA and its bound, in the repeat set and digested as
+     ``deepseek_1x{2,4}_flash``;
      then every attention case is called REPEAT_ROUNDS more times, the
      cases interleaved, each call bit for bit equal to its first output;
      mamba_scan at falcon-mamba-7b's shapes
@@ -170,7 +175,16 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      admission, the paged kernel never (MLA decodes in latent space, as
      the reference does), the paged stream over the latent pool and again
      at ``--kv-quant int8`` (first tokens against the fp16 stream's); its
-     K / V control trades the K and V parts of ``wkv_b``;
+     K / V control trades the K and V parts of ``wkv_b``; the
+     expert-parallel layer at world 1 and its ranks' shares as phase 8's
+     (every call partial-K by the byte rule at deepseek's widths; the
+     shared experts' column / row shards summed against the whole SwiGLU
+     within SHARED_RANK_TOL), and each rank's share of one MLA layer on 1 x
+     2 and 1 x 4 (``check_mla_ranks``: leaves cut as ``init_serving`` cuts
+     them, ``n_heads / M`` heads over the whole latent; the ranks' f32
+     ``wo`` partials summed against the whole layer's at the admission's
+     prefill through flash and one absorbed decode step, within
+     MLA_RANK_TOL);
  10. gemma3-27b at its published widths cut to two 5:1 periods (12 of 62
      layers, globals at 5 and 11): the one-shot (2 x 2048-token prompts x
      32) and the paged stream (4 requests, prompts 1207-1708, 4 slots,
@@ -270,10 +284,17 @@ Phases, each fatal on failure (a non-zero exit and no result line):
      of its own; every collective of the tensor-parallel engine spans one
      rank): launches by phase 5's rules, host syncs == chunks, and every
      token, the scheduler counters and the launches equal phase 5's
-     single-device paged stream; the phase's seconds;
+     single-device paged stream; then deepseek-v2-236b x 3 the same way
+     (MLA's head-sharded layer, the expert-parallel MoE and the shared
+     experts' tensor-parallel SwiGLU over one rank) against phase 9's
+     paged stream; the phase's seconds;
  17. the ``kernels`` summary line (launches on the main path, the paged
      qwen stream, and by path for every stream; flash at D = 192 a row of
-     its own, launched by deepseek-v2's paged stream; flash at D = 64 a
+     its own, launched by deepseek-v2's paged stream, its 64- and 32-head
+     rank shapes and the MLA rank check among its extras (the rank shapes
+     launch on a main path only across cards: ``mesh_probe``, PERF.md);
+     grouped_gemm's extras hold both MoE models' rank shapes, layer
+     checks and shares; flash at D = 64 a
      row launched by seamless-m4t-medium's one-shot; grouped_gemm a row
      launched by qwen3-moe's paged stream; the training launches a step,
      and each Function's check and plain backward time, on the flash,
@@ -417,11 +438,31 @@ NEW_CASE_DIGESTS = {"d64_encoder": "aea592b592485ddb",
                     "qwen3moe_1x4_prefill_gate": "6f25f1ea97627a92",
                     "qwen3moe_1x4_prefill_down": "89e535b49678efb6",
                     "qwen3moe_1x4_decode_gate": "1a87df59ff57a153",
-                    "qwen3moe_1x4_decode_down": "c337f87e47bec2c9"}
+                    "qwen3moe_1x4_decode_down": "c337f87e47bec2c9",
+                    # deepseek-v2's rank shapes: flash (192, 128) over 64 /
+                    # 32 heads and grouped_gemm over 80 / 40 experts
+                    "deepseek_1x2_flash": "f9c9abc5f541449c",
+                    "deepseek_1x4_flash": "fee44a44a2e11d97",
+                    "deepseek_1x2_prefill_gate": "5fc22115cb340554",
+                    "deepseek_1x2_prefill_down": "84e9f816dd393bea",
+                    "deepseek_1x2_decode_gate": "c3c553821652479c",
+                    "deepseek_1x2_decode_down": "04369b062c538df1",
+                    "deepseek_1x4_prefill_gate": "ea4deb59877b5bac",
+                    "deepseek_1x4_prefill_down": "5865752fb0366e82",
+                    "deepseek_1x4_decode_gate": "4d64e33c7fcda866",
+                    "deepseek_1x4_decode_down": "33a8f9717f123a9f"}
 #: the pooled decode's range splits held in phase 3
 RANGE_SPLITS = (2, 4)
-#: the model axes whose rank shapes phase 3 runs grouped_gemm at
+#: the model axes whose rank shapes phase 3 runs grouped_gemm (and MLA's
+#: flash) at
 EP_RANK_MESHES = (2, 4)
+#: grouped_gemm at the expert-parallel rank shapes of phase 3: arch ->
+#: (digest prefix, numpy seed, experts drawn: None draws every expert of
+#: rank 0, a number draws that many and tiles them to the rank's count,
+#: so that deepseek-v2's 80 x 5120 x 1536 experts are not drawn on the
+#: host one by one)
+EP_RANK_GEMM = {"qwen3-moe-30b-a3b": ("qwen3moe", 393, None),
+                "deepseek-v2-236b": ("deepseek", 397, 8)}
 #: (B, Hq, Hkv, Sq, Skv, kwargs, transposed views) of each digest case
 FLASH_DIGEST_CASES = {
     "admission": (4, 16, 2, 256, 256, {}, False),
@@ -437,6 +478,9 @@ FLASH_DIGEST_CASES = {
 #: leaf): (arch, layers kept of the published)
 QWEN_MOE = ("qwen3-moe-30b-a3b", 16)
 DEEPSEEK = ("deepseek-v2-236b", 3)
+#: deepseek-v2's one-shot admission (B, S): flash at (192, 128) and the MLA
+#: rank check's prefill
+MLA_ADMISSION = (4, 256)
 #: the grouped MoE (bf16 experts, f32 expert products) against the plain
 #: one (f32 experts) at one full-width layer: bf16 operand rounding. Read
 #: on an NVIDIA H100 80GB HBM3 (PERF.md section 6): qwen3-moe 7.8e-3 / 3.9e-3
@@ -446,10 +490,11 @@ MOE_TOL = 2e-2
 #: one full-width MoE layer's token counts: a one-shot admission's prefill
 #: (4 x 256) and a decode step over the 4 slots
 MOE_TOKENS = {"prefill": 1024, "decode": 4}
-#: the expert-parallel layer's token counts at world 1, each with the body
-#: the reference's byte rule picks there (partial-K below ~5560 tokens at
-#: qwen3-moe's widths and one rank)
-EP_LAYER_TOKENS = {4: "partial_k", 1024: "partial_k", 8192: "weight_gather"}
+#: the expert-parallel layer's token counts at world 1; the body each call
+#: must take is the reference's byte rule's (``moe.ep_body``): at qwen3-moe's
+#: widths partial-K below ~5560 tokens (T 4, 1024) and weight-gather above
+#: (8192), at deepseek-v2's partial-K below ~21800 (all three)
+EP_LAYER_TOKENS = (4, 1024, 8192)
 #: the sum of the ranks' f32 shares of one full-width expert-parallel layer
 #: against the grouped layer's f32 output, relative to its largest value:
 #: the same hits through the same weights, the k hits of a token summed in
@@ -457,6 +502,25 @@ EP_LAYER_TOKENS = {4: "partial_k", 1024: "partial_k", 8192: "weight_gather"}
 #: at T 1024 and 4; a hit lost or counted twice moves its token by about
 #: its gate (1 / top_k) of its output
 EP_RANK_TOL = 1e-5
+#: each rank's f32 partial of deepseek-v2's shared experts (its column
+#: shards of ``w_gate`` / ``w_up``, row shard of ``w_down``, through
+#: ``layers.mlp(..., d_ff=)``) summed over the ranks against the whole
+#: SwiGLU's f32 product, relative to its largest value: the same bf16
+#: column products (cuBLAS may round a column of the sliced GEMM otherwise)
+#: and the row partials summed in another f32 order. Read on an NVIDIA H100
+#: 80GB HBM3, 700.00 W: 2.2e-6 to 3.3e-6 at 1 x 2 / 1 x 4, T 1024 / 4
+#: (PERF.md, PR 32; the CPU reads 1.2e-7 / 1.7e-7); a rank's share lost or
+#: counted twice moves the sum by about its own size
+SHARED_RANK_TOL = 2e-5
+#: the MLA rank check (``check_mla_ranks``): the sum of the ranks' f32 ``wo``
+#: partials of one full-width deepseek-v2 layer against the whole layer's
+#: f32 ``wo`` product, relative to its largest value, at the prefill (flash
+#: over the rank's heads) and one absorbed decode step: the same heads
+#: through column-sliced bf16 GEMMs and the row partials summed in another
+#: f32 order. Read on an NVIDIA H100 80GB HBM3, 700.00 W: prefill 1.2e-5 /
+#: 1.4e-5, decode 7.1e-5 at 1 x 2 / 1 x 4 (PERF.md, PR 32); a head lost,
+#: counted twice or paired with another rank's rows moves the sum by O(1)
+MLA_RANK_TOL = 5e-4
 #: a MoE model's step-by-step pass against a full-sequence forward on the
 #: same routes (forced_routes), max |d logit| over the generated
 #: positions, by arch: about 2.3x the sound runs' readings (up to 0.041
@@ -1046,15 +1110,25 @@ def phase_kernels(cfg, geom, n_slots, fcfg) -> dict:
         f"{p8_plain:.4f} ms, bound {p8_bound:.4f} ms ({p8_by})")
     ranges = paged_range_cases(repeats, n_slots, depth)
     rank_cases = qwen_rank_cases(repeats, depth)
-    ep_gemm = ep_rank_gemm_cases(repeats)
+    gemms = [ep_rank_gemm_cases(repeats, arch) for arch in EP_RANK_GEMM]
+    ep_gemm = {"err": max(g["err"] for g in gemms),
+               "cases": {k: v for g in gemms for k, v in g["cases"].items()},
+               "digests": {k: v for g in gemms
+                           for k, v in g["digests"].items()}}
+    mla_rank = mla_rank_flash_cases(repeats)
+    flash_mla["extra"] = {f"rank_{mesh}_{key}": value for mesh, row
+                          in mla_rank["cases"].items()
+                          for key, value in row.items()}
+    flash_mla["extra"]["rank_max_abs_err"] = mla_rank["err"]
+    flash_mla["digests"] = mla_rank["digests"]
     new_digests = {**ranges["digests"], **rank_cases["digests"],
-                   **ep_gemm["digests"]}
+                   **ep_gemm["digests"], **mla_rank["digests"]}
     differ = {case: got for case, got in new_digests.items()
               if case in NEW_CASE_DIGESTS and NEW_CASE_DIGESTS[case] != got}
     if differ:
         fail(f"outputs moved from their recorded digests: {differ}")
-    log(f"  digests of the range, 1x2 rank and expert-parallel rank "
-        f"cases: {new_digests} "
+    log(f"  digests of the range, 1x2 rank, expert-parallel rank and MLA "
+        f"rank cases: {new_digests} "
         f"(recorded: {sorted(set(NEW_CASE_DIGESTS) & set(new_digests))})")
     repeat_calls(repeats)
     del q, kp, vp, bt, cl, batch, repeats
@@ -1613,18 +1687,20 @@ def ep_rank_routes(t: int, e: int, k: int, m: int, cf: float, seed: int):
     return cap, offs.astype(np.int32), int(offs[-1])
 
 
-def ep_rank_gemm_cases(repeats) -> dict:
-    """``grouped_gemm`` at qwen3-moe-30b-a3b's rank shapes on a 1 x 2 (64
-    experts a rank) and a 1 x 4 mesh (32), a one-shot admission (T 1024)
-    and a decode step (T 4) through the gate (K 2048, N 768) and down (K
-    768, N 2048) projections: ``cap`` rows of which only the rank's own
-    hits lie inside the offsets (``ep_rank_routes``). The computed rows are
-    held to the plain version within GEMM_REL_TOL, added to the repeat set
-    and digested (numpy-seeded inputs: ``qwen3moe_1x{2,4}_*``); timed by
-    events a call, back to back and by CUDA-graph replay (the device's
-    time alone) beside ``F.grouped_mm`` (bf16 out) and the bound of the
-    hit experts' weights, the computed rows and their f32 output (the
-    kernel reads and writes none of the rows past the last offset)."""
+def ep_rank_gemm_cases(repeats, arch: str) -> dict:
+    """``grouped_gemm`` at ``arch``'s expert-parallel rank shapes on a 1 x 2
+    and a 1 x 4 mesh (rank 0: half and a quarter of the experts;
+    qwen3-moe-30b-a3b 64 / 32 at K 2048, N 768; deepseek-v2-236b 80 / 40
+    at K 5120, N 1536), a one-shot admission (T 1024) and a decode step (T
+    4) through the gate and down projections: ``cap`` rows of which only
+    the rank's own hits lie inside the offsets (``ep_rank_routes``). The
+    computed rows are held to the plain version within GEMM_REL_TOL, added
+    to the repeat set and digested (numpy-seeded inputs, EP_RANK_GEMM:
+    ``<prefix>_1x{2,4}_*``); timed by events a call, back to back and by
+    CUDA-graph replay (the device's time alone) beside ``F.grouped_mm``
+    (bf16 out) and the bound of the hit experts' weights, the computed
+    rows and their f32 output (the kernel reads and writes none of the
+    rows past the last offset)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1634,23 +1710,28 @@ def ep_rank_gemm_cases(repeats) -> dict:
     from repro_torch.kernels.grouped_gemm import (grouped_gemm,
                                                   grouped_gemm_plain,
                                                   launch_config)
-    cfg = get_config(QWEN_MOE[0])
-    rng = np.random.default_rng(393)
+    cfg = get_config(arch)
+    prefix, seed, drawn = EP_RANK_GEMM[arch]
+    rng = np.random.default_rng(seed)
 
     def make(*shape):
         return torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to(torch.bfloat16).cuda()
 
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+
+    def experts(k, n):
+        w = make(drawn or e // 2, k, n) * k ** -0.5
+        return w.repeat(e // 2 // w.shape[0], 1, 1) if drawn else w
+
     # rank 0's experts: 0..e/2-1 on 1 x 2, the first half of those on 1 x 4
-    weights = {"gate": make(e // 2, d, f) * d ** -0.5,
-               "down": make(e // 2, f, d) * f ** -0.5}
+    weights = {"gate": experts(d, f), "down": experts(f, d)}
     out, digests, err = {}, {}, 0.0
     for m in EP_RANK_MESHES:
         for label, t in MOE_TOKENS.items():
             cap, offs_np, rows = ep_rank_routes(t, e, cfg.top_k, m,
                                                 cfg.capacity_factor,
-                                                394 + m + t)
+                                                seed + 1 + m + t)
             offs = torch.from_numpy(offs_np).cuda()
             for proj, w in weights.items():
                 w = w[:e // m]
@@ -1659,17 +1740,17 @@ def ep_rank_gemm_cases(repeats) -> dict:
                 want = grouped_gemm_plain(xs, w, offs)[:rows]
                 rel = ((got - want).abs().max() / want.abs().max()).item()
                 conf = launch_config(cap, w.shape[1], w.shape[2], w.shape[0])
-                name = (f"grouped_gemm 1x{m} rank 0 {label} {proj} ({rows} "
-                        f"of {cap} rows its own, {w.shape[0]} experts, "
-                        f"K={w.shape[1]}, N={w.shape[2]}; {conf.bm} x "
-                        f"{conf.bn} tiles)")
+                name = (f"grouped_gemm {prefix} 1x{m} rank 0 {label} {proj} "
+                        f"({rows} of {cap} rows its own, {w.shape[0]} "
+                        f"experts, K={w.shape[1]}, N={w.shape[2]}; "
+                        f"{conf.bm} x {conf.bn} tiles)")
                 if not (bool(torch.isfinite(got).all())
                         and rel <= GEMM_REL_TOL):
                     fail(f"{name}: {rel:.2e} of the largest value "
                          f"(tolerance {GEMM_REL_TOL})")
                 log(f"  {name}: {rel:.2e} of the largest  ok")
                 err = max(err, rel)
-                key = f"qwen3moe_1x{m}_{label}_{proj}"
+                key = f"{prefix}_1x{m}_{label}_{proj}"
                 kernel = functools.partial(grouped_gemm, xs, w, offs)
                 repeats.append((key, lambda kernel=kernel, rows=rows:
                                 kernel()[:rows], got))
@@ -1683,6 +1764,53 @@ def ep_rank_gemm_cases(repeats) -> dict:
                 timing.update(graph_ms=graph_ms(kernel, N_TIMED), rows=rows,
                               cap=cap, rel_err=rel)
                 out[key] = timing
+    del weights
+    return {"err": err, "cases": out, "digests": digests}
+
+
+def mla_rank_flash_cases(repeats) -> dict:
+    """Flash at (192, 128) over deepseek-v2-236b's heads a rank of a 1 x 2
+    (64) and a 1 x 4 mesh (32): its one-shot admission (4 x 256, causal)
+    on the model's views (q and K the concatenations ``mla_attention``
+    makes, V a strided view of the decompressed heads), numpy-seeded; held
+    to the plain version, timed beside SDPA and the bound, added to the
+    repeat set and digested (``deepseek_1x{2,4}_flash``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cfg = get_config(DEEPSEEK[0])
+    nope, rope, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    d, scale = nope + rope, (nope + rope) ** -0.5
+    b, n = MLA_ADMISSION
+    out, digests, err = {}, {}, 0.0
+    for m in EP_RANK_MESHES:
+        h = cfg.n_heads // m
+        make = seeded(400 + m)
+        q = make(b, h, n, d)
+        kv, k_rope = make(b, n, h, nope + vdim), make(b, n, rope)
+        k = torch.cat([kv[..., :nope].transpose(1, 2),
+                       k_rope[:, None].expand(b, h, n, rope)], dim=-1)
+        v = kv[..., nope:].transpose(1, 2)
+        kernel = functools.partial(flash_attention, q, k, v, causal=True,
+                                   scale=scale)
+        plain = functools.partial(flash_attention_plain, q, k, v,
+                                  causal=True, scale=scale)
+        got = kernel()
+        label = (f"flash D={d} Dv={vdim} 1x{m} rank: B={b} H={h} S={n} "
+                 f"causal (model views)")
+        err = max(err, compare(label, got, plain()))
+        repeats.append((label, kernel, got))
+        digests[f"deepseek_1x{m}_flash"] = digest(got)
+        pairs = b * sum(min(i + 1, n) for i in range(n))
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel() + b * h * n * vdim)
+        out[f"1x{m}"] = time_case(
+            label, kernel, plain,
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   scale=scale),
+            "flash_fwd_kernel", n_bytes, 2.0 * (d + vdim) * h * pairs)
     return {"err": err, "cases": out, "digests": digests}
 
 
@@ -2742,9 +2870,10 @@ def check_grouped_moe(cfg) -> dict:
     must agree within MOE_TOL, with the same aux loss. For an
     expert-parallel decoder (qwen3-moe) the expert-parallel layer at world
     1 then (``check_ep_layer``), and each rank's share of it on 1 x 2 and
-    1 x 4 meshes (``check_ep_ranks``). Returns {label: (max |d|, grouped
-    ms, plain ms)}, the grouped_gemm cases, ``ep_world1`` and
-    ``ep_ranks``."""
+    1 x 4 meshes (``check_ep_ranks``), and for MLA each rank's share of
+    one attention layer (``check_mla_ranks``). Returns {label: (max |d|,
+    grouped ms, plain ms)}, the grouped_gemm cases, ``ep_world1``,
+    ``ep_ranks`` and ``mla_ranks``."""
     import torch
     from repro_torch.benchmarks.common import median_ms
     from repro_torch.distributed import tensor_parallel as tp
@@ -2787,6 +2916,8 @@ def check_grouped_moe(cfg) -> dict:
         out["ep_ranks"] = check_ep_ranks(cfg, served, gen)
     del p, served
     free_memory()
+    if cfg.use_mla:
+        out["mla_ranks"] = check_mla_ranks(cfg, gen)
     return out
 
 
@@ -2794,10 +2925,12 @@ def check_ep_layer(cfg, served, gen) -> dict:
     """The expert-parallel MoE (``moe_block(impl="ep")``) on NCCL world 1
     (a ``1x1`` serving mesh in a one-rank process group of its own: every
     hit local, ``cap = t k``, the sum over ``model`` one rank's) held bit
-    for bit to the grouped one at one full-width layer, output and aux, at
-    EP_LAYER_TOKENS: the reference's byte rule picks partial-K at T 4 and
-    1024 and weight-gather at 8192 (each call's body logged and checked),
-    under ``set_sync_debug_mode("error")``. Returns {T: body}."""
+    for bit to the grouped one at one full-width layer, output and aux
+    (shared experts included, deepseek-v2's through ``layers.mlp``'s
+    row-parallel sum over one rank), at EP_LAYER_TOKENS, each call taking
+    the body the reference's byte rule picks (``moe.ep_body``; logged and
+    checked), under ``set_sync_debug_mode("error")``. Returns {T:
+    body}."""
     import torch
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import mesh as mesh_lib
@@ -2806,7 +2939,8 @@ def check_ep_layer(cfg, served, gen) -> dict:
     out = {}
     with mesh_lib.ranks(1, dev):
         mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), dev)
-        for t, want_body in EP_LAYER_TOKENS.items():
+        for t in EP_LAYER_TOKENS:
+            want_body = moe.ep_body(cfg, 1, t, 1)
             x = torch.randn((1, t, cfg.d_model), generator=gen,
                             device="cuda").to(torch.bfloat16)
             with tp.use_mesh(mesh), moe.count_ep(drops=False) as count:
@@ -2921,6 +3055,172 @@ def check_ep_ranks(cfg, served, gen) -> dict:
             out[label] = dict(rel_err=err, dropped=dropped,
                               tokens_with_drops=int(lost.sum()),
                               rows_past_offsets=garbage)
+            if "shared" in served:
+                out[label]["shared_rel_err"] = check_shared_ranks(
+                    cfg, served["shared"], xt, m, label)
+    return out
+
+
+class RankView:
+    """Rank ``r`` of a ``1 x m`` serving mesh on one card: the axis sizes
+    and the coordinate that ``sharding`` and ``tensor_parallel`` read
+    (no process group behind it: see :func:`as_rank`)."""
+
+    def __init__(self, m: int, r: int):
+        self.axis_names = ("data", "model")
+        self.shape = {"data": 1, "model": m}
+        self.r = r
+
+    def coordinate(self, name: str) -> int:
+        return self.r if name == "model" else 0
+
+
+@contextlib.contextmanager
+def as_rank(m: int, r: int, gathered=()):
+    """Compute as rank ``r`` of a ``1 x m`` serving mesh on one card: under
+    ``tensor_parallel.use_mesh(RankView(m, r))`` every product that would
+    be summed over ``model`` (``tp.all_sum``) passes its f32 partial on
+    unsummed and appends it to the yielded list, and the n-th
+    ``tp.all_gather`` returns ``gathered[n]``, what every rank's pieces
+    make whole (the rank's own piece checked against it). At ``m`` = 1 the
+    list holds the whole f32 products."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tp
+    partials, wholes = [], iter(gathered)
+    saved = tp.all_sum, tp.all_gather
+
+    def keep(x):
+        partials.append(x.float().clone())
+        return x
+
+    def gather(x, dim):
+        whole, n = next(wholes, None), x.shape[dim]
+        if whole is None or not torch.equal(whole.narrow(dim, r * n, n), x):
+            fail(f"rank {r} of 1x{m}: its piece of a gather is not the "
+                 f"whole's")
+        return whole
+
+    tp.all_sum, tp.all_gather = keep, gather
+    try:
+        with tp.use_mesh(RankView(m, r)):
+            yield partials
+    finally:
+        tp.all_sum, tp.all_gather = saved
+
+
+def rank_leaves(tree, m: int, r: int):
+    """Rank ``r`` of ``1 x m``'s shards of a layer's f32 leaves, cut as
+    ``Model.init_serving`` cuts them (``spec_for_param`` by leaf name, then
+    the cast of a matrix to bf16)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import api
+    leaf, view = api._serving_leaf(grouped_moe=True), RankView(m, r)
+    return {name: (rank_leaves(x, m, r) if isinstance(x, dict) else leaf(
+        name, shd.local_shard(x, shd.spec_for_param(
+            name, tuple(x.shape), view), view))) for name, x in tree.items()}
+
+
+def check_shared_ranks(cfg, shared, xt, m: int, label: str) -> float:
+    """The shared experts' tensor-parallel SwiGLU (``layers.mlp(...,
+    d_ff=)``) on each rank of ``1 x m`` (:func:`as_rank`): the ranks' f32
+    ``w_down`` partials summed against the whole SwiGLU's f32 product
+    within SHARED_RANK_TOL of its largest value."""
+    from repro_torch.models import layers
+    f = cfg.moe_d_ff * cfg.n_shared_experts
+    with as_rank(1, 0) as whole:
+        layers.mlp(rank_leaves(shared, 1, 0), xt, d_ff=f)
+    total = 0.0
+    for r in range(m):
+        with as_rank(m, r) as part:
+            layers.mlp(rank_leaves(shared, m, r), xt, d_ff=f)
+        total = total + part[0]
+    err = ((total - whole[0]).abs().max() / whole[0].abs().max()).item()
+    if not err <= SHARED_RANK_TOL:
+        fail(f"shared experts {label}: the ranks' partials sum {err:.3e} of "
+             f"the largest from the whole SwiGLU (tolerance "
+             f"{SHARED_RANK_TOL})")
+    log(f"  shared experts {label}: {m} ranks' column / row shards sum to "
+        f"the whole SwiGLU within {err:.2e} of its largest  ok")
+    return err
+
+
+def check_mla_ranks(cfg, gen) -> dict:
+    """Each rank's share of one full-width MLA layer on 1 x 2 and 1 x 4
+    meshes, on one card (:func:`as_rank`): its leaves cut as
+    ``Model.init_serving`` cuts them (``wq_a`` / ``wq_b`` / ``wkv_b``
+    column shards, ``wkv_a`` whole, ``wo`` a row shard; ``n_heads / M``
+    heads), ``wq_a``'s columns gathered whole before the q norm, the
+    latent whole in each rank's own slab. The admission's prefill
+    (MLA_ADMISSION, flash over the rank's heads) and one absorbed decode
+    step after it: the ranks' f32 ``wo`` partials summed against the whole
+    layer's f32 ``wo`` product within MLA_RANK_TOL of its largest value;
+    every rank's latent slab the whole layer's bit for bit. Returns
+    {"1xM": {"prefill": rel, "decode": rel}}."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention, layers
+    p = {k: (v[0] if torch.is_tensor(v) else {n: t[0] for n, t in v.items()})
+         for k, v in attention.init_mla(cfg, gen).items()}
+    b, n = MLA_ADMISSION
+    kind = next(k for g in cfg.layer_groups() for k in g.pattern
+                if k.attn == "mla")
+    x = torch.randn((b, n, cfg.d_model), generator=gen,
+                    device=gen.device).to(torch.bfloat16)
+    x1 = torch.randn((b, 1, cfg.d_model), generator=gen,
+                     device=gen.device).to(torch.bfloat16)
+    pos = torch.arange(n, device=gen.device)[None].expand(b, n)
+
+    def layer(m, r, gathered=()):
+        """Rank r's prefill and decode partials, and its latent slab."""
+        leaves = rank_leaves(p, m, r)
+        cache = attention.init_mla_cache(cfg, b, n + 32, gen.device)
+        with as_rank(m, r, gathered) as parts:
+            if attention.mla_heads(leaves, cfg) != cfg.n_heads // m:
+                fail(f"MLA 1x{m} rank {r}: its leaves hold "
+                     f"{attention.mla_heads(leaves, cfg)} heads")
+            attention.mla_attention(leaves, x, cfg=cfg, kind=kind,
+                                    positions=pos, cache=cache, cache_len=0)
+            attention.mla_attention(
+                leaves, x1, cfg=cfg, kind=kind, positions=pos[:, :1] + n,
+                cache=cache, cache_len=torch.tensor(n, device=gen.device))
+        return parts, cache
+
+    whole, whole_cache = layer(1, 0)
+    out = {}
+    for m in EP_RANK_MESHES:
+        q_a = torch.cat([layers.linear(x, rank_leaves(p, m, r)["wq_a"])
+                         for r in range(m)], dim=-1)
+        q_a1 = torch.cat([layers.linear(x1, rank_leaves(p, m, r)["wq_a"])
+                          for r in range(m)], dim=-1)
+        totals = [0.0, 0.0]
+        launches = flash_attention.launches_by_dims[192, 128]
+        for r in range(m):
+            # the prefill's gather of wq_a's columns, then the decode step's
+            parts, cache = layer(m, r, (q_a, q_a1))
+            for i in range(2):
+                totals[i] = totals[i] + parts[i]
+            for name in ("ckv", "krope"):
+                if not torch.equal(cache[name], whole_cache[name]):
+                    fail(f"MLA 1x{m} rank {r}: its latent {name} is not the "
+                         f"whole layer's")
+        rec = {}
+        for i, step in enumerate(("prefill", "decode")):
+            rel = ((totals[i] - whole[i]).abs().max()
+                   / whole[i].abs().max()).item()
+            if not rel <= MLA_RANK_TOL:
+                fail(f"MLA 1x{m} {step}: the ranks' wo partials sum {rel:.3e} "
+                     f"of the largest from the whole layer (tolerance "
+                     f"{MLA_RANK_TOL})")
+            rec[step] = rel
+        rec["flash_launches"] = (flash_attention.launches_by_dims[192, 128]
+                                 - launches)
+        log(f"  MLA 1x{m} ({cfg.n_heads // m} heads a rank, the latent "
+            f"whole): the ranks' wo partials sum to the whole layer within "
+            f"{rec['prefill']:.2e} (prefill, flash over the rank's heads, "
+            f"{rec['flash_launches']} launches) / {rec['decode']:.2e} "
+            f"(absorbed decode) of its largest; every rank's latent slab "
+            f"the whole layer's bit for bit  ok")
+        out[f"1x{m}"] = rec
     return out
 
 
@@ -4264,39 +4564,62 @@ MESH_COUNTERS = ("n_requests", "completed", "n_tokens", "host_syncs",
                  "ttft_steps_p95", "e2e_steps_p50", "e2e_steps_p95")
 
 
-def phase_mesh(phase: int, cfg, single: dict) -> dict:
-    """The mesh path on one card: qwen2.5-3b at full width through
-    ``launch.serve.run(STREAM + ["--mesh", "1"])`` on NCCL world 1 (a
-    process group of its own, every collective over one rank: the
-    row-parallel sums, the vocabulary-parallel embedding and greedy merge,
-    the int8 scale max). Its launches by phase 5's rules, host syncs ==
-    chunks, and its tokens and scheduler counters bit for bit those of
-    phase 5's single-device paged stream (``single``) on the same
-    requests; the pooled decode's range walks never run at world 1.
-    Prints the phase's seconds."""
+def phase_mesh(phase: int, cfg, single: dict, deepseek: dict) -> dict:
+    """The mesh path on one card, through ``launch.serve.run(... +
+    ["--mesh", "1"])`` on NCCL world 1 (a process group of its own, every
+    collective over one rank): qwen2.5-3b at full width (the row-parallel
+    sums, the vocabulary-parallel embedding and greedy merge, the int8
+    scale max), then deepseek-v2-236b cut to DEEPSEEK's depth (MLA's
+    head-sharded layer over the whole latent, the expert-parallel MoE and
+    the shared experts' tensor-parallel SwiGLU, each over one rank). Each
+    stream's launches by phase 5's rules, host syncs == chunks, and its
+    tokens, scheduler counters and launches bit for bit those of the
+    single-device paged stream of phase 5 (``single``) and phase 9
+    (``deepseek``) on the same requests; the pooled decode's range walks
+    never run at world 1. Prints the phase's seconds."""
+    import dataclasses
+    from repro_torch.configs import get_config
     t0 = time.perf_counter()
-    log(f"[{phase}/17] the mesh path: qwen2.5-3b served through --mesh 1 "
-        f"(NCCL world 1)")
-    rec = run_stream(cfg, STREAM + ["--mesh", "1"], "mesh 1 stream")
-    if rec.get("mesh") != {"data": 1, "model": 1, "kv_shards": 1}:
-        fail(f"mesh 1 stream: mesh record {rec.get('mesh')}")
-    if rec["outputs"] != single["outputs"]:
-        parted = [r for r in rec["outputs"]
-                  if rec["outputs"][r] != single["outputs"].get(r)]
-        fail(f"mesh 1 stream: requests {parted} differ from the "
-             f"single-device paged stream")
-    differ = {k: (rec[k], single[k]) for k in MESH_COUNTERS
-              if rec[k] != single[k]}
-    if differ or rec["launches"] != single["launches"]:
-        fail(f"mesh 1 stream: counters {differ} or launches "
-             f"{rec['launches']} vs {single['launches']} differ from the "
-             f"single-device paged stream")
+    log(f"[{phase}/17] the mesh path: qwen2.5-3b and {DEEPSEEK[0]} x "
+        f"{DEEPSEEK[1]} served through --mesh 1 (NCCL world 1)")
+    ds_cfg = dataclasses.replace(get_config(DEEPSEEK[0]),
+                                 n_layers=DEEPSEEK[1])
+    out = {name: mesh_stream(f"{name} mesh 1 stream", c, argv, want)
+           for name, c, argv, want in (
+               ("qwen", cfg, STREAM, single),
+               ("deepseek", ds_cfg, ["--arch", DEEPSEEK[0], "--full"]
+                + STREAM_ARGS, deepseek))}
     seconds = time.perf_counter() - t0
-    log(f"  mesh 1 stream: every token, {len(MESH_COUNTERS)} counters and "
-        f"the launches equal the single-device paged stream's  ok; "
-        f"{rec['tok_per_s']:.1f} tok/s against {single['tok_per_s']:.1f}; "
-        f"the phase took {seconds:.1f} s")
-    return {"rec": rec, "launches": rec["launches"], "seconds": seconds}
+    log(f"  the phase took {seconds:.1f} s")
+    return {"rec": out["qwen"], "deepseek": out["deepseek"],
+            "launches": out["qwen"]["launches"], "seconds": seconds}
+
+
+def mesh_stream(label, cfg, argv, want) -> dict:
+    """``argv``'s paged stream served through ``--mesh 1`` on NCCL world 1,
+    held to the single-device stream ``want`` in every token, the
+    MESH_COUNTERS and the launches."""
+    t0 = time.perf_counter()
+    rec = run_stream(cfg, argv + ["--mesh", "1"], label)
+    if rec.get("mesh") != {"data": 1, "model": 1, "kv_shards": 1}:
+        fail(f"{label}: mesh record {rec.get('mesh')}")
+    if rec["outputs"] != want["outputs"]:
+        parted = [r for r in rec["outputs"]
+                  if rec["outputs"][r] != want["outputs"].get(r)]
+        fail(f"{label}: requests {parted} differ from the single-device "
+             f"paged stream")
+    differ = {k: (rec[k], want[k]) for k in MESH_COUNTERS
+              if rec[k] != want[k]}
+    if differ or rec["launches"] != want["launches"]:
+        fail(f"{label}: counters {differ} or launches {rec['launches']} vs "
+             f"{want['launches']} differ from the single-device paged "
+             f"stream")
+    log(f"  {label}: every token, {len(MESH_COUNTERS)} counters and the "
+        f"launches equal the single-device paged stream's  ok; "
+        f"{rec['tok_per_s']:.1f} tok/s against {want['tok_per_s']:.1f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    free_memory()
+    return rec
 
 
 def jamba_rows(jamba) -> list:
@@ -4327,7 +4650,8 @@ def grouped_gemm_row(moe_runs, rank) -> dict:
     admission through the gate projection, every other case beside it,
     phase 3's expert-parallel rank shapes (``rank``) with their digests,
     the bodies the expert-parallel layer took at world 1, each bit for bit
-    the grouped layer, and its ranks' shares on 1 x 2 and 1 x 4."""
+    the grouped layer, and its ranks' shares on 1 x 2 and 1 x 4, for
+    qwen3-moe and deepseek-v2 (its shared experts' shares too)."""
     cases = {f"{arch} {key[5:]}": case for arch, run in moe_runs.items()
              for key, case in run["moe"].items() if key.startswith("gemm_")}
     cases.update(rank["cases"])
@@ -4336,9 +4660,11 @@ def grouped_gemm_row(moe_runs, rank) -> dict:
              for key, value in case.items()}
     extra.update(rank_max_rel_err=rank["err"], rank_digests=rank["digests"],
                  ep_world1_bit_equal_grouped={
-                     str(t): body for t, body in
-                     moe_runs[QWEN_MOE[0]]["moe"]["ep_world1"].items()},
-                 ep_rank_shares=moe_runs[QWEN_MOE[0]]["moe"]["ep_ranks"])
+                     arch: {str(t): body for t, body in
+                            run["moe"]["ep_world1"].items()}
+                     for arch, run in moe_runs.items()},
+                 ep_rank_shares={arch: run["moe"]["ep_ranks"]
+                                 for arch, run in moe_runs.items()})
     return dict(main, extra=extra)
 
 
@@ -4408,7 +4734,8 @@ def main() -> int:
     jamba = phase_jamba(15)
     check_merge_counters("phase 15")
     free_memory()
-    mesh = phase_mesh(16, cfg, rec)
+    mesh = phase_mesh(16, cfg, rec,
+                      moe_runs[DEEPSEEK[0]]["recs"]["stream"])
     check_merge_counters("phase 16")
     if bench["failed"]:
         fail(f"serve_bench outputs gates: {bench['failed']}")
@@ -4459,6 +4786,11 @@ def main() -> int:
     for row in jamba_rows(jamba):
         rows.append(row)
         launches_path[row[0]] = jamba_path
+    # MLA's rank check at one full-width layer (phase 9) beside the d192
+    # row's rank shapes (phase 3)
+    kernels_d192 = timing["flash_mla"]
+    kernels_d192["extra"]["mla_rank_check"] = moe_runs[DEEPSEEK[0]]["moe"][
+        "mla_ranks"]
     # the pooled decode's range walk: the paged kernel with a start and an
     # lse; its launches are the kernel's on the world-1 mesh stream (whose
     # range walks are 0: the pooled decode runs at a model axis above 1)
@@ -4527,6 +4859,7 @@ def main() -> int:
     by_path.update({f"{JAMBA} x {JAMBA_LAYERS} {name}": r["launches"]
                     for name, r in jamba["served"]["recs"].items()})
     by_path["qwen mesh 1"] = mesh["launches"]
+    by_path[f"{DEEPSEEK[0]} mesh 1"] = mesh["deepseek"]["launches"]
     for row, key in zip(kernels, ("flash", "paged", None, "scan",
                                   "flash_d192", "flash_d64", "flash_d32",
                                   "flash_d16", "grouped",

@@ -12,6 +12,12 @@ over a quarter of each slot's positions, merged by log-sum-exp).
 qwen3-moe-30b-a3b (4 KV heads: the head path at 2 and 4) serves its MoE
 layers expert-parallel, ``128 / M`` experts a rank: the whole 48-layer
 model (61 GB served) fits no single card and needs M >= 2.
+deepseek-v2-236b (the latent path) shards its MLA heads, ``128 / M`` a
+rank, beside a latent pool whole on every rank, its routed experts
+``160 / M`` a rank and its shared experts as a tensor-parallel SwiGLU; a
+cut to ``--layers 7`` (the dense first layer and 6 MoE layers) fits four
+cards, bounded by the whole f32 expert leaf each rank draws (30.2 GB at 6
+MoE layers).
 
 Each rank builds its shards of the weights (``Model.init_serving(gen,
 mesh=)``, its peak recorded), rolls every request out one-shot
@@ -71,6 +77,9 @@ from repro_torch.core.target import use_target
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grouped_gemm import grouped_gemm
+from repro_torch.kernels.paged_attention import paged_flash_decode
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import serving_target
 from repro_torch.models import layers, moe, transformer
@@ -95,6 +104,17 @@ def _card() -> str:
             timeout=30).stdout.strip()
     except (OSError, subprocess.SubprocessError) as exc:
         return f"nvidia-smi failed: {exc}"
+
+
+def _launches() -> Dict[str, int]:
+    """Each kernel's launches so far in this process: flash by (D, Dv),
+    paged decode and grouped_gemm (0 on the CPU, where the wrappers take
+    their plain versions)."""
+    out = {f"flash_d{d}_dv{dv}": n
+           for (d, dv), n in flash_attention.launches_by_dims.items()}
+    out.update(paged=paged_flash_decode.launches,
+               grouped=grouped_gemm.launches)
+    return out
 
 
 def _wait(dev: torch.device) -> None:
@@ -149,11 +169,14 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
         rids = [sch.submit(s["prompt"], s["max_new_tokens"]).rid
                 for s in stream]
         _wait(dev)
+        before = _launches()
         with moe.count_ep(drops=False) as count:
             t0 = time.perf_counter()
             rep = engine.serve(scheduler=sch)
             _wait(dev)
             wall = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in _launches().items()
+                    if v - before[k]}
         bodies = dict(count.bodies)
         outs = [rep.outputs[r] for r in rids]
         with engine.core.scope():
@@ -182,6 +205,7 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
                                     if a != b), None)
                               for o, r in zip(outs, refs)],
             "teacher_forced_dropped": dropped,
+            "stream_launches": launches,
             "outputs": outs}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
@@ -191,7 +215,8 @@ def _rank(opts: Dict[str, Any], out: str) -> None:
     st = rep.stats
     rec = {"mesh": f"1x{m}", "arch": cfg.name, "layers": cfg.n_layers,
            "target": target,
-           "path": ("pooled" if cfg.n_kv_heads % m else "head"),
+           "path": ("latent" if cfg.use_mla else "pooled"
+                    if cfg.n_kv_heads % m else "head"),
            "moe_bodies": bodies,
            # above 2 ranks an expert-parallel MoE row's output depends on
            # its call's other rows: the cut may drop its hits (M above the
@@ -278,7 +303,9 @@ def main(argv=None) -> int:
               f"prefix of their one-shot (first parting "
               f"{rec['first_parting']}); teacher-forced worst gap "
               f"{rec['teacher_forced_worst_gap']:.4f} (<= {LOGIT_TOL}); "
-              f"ranks agree: {rec['ranks_agree']}; peak allocated GB: "
+              f"ranks agree: {rec['ranks_agree']}; the stream's launches on "
+              f"rank 0: {rec['ranks'][0]['stream_launches']}; peak "
+              f"allocated GB: "
               f"{peaks}; a {LOGIT_ROWS}-position forward's logits against "
               f"the first mesh's: max |d| "
               f"{rec['logits_vs_first_mesh']['max_abs']:.4f}, argmax agree "

@@ -38,9 +38,12 @@ tier-codec head-to-head (concurrent residents per layer-0 byte; with
 (``run_mesh``): the same paged stream served on one device and on the
 mesh's ranks (spawned: gloo on the CPU, NCCL one rank a GPU on the card),
 each held to its own engine's one-shot rollouts, gated on modeled decode
-scaling. A data axis above 1, and configs other than dense GQA decoders
-and expert-parallel GQA MoE decoders whose experts the model axis divides
-(qwen3-moe-30b-a3b), at a model axis above 1, raise
+scaling (``--require-scaling``: an MLA model's latent pool is whole on
+every rank, ``kv_shards`` 1, so deepseek-v2 runs the head-to-head without
+it, as the reference's does). A data axis above 1, and configs other than
+dense GQA decoders and expert-parallel MoE decoders whose experts (and,
+with MLA, heads) the model axis divides (qwen3-moe-30b-a3b,
+deepseek-v2-236b), at a model axis above 1, raise
 ``NotImplementedError`` (ROADMAP A13c).
 
 Latency on the host's wall clock, beside the reference's step clocks:
@@ -1360,7 +1363,7 @@ def run_mesh(target_name=None, arch: str = "qwen2.5-3b",
     one device (in this process) and on the ``--mesh`` mesh (its ranks
     spawned; one rank in a group of its own at a mesh of 1), same
     per-shard layer-0 byte budget (the mesh exposes ``kv_shards`` x the
-    aggregate pool).
+    aggregate pool; 1x for an MLA latent, which every rank holds whole).
 
     The gated metric is **modeled decode scaling**, the reference's: tokens
     per decode forward over the per-shard resident-KV bytes that forward

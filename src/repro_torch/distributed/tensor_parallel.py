@@ -42,12 +42,22 @@ axis of 1 every collective spans one rank.
     hold ``n_experts / M`` experts a rank and sum each rank's combined
     output over ``model`` (``models.moe``'s ``ep``), in f32 or in the
     activation dtype as the reference's byte rule picks (:func:`all_sum`
-    takes both).
+    takes both); its shared experts are one tensor-parallel SwiGLU
+    (column shards of ``shared/w_gate`` / ``w_up``, a row shard of
+    ``w_down``) added after that sum;
+  * multi-head latent attention (deepseek-v2) shards its heads and keeps
+    the latent whole, as the reference's absorbed decode does where the
+    heads divide ``model``: ``wq_a`` is a column shard gathered whole
+    before the q norm, ``wq_b`` and ``wkv_b`` column shards of the rank's
+    ``n_heads / M`` heads, ``wkv_a`` whole on every rank (so every rank
+    computes and caches the same latent, and an int8 latent page's scale
+    needs no max over ``model``), ``wo`` a row shard.
 
 :func:`check_serving` names what sharded serving does not run yet
 (ROADMAP A13c): the ``data`` (or any other) axis above 1, and at a model
 axis above 1 any config but a dense GQA decoder or an expert-parallel MoE
-decoder whose experts the axis divides.
+decoder (GQA or MLA attention) whose experts, and for MLA whose heads,
+the axis divides.
 """
 
 from __future__ import annotations
@@ -117,12 +127,14 @@ def kv_heads_local(n_kv_heads: int) -> int:
     return n_kv_heads // model_size()
 
 
-def kv_scale_reduce(n_kv_heads: int) -> Optional[Callable]:
+def kv_scale_reduce(n_kv_heads: int, attn: str = "gqa"
+                    ) -> Optional[Callable]:
     """What an int8 page's per-page scales pass through before the codes
     are taken: the max over ``model`` where each rank holds its own heads
-    (one absmax over every head of a token, as one device takes it), else
-    nothing."""
-    if active() is None or pooled(n_kv_heads):
+    of a GQA layer (one absmax over every head of a token, as one device
+    takes it), else nothing (an MLA latent is whole and the same on every
+    rank)."""
+    if active() is None or attn != "gqa" or pooled(n_kv_heads):
         return None
     return all_max
 
@@ -220,14 +232,15 @@ def gqa_decoder(cfg) -> bool:
 
 
 def ep_moe_decoder(cfg) -> bool:
-    """A ``moe``-family decoder of GQA attention layers whose MLP layers
-    are MoE or SwiGLU, with token prompts and no shared experts: the
-    configs expert-parallel serving runs at a model axis above 1 that
-    divides their experts (qwen3-moe-30b-a3b)."""
-    if (cfg.family != "moe" or cfg.frontend_len or cfg.n_shared_experts
-            or not cfg.n_experts):
+    """A ``moe``-family decoder of GQA or multi-head latent attention
+    layers whose MLP layers are MoE or SwiGLU, with token prompts, its
+    shared experts (if any) a SwiGLU beside the routed ones: the configs
+    expert-parallel serving runs at a model axis above 1 that divides
+    their experts (qwen3-moe-30b-a3b, GQA; deepseek-v2-236b, MLA with 2
+    shared experts)."""
+    if cfg.family != "moe" or cfg.frontend_len or not cfg.n_experts:
         return False
-    return all(kind.attn == "gqa" and kind.mlp in ("mlp", "moe")
+    return all(kind.attn in ("gqa", "mla") and kind.mlp in ("mlp", "moe")
                for group in cfg.layer_groups() for kind in group.pattern)
 
 
@@ -236,8 +249,9 @@ def check_serving(cfg, shape: Dict[str, int]) -> None:
     sizes ``shape`` that sharded serving does not run yet: any axis but
     ``model`` above 1, or at a model axis above 1 a config that is neither
     a dense GQA decoder nor an expert-parallel MoE decoder whose experts
-    the axis divides (MLA, mamba and hybrid layers, shared experts,
-    frontends and encoders)."""
+    the axis divides and, with MLA, whose heads it divides (mamba and
+    hybrid layers, frontends and encoders; MLA's seq-sharded latent where
+    the heads do not divide)."""
     others = {name: n for name, n in shape.items()
               if name != shd.MODEL_AXIS and n > 1}
     if others:
@@ -249,14 +263,22 @@ def check_serving(cfg, shape: Dict[str, int]) -> None:
     if m == 1 or gqa_decoder(cfg):
         return
     if ep_moe_decoder(cfg):
-        if cfg.n_experts % m == 0:
-            return
-        raise NotImplementedError(
-            f"{cfg.name}: expert-parallel serving puts n_experts / M experts "
-            f"on each rank; {cfg.n_experts} experts do not split over a "
-            f"model axis of {m} (ROADMAP A13c)")
+        if cfg.n_experts % m:
+            raise NotImplementedError(
+                f"{cfg.name}: expert-parallel serving puts n_experts / M "
+                f"experts on each rank; {cfg.n_experts} experts do not split "
+                f"over a model axis of {m} (ROADMAP A13c)")
+        if cfg.use_mla and cfg.n_heads % m:
+            raise NotImplementedError(
+                f"{cfg.name}: sharded MLA puts n_heads / M heads on each "
+                f"rank beside the whole latent; {cfg.n_heads} heads do not "
+                f"split over a model axis of {m}, which takes the "
+                f"reference's seq-sharded latent "
+                f"(src/repro/models/attention.py:503-504), not ported yet "
+                f"(ROADMAP A13c)")
+        return
     raise NotImplementedError(
         f"{cfg.name} ({cfg.family}): sharded serving at a model axis above 1 "
-        f"runs dense GQA decoders and expert-parallel GQA MoE decoders; "
-        f"MLA, mamba and hybrid layers, shared experts, frontends and "
-        f"encoders are not ported yet (ROADMAP A13c)")
+        f"runs dense GQA decoders and expert-parallel MoE decoders (GQA or "
+        f"MLA); mamba and hybrid layers, frontends and encoders are not "
+        f"ported yet (ROADMAP A13c)")

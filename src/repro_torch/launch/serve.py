@@ -56,10 +56,13 @@ tensor-parallel engine (``EngineConfig(mesh=...)``) whose pools hold its
 KV heads, and rank 0 prints the report with the line
 ``mesh: 1xM (data x model), kv pool sharded Kx; per-shard pool N B``. The
 budgets price the mesh's aggregate pool (``model_shards``). An
-expert-parallel MoE decoder (qwen3-moe-30b-a3b) holds ``n_experts / M``
-experts a rank at a model axis that divides them. A data axis above 1,
-and at a model axis above 1 a model axis that does not divide the
-experts, MLA, mamba, hybrid, shared-expert, frontend and encoder configs,
+expert-parallel MoE decoder (qwen3-moe-30b-a3b, deepseek-v2-236b) holds
+``n_experts / M`` experts a rank at a model axis that divides them;
+deepseek-v2's multi-head latent attention holds ``n_heads / M`` heads a
+rank beside the whole latent (its pool is not sharded: ``kv pool sharded
+1x``) and its shared experts are a tensor-parallel SwiGLU. A data axis
+above 1, and at a model axis above 1 one that does not divide the
+experts or MLA's heads, mamba, hybrid, frontend and encoder configs,
 raise ``NotImplementedError`` (ROADMAP A13c). Without ``--mesh`` the
 launcher serves on one device.
 

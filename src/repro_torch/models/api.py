@@ -444,7 +444,8 @@ class Model:
                 if scale is not None:
                     codes, scales = quantize_page_int8(
                         cut, tuple(range(2, cut.ndim)),
-                        scale_max=tp.kv_scale_reduce(self.cfg.n_kv_heads))
+                        scale_max=tp.kv_scale_reduce(self.cfg.n_kv_heads,
+                                                     attn))
                     pool[:, rows] = codes
                     scale[:, rows] = scales
                 else:

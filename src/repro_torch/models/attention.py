@@ -35,7 +35,12 @@ replicated, and decode is pooled: each rank attends over its range of
 every slot's positions (``paged_attention.decode_range``) and the ranks'
 (output, log-sum-exp) pairs merge in rank order
 (``paged_attention.merge_ranges``), the reference's flash-decoding across
-chips.
+chips. MLA shards its heads over ``model`` and keeps the latent whole,
+as the reference's absorbed decode does where the heads divide the axis:
+a rank projects, decompresses and attends over its ``n_heads / M`` heads
+(column shards of ``wq_b`` / ``wkv_b``; ``wq_a``'s column shard gathered
+whole for the q norm), every rank computes and caches the same latent
+(``wkv_a`` whole), and ``wo`` is a row-parallel product.
 """
 
 from __future__ import annotations
@@ -446,6 +451,26 @@ def _gather_latent(cache: Dict, name: str,
     return out
 
 
+def mla_heads(p: Dict, cfg: ModelConfig) -> int:
+    """The query heads ``p``'s MLA leaves hold: all ``cfg.n_heads``, or
+    under a serving mesh a rank's ``n_heads / M`` (column shards of
+    ``wq_b`` / ``wkv_b``, a row shard of ``wo``). Raises where the three
+    disagree, or where a shard is not this mesh's share of the heads
+    (``sharding`` keeps a leaf whole when a dim does not divide: one leaf
+    cut and another whole would compute garbage)."""
+    nope, rope_d, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+    h = p["wq_b"].shape[-1] // (nope + rope_d)
+    held = (p["wq_b"].shape[-1], p["wkv_b"].shape[-1], p["wo"].shape[-2])
+    want = (h * (nope + rope_d), h * (nope + vdim), h * vdim)
+    if held != want or not (h == cfg.n_heads or tp.split(h, cfg.n_heads)):
+        raise ValueError(
+            f"MLA leaves wq_b / wkv_b / wo hold {held} columns / columns / "
+            f"rows: not one share of {cfg.n_heads} heads over a model axis "
+            f"of {tp.model_size()} (want {want} for {h} heads)")
+    return h
+
+
 def mla_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                   kind: LayerKind,
                   positions: torch.Tensor,
@@ -469,16 +494,22 @@ def mla_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
     (prefill, resumed prefill at a host-int offset, no cache) the latent
     decompresses through ``wkv_b`` into per-head K (nope + rope) and V and
     goes to :func:`repro_torch.kernels.ops.attention`: the flash kernel at
-    D = nope + rope, Dv = v on the card."""
+    D = nope + rope, Dv = v on the card.
+
+    Under a serving mesh each rank computes all of this for its heads
+    (:func:`mla_heads`) over the whole latent, and ``wo``'s f32 partials
+    are summed over ``model`` before the cast."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = mla_heads(p, cfg)
     nope, rope_d, vdim = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                           cfg.v_head_dim)
     lora = cfg.kv_lora_rank
 
     if cfg.q_lora_rank:
-        q = linear(layers.rmsnorm(p["q_norm"], linear(x, p["wq_a"])),
-                   p["wq_b"])
+        # the q norm spans the whole q_lora row: gather wq_a's columns
+        q_a = layers.linear_column(x, p["wq_a"], full=cfg.q_lora_rank,
+                                   gather=True)
+        q = linear(layers.rmsnorm(p["q_norm"], q_a), p["wq_b"])
     else:
         q = linear(x, p["wq_b"])
     q = q.reshape(b, s, h, nope + rope_d).transpose(1, 2)
@@ -536,7 +567,7 @@ def mla_attention(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
         out = ops.attention(q_full, k, v, causal=True, window=kind.window,
                             scale=scale, q_offset=q_offset, plan=plan)
     out = out.transpose(1, 2).reshape(b, s, h * vdim)
-    return linear(out, p["wo"]), cache
+    return layers.linear_row(out, p["wo"], full=cfg.n_heads * vdim), cache
 
 
 INIT = {"gqa": init_gqa, "mla": init_mla}

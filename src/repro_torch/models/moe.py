@@ -29,7 +29,9 @@ the same function:
   which at ``data`` = 1 differ only in the sum's precision: the
   weight-gather body casts to the activation dtype and sums in it, the
   partial-K body sums f32 and casts once. ``impl="auto"`` runs it under a
-  serving mesh whose model axis is above 1 and divides the experts.
+  serving mesh whose model axis is above 1 and divides the experts. Shared
+  experts (deepseek-v2's) are one SwiGLU, tensor-parallel over ``model``
+  as the reference's rules place any SwiGLU, added after the routed sum.
 
 The grouped products are one grouped GEMM per projection
 (:func:`repro_torch.kernels.ops.grouped_matmul`: on the card the
@@ -296,7 +298,9 @@ def _moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig):
 
 def moe_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
               impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss). Adds shared experts if configured.
+    """x: (B, S, d) -> (y, aux_loss). Adds shared experts if configured
+    (under a serving mesh a tensor-parallel SwiGLU: each rank's column
+    shards of ``w_gate`` / ``w_up`` and row shard of ``w_down``).
 
     ``impl="auto"`` runs ``ep`` where :func:`use_ep` holds, else
     ``grouped`` on a CUDA tensor and ``dense`` on the CPU."""
@@ -315,6 +319,9 @@ def moe_block(p: Dict, x: torch.Tensor, *, cfg: ModelConfig,
                          f"grouped | ep)")
     y = y.reshape(b, s, d)
     if cfg.n_shared_experts:
-        y = y + layers.mlp(p["shared"], x)
+        # one SwiGLU, tensor-parallel under a serving mesh, added after the
+        # routed sum as the reference adds it
+        y = y + layers.mlp(p["shared"], x,
+                           d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
     return y, aux
 

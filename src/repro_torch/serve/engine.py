@@ -54,8 +54,10 @@ With ``EngineConfig(mesh=...)`` (a ``sharding.Mesh`` of this rank, from
 the params are the rank's shards, every model call runs under
 ``distributed.tensor_parallel.use_mesh`` (tensor-parallel attention, MLP
 and vocabulary; head-sharded pools where the KV heads divide the ``model``
-axis, whole pools and the pooled decode where they do not; expert-parallel
-MoE layers, ``n_experts / M`` experts a rank), and the greedy pick merges
+axis, whole pools and the pooled decode where they do not; MLA's heads
+over ``model`` beside a latent pool whole on every rank; expert-parallel
+MoE layers, ``n_experts / M`` experts a rank, and shared experts as a
+tensor-parallel SwiGLU), and the greedy pick merges
 the ranks' vocabulary columns. Every rank runs the same host scheduler on
 the same requests, so every MoE call sees the same rows on every rank,
 idle slots included, and every rank plans, copies,
@@ -164,18 +166,24 @@ def device_only(device: torch.device):
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def _expert_leaves(tree: Any):
+def _leaves(tree: Any, names, under: str = ""):
+    """``(parent key, key, leaf)`` of every leaf of ``tree`` named in
+    ``names``."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            yield from _expert_leaves(v)
-        elif k in ("we_gate", "we_up", "we_down"):
-            yield v
+            yield from _leaves(v, names, k)
+        elif k in names:
+            yield under, k, v
 
 
 def _check_shards(cfg, params: Any, mesh) -> None:
     """Raise unless ``params`` look like this rank's shards on ``mesh``:
     the embedding table holds the rows ``spec_for_param`` gives a rank,
-    and each routed expert leaf ``n_experts / M`` experts."""
+    each routed expert leaf ``n_experts / M`` experts, each MLA layer's
+    ``wq_b`` / ``wkv_b`` columns and ``wo`` rows ``n_heads / M`` heads',
+    and the shared experts' ``w_gate`` / ``w_up`` columns and ``w_down``
+    rows a rank's share of their width (whole where it does not split)."""
+    m = shd.model_axis_size(mesh)
     table = params["tok"]["embed"]
     want = shd.local_shard(torch.empty((cfg.padded_vocab, 0)),
                            shd.spec_for_param("tok/embed",
@@ -184,10 +192,31 @@ def _check_shards(cfg, params: Any, mesh) -> None:
     held = [f"the embedding holds {table.shape[0]} rows, a rank's shard "
             f"{want}"] if table.shape[0] != want else []
     if cfg.n_experts:
-        e_loc = cfg.n_experts // shd.model_axis_size(mesh)
+        e_loc = cfg.n_experts // m
         held += [f"an expert leaf holds {w.shape[-3]} experts, a rank's "
-                 f"shard {e_loc}" for w in _expert_leaves(params)
+                 f"shard {e_loc}"
+                 for _, _, w in _leaves(params, ("we_gate", "we_up",
+                                                 "we_down"))
                  if w.shape[-3] != e_loc][:1]
+    if cfg.use_mla:
+        h = cfg.n_heads // m
+        widths = {"wq_b": (-1, h * (cfg.qk_nope_head_dim
+                                    + cfg.qk_rope_head_dim)),
+                  "wkv_b": (-1, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                  "wo": (-2, h * cfg.v_head_dim)}
+        held += [f"MLA's {k} holds {w.shape[widths[k][0]]} of its head "
+                 f"dim, a rank's {h} heads {widths[k][1]}"
+                 for parent, k, w in _leaves(params, tuple(widths))
+                 if parent == "attn" and w.shape[widths[k][0]]
+                 != widths[k][1]][:1]
+    if cfg.n_shared_experts:
+        f = cfg.moe_d_ff * cfg.n_shared_experts
+        f_loc = f // m if f % m == 0 else f
+        dims = {"w_gate": -1, "w_up": -1, "w_down": -2}
+        held += [f"a shared-expert {k} holds {w.shape[dims[k]]} of its "
+                 f"width {f}, a rank's shard {f_loc}"
+                 for parent, k, w in _leaves(params, tuple(dims))
+                 if parent == "shared" and w.shape[dims[k]] != f_loc][:1]
     if held:
         raise ValueError(
             f"EngineConfig(mesh=...) serves this rank's shards of the "

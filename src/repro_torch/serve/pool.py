@@ -238,7 +238,7 @@ class PoolManager:
                         codes, scales = quantize_page_int8(
                             sel, tuple(range(2, sel.ndim)),
                             scale_max=tp.kv_scale_reduce(
-                                self.model.cfg.n_kv_heads))
+                                self.model.cfg.n_kv_heads, attn))
                         dst[:, pages_dst] = codes
                         dst_g[name + "_scale"][:, pages_dst] = scales
                     else:

@@ -50,8 +50,9 @@ started first, in the background, with the CLI children; the port's world
   sharded train step (its MoE experts gathered at use) makes no
   expert-parallel call and takes one device's loss within 2e-4.
 * The CLIs: ``launch.serve --mesh 2 --arch qwen3-moe-30b-a3b`` serves on
-  spawned ranks and prints the mesh line; ``--mesh 3`` and deepseek-v2 /
-  jamba at ``--mesh 2`` raise naming A13c; ``serve_bench.run_mesh`` takes
+  spawned ranks and prints the mesh line; ``--mesh 3``, deepseek-v2 at
+  ``--mesh 8`` (its 4 heads do not split) and jamba at ``--mesh 2`` raise
+  naming A13c; ``serve_bench.run_mesh`` takes
   qwen3-moe at ``--mesh 2 --require-scaling``.
 """
 
@@ -498,7 +499,7 @@ def test_serve_cli_serves_qwen3_moe_on_two_ranks(children):
 
 
 @pytest.mark.parametrize("arch,mesh", [(ARCH, "3"),
-                                       ("deepseek-v2-236b", "2"),
+                                       ("deepseek-v2-236b", "8"),
                                        ("jamba-1.5-large-398b", "2")])
 def test_serve_cli_refuses(arch, mesh):
     with pytest.raises(NotImplementedError, match="A13c"):

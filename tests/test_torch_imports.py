@@ -195,6 +195,19 @@ def test_the_expert_parallel_rank_side_takes_no_jax():
                     "torch_tp_ranks"}, tops
 
 
+def test_the_mla_rank_side_takes_no_jax():
+    """The rank side of the sharded MLA serving tests, which spawned ranks
+    import, takes nothing but ``repro_torch``, plain libraries and the
+    tensor-parallel tests' rank side (checked above)."""
+    tree = ast.parse((ROOT / "tests" / "torch_mla_ranks.py").read_text())
+    tops = {(a.name if isinstance(node, ast.Import) else node.module)
+            .split(".")[0] for node in ast.walk(tree)
+            if isinstance(node, (ast.Import, ast.ImportFrom))
+            for a in getattr(node, "names", [])}
+    assert tops <= {"os", "pickle", "time", "numpy", "torch", "repro_torch",
+                    "torch_tp_ranks"}, tops
+
+
 def test_training_entry_points_raise_without_a_card(monkeypatch):
     """The training CLI at any mesh and both training examples raise
     without a card unless given ``--device cpu``."""

@@ -75,13 +75,20 @@ CONFIGS.update({arch: (get_reduced(arch), j_get_reduced(arch))
 #: the configs sharded serving runs above a model axis of 1
 GQA_DECODERS = ("qwen2.5-3b", "yi-6b", "mistral-nemo-12b", "gemma3-27b")
 #: expert-parallel MoE decoders, at the model axes that divide their
-#: experts (the smoke config's 8)
-EP_DECODERS = {"qwen3-moe-30b-a3b": (1, 2, 4)}
+#: experts (the smoke configs' 8) and, with MLA, their heads (deepseek's 4)
+EP_DECODERS = {"qwen3-moe-30b-a3b": (1, 2, 4),
+               "deepseek-v2-236b": (1, 2, 4)}
 #: (arch, model axis) refused: every other config at 2, the expert-parallel
-#: ones at an axis that does not divide their experts
+#: ones at an axis that does not divide their experts (3) or MLA's heads
+#: (deepseek at 8)
 REFUSED = sorted([(arch, 2) for arch in ARCH_IDS
                   if arch not in GQA_DECODERS and arch not in EP_DECODERS]
-                 + [("qwen3-moe-30b-a3b", 3)])
+                 + [("qwen3-moe-30b-a3b", 3), ("deepseek-v2-236b", 3),
+                    ("deepseek-v2-236b", 8)])
+#: one id an arch: its first refusal's is the arch's name
+REFUSED_IDS = [arch if [a for a, _ in REFUSED].index(arch) == i
+               else f"{arch}-m{model}"
+               for i, (arch, model) in enumerate(REFUSED)]
 
 
 def _fields(x):
@@ -243,8 +250,7 @@ def test_plain_start_combines_with_the_window(window):
     assert lse.shape == (4, 4)
 
 
-@pytest.mark.parametrize("arch,model", REFUSED,
-                         ids=[arch for arch, _ in REFUSED])
+@pytest.mark.parametrize("arch,model", REFUSED, ids=REFUSED_IDS)
 def test_other_families_refuse_a_model_axis(arch, model):
     cfg = get_reduced(arch)
     with pytest.raises(NotImplementedError, match="A13c"):
@@ -289,7 +295,7 @@ class FakeMesh:
 
 
 @pytest.mark.parametrize("arch,sizes", [
-    ("deepseek-v2-236b", dict(data=1, model=2)),
+    ("deepseek-v2-236b", dict(data=1, model=8)),
     ("falcon-mamba-7b", dict(data=1, model=4)),
     ("qwen2.5-3b", dict(data=2, model=1))])
 def test_engine_construction_refuses(arch, sizes):
@@ -307,7 +313,7 @@ def test_clis_refuse_a_data_axis():
         serve_bench.main(["--device", "cpu", "--mesh", "2x1"])
     with pytest.raises(NotImplementedError, match="A13c"):
         serve_bench.main(["--device", "cpu", "--arch", "deepseek-v2-236b",
-                          "--mesh", "2"])
+                          "--mesh", "8"])
 
 
 def test_engine_wants_a_ranks_shards():
